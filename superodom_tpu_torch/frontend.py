@@ -1,0 +1,176 @@
+"""Scan frontend: feature gates, r^2-stratified thinning, even-rate
+compaction and IMU undistortion (counterpart of ``superodom_tpu.frontend``,
+the ship path).
+
+Every array keeps its static width with a validity mask: no ``nonzero()``
+and no boolean indexing, so the step never waits on the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from superodom_tpu_torch.geometry import (
+    Pose,
+    matrix_to_quat,
+    quat_conj,
+    quat_mul,
+    quat_normalize,
+    quat_rotate,
+    quat_slerp,
+)
+from superodom_tpu_torch.ops.voxel import (
+    hash_coords_u32,
+    true_div,
+    uniform_stride_mask,
+    voxel_coords,
+)
+
+
+class Scan(NamedTuple):
+    """One LiDAR sweep as fixed-size masked tensors."""
+
+    xyz: torch.Tensor  # f32[N,3] sensor frame
+    t_rel: torch.Tensor  # f32[N] per-point time since scan start [s]
+    mask: torch.Tensor  # bool[N]
+    t_start: torch.Tensor  # f32 scalar, scan start time [s]
+    ring: torch.Tensor  # i32[N] scan line id
+
+
+class ImuWindow(NamedTuple):
+    """IMU samples covering one scan, fixed capacity."""
+
+    t: torch.Tensor  # f32[M] absolute sample times
+    acc: torch.Tensor  # f32[M,3]
+    gyr: torch.Tensor  # f32[M,3]
+    q: torch.Tensor  # f32[M,4] propagated world orientation q_w_i
+    mask: torch.Tensor  # bool[M]
+
+
+def _interp_pose_at(imu: ImuWindow, pos: torch.Tensor,
+                    times: torch.Tensor) -> Pose:
+    """Slerp-interpolated pose at arbitrary times from the IMU window,
+    clamped to the window ends (featureExtraction.cpp:255-276).  The
+    upper-bound index is a compare-and-count over the <= 64 samples."""
+    valid_t = torch.where(imu.mask, imu.t, torch.inf)
+    after = torch.sum((valid_t[None, :] <= times[:, None]).to(torch.int32),
+                      dim=-1)
+    n_valid = torch.sum(imu.mask.to(torch.int32))
+    after = torch.minimum(torch.clamp_min(after, 1),
+                          torch.clamp_min(n_valid - 1, 1))
+    before = after - 1
+    t0 = imu.t[before]
+    t1 = imu.t[after]
+    ratio = torch.clamp(
+        (times - t0) / torch.clamp_min(t1 - t0, 1e-6), 0.0, 1.0)
+    q = quat_slerp(imu.q[before], imu.q[after], ratio)
+    p = (1.0 - ratio)[..., None] * pos[before] + ratio[..., None] * pos[after]
+    return Pose(q, p)
+
+
+def undistort_points(
+    xyz: torch.Tensor,
+    t_rel: torch.Tensor,
+    mask: torch.Tensor,
+    t_start,
+    imu: ImuWindow,
+    R_i_l: torch.Tensor,
+    t_i_l: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rotation-only IMU undistortion into the scan-start lidar frame
+    (removePointDistortion<Imu>, featureExtraction.cpp:222-314).
+
+    Returns (undistorted xyz, q_w_original_l, t_w_original_l)."""
+    dtype, dev = xyz.dtype, xyz.device
+    t_start = torch.as_tensor(t_start, dtype=dtype, device=dev)
+    zeros = torch.zeros((imu.t.shape[0], 3), dtype=dtype, device=dev)
+    q_w_start = _interp_pose_at(imu, zeros, t_start[None]).q[0]
+    pt_pose = _interp_pose_at(imu, zeros, t_start + t_rel)
+
+    q_rel = quat_mul(quat_normalize(quat_conj(q_w_start)).expand(
+        pt_pose.q.shape), pt_pose.q)
+    # conjugate by the imu->lidar extrinsic
+    p_imu = xyz @ R_i_l.T + t_i_l
+    p_out = (quat_rotate(q_rel, p_imu) - t_i_l) @ R_i_l
+    out = torch.where(mask[:, None], p_out, xyz)
+    q_w_original_l = quat_normalize(quat_mul(q_w_start, matrix_to_quat(R_i_l)))
+    t_w_original_l = quat_rotate(q_w_start, t_i_l)
+    return out, q_w_original_l, t_w_original_l
+
+
+def uniform_feature_gates(xyz, prev, mask, min_range: float,
+                          max_range: float, skip_dup: bool = False):
+    """Point-quality gates of uniformFeatureExtraction (duplicate, blind
+    zone, max range, finite) without the stride selection.  ``skip_dup``:
+    the duplicate gate already ran on host (runner.make_scan)."""
+    rng_sq = torch.sum(xyz * xyz, dim=-1)
+    out = (mask & (rng_sq > min_range ** 2) & (rng_sq < max_range ** 2)
+           & torch.all(torch.isfinite(xyz), dim=-1))
+    if not skip_dup:
+        if prev.shape != xyz.shape:
+            raise ValueError(
+                f"prev.shape {tuple(prev.shape)} != xyz.shape "
+                f"{tuple(xyz.shape)}; pass skip_dup=True when the duplicate "
+                "gate already ran on host")
+        out = out & ~torch.all(torch.abs(xyz - prev) <= 1e-7, dim=-1)
+    return out
+
+
+def decimated_width(max_points: int, stride: int) -> int:
+    """Lane count of the host-decimated scan layout."""
+    return len(range(1, max_points, stride))
+
+
+def uniform_feature_extraction(xyz, mask, stride: int, min_range: float,
+                               max_range: float):
+    """Every ``stride``-th point through the quality gates (reference
+    uniformFeatureExtraction, featureExtraction.cpp:504-525)."""
+    stride_m = uniform_stride_mask(xyz.shape[0], stride, xyz.device)
+    prev = torch.roll(xyz, 1, dims=0)
+    return stride_m & uniform_feature_gates(xyz, prev, mask, min_range,
+                                            max_range)
+
+
+def range_stratified_mask(xyz: torch.Tensor, mask: torch.Tensor,
+                          target: int) -> torch.Tensor:
+    """Scatter-free spatial thinning: keep probability ~ r^2, thresholded
+    against a position-keyed hash (stable per surface patch)."""
+    r_sq = torch.sum(xyz * xyz, dim=-1)
+    r_cap = torch.clamp_max(r_sq, 1e4)
+    total = torch.clamp_min(torch.sum(r_cap * mask.to(xyz.dtype)), 1.0)
+    scale = true_div(torch.full_like(total, float(target)), total)
+    p = torch.clamp(r_cap * scale, 0.0, 1.0)
+    h = hash_coords_u32(voxel_coords(xyz, 0.1), 1)
+    u = h.to(torch.float32) * (1.0 / 4294967296.0)
+    return mask & (u < p)
+
+
+def select_features(xyz: torch.Tensor, mask: torch.Tensor, capacity: int,
+                    *extras: torch.Tensor):
+    """Compact the masked lanes into ``capacity`` lanes at an even rate
+    (LidarSlam.cpp:346-359), in input order.  As with ``lax.top_k`` in the
+    JAX package, the padding lanes are the lowest-index unselected lanes:
+    a stable descending sort of the same keys gives the same lanes."""
+    n = xyz.shape[0]
+    count = torch.clamp_min(torch.sum(mask.to(torch.int32)).to(xyz.dtype), 1.0)
+    rate = torch.clamp_max(true_div(torch.full_like(count, float(capacity)),
+                                    count), 1.0)
+    rank = (torch.cumsum(mask.to(torch.int32), dim=0) - 1).to(xyz.dtype)
+    sel = mask & (torch.floor(rank * rate) > torch.floor((rank - 1.0) * rate))
+    lane = torch.arange(n, dtype=torch.int32, device=xyz.device)
+    keys = torch.where(sel, n - lane, 0)
+    idx = torch.sort(keys, descending=True, stable=True).indices[:capacity]
+    return (xyz[idx], sel[idx]) + tuple(e[idx] for e in extras)
+
+
+def thin_and_select(xyz, mask, res, capacity: int, compact_width: int,
+                    *extras, mode: str = "range"):
+    """Spatially thin masked lanes, then compact to ``capacity`` lanes.
+    The port carries the ship config's ``"range"`` mode; the other modes
+    come with a later kernel."""
+    if mode != "range":
+        raise NotImplementedError(f"scan_thin_mode={mode!r} is not ported yet")
+    keep = range_stratified_mask(xyz, mask, 3 * capacity)
+    return select_features(xyz, keep, capacity, *extras)

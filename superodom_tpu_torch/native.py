@@ -1,0 +1,146 @@
+"""Host IMU buffer: ctypes bindings for the repository's native runtime.
+
+The C++ source is the JAX package's own ``superodom_tpu/native/loader.cpp``
+(read as a file; no Python of ``superodom_tpu`` is imported).  It is built
+with the host C++ compiler into this package's ``build/`` directory at
+first use.  A failed build raises: there is no silent numpy fallback here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+from typing import Optional, Tuple
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(os.path.dirname(_PKG), "superodom_tpu", "native",
+                    "loader.cpp")
+_BUILD = os.path.join(_PKG, "build")
+_SO = os.path.join(_BUILD, "libsuperodom_native.so")
+# the flags of superodom_tpu/native/Makefile, so both builds compute alike
+_CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
+             "-march=native"]
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _build() -> None:
+    os.makedirs(_BUILD, exist_ok=True)
+    cxx = os.environ.get("CXX", "g++")
+    # build to a private name, then rename: concurrent test workers may
+    # build at once, and a half-written library must never be loaded
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    try:
+        proc = subprocess.run([cxx, *_CXXFLAGS, "-shared", "-o", tmp, _SRC],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {_SRC} failed:\n{proc.stderr[-4000:]}")
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
+    if (not os.path.exists(_SO)
+            or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+        _build()
+    lib = ctypes.CDLL(_SO)
+    i64, i32, f64 = ctypes.c_int64, ctypes.c_int32, ctypes.c_double
+    f32p = ctypes.POINTER(ctypes.c_float)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    vp = ctypes.c_void_p
+    lib.so_imu_buffer_new.restype = vp
+    lib.so_imu_buffer_new.argtypes = [i64]
+    lib.so_imu_buffer_free.argtypes = [vp]
+    lib.so_imu_buffer_set_conditioning.argtypes = [vp, f64p, f64p, f64]
+    lib.so_imu_buffer_add.argtypes = [vp, f64, f32p, f32p]
+    lib.so_imu_buffer_static_init.restype = i32
+    lib.so_imu_buffer_static_init.argtypes = [vp, f64, f64p]
+    lib.so_imu_buffer_size.restype = i64
+    lib.so_imu_buffer_size.argtypes = [vp]
+    lib.so_imu_buffer_sync.restype = i32
+    lib.so_imu_buffer_sync.argtypes = [vp, f64, f64]
+    lib.so_imu_buffer_window.restype = i64
+    lib.so_imu_buffer_window.argtypes = [vp, f64, f64, i64, f64p, f32p, f32p,
+                                         f32p]
+    _lib = lib
+    return lib
+
+
+def _fp(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _dp(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+class ImuBuffer:
+    """Time-indexed bounded IMU buffer: raw-sample conditioning into the
+    laser frame, gyro orientation chain, static initialization and scan
+    synchronization (reference MapRingBuffer<Imu> + imuConverter +
+    updateImuOrientation + Imu::imuInit)."""
+
+    def __init__(self, capacity: int = 4096, R_imu_laser=None,
+                 t_imu_laser=None, imu_rate: float = 200.0):
+        self._lib = load()
+        self.initialized = False
+        self._h = self._lib.so_imu_buffer_new(capacity)
+        if R_imu_laser is not None or t_imu_laser is not None:
+            R = np.eye(3) if R_imu_laser is None else np.asarray(
+                R_imu_laser, np.float64)
+            R_li = np.ascontiguousarray(R.T)  # imu -> laser
+            t = np.ascontiguousarray(
+                np.zeros(3) if t_imu_laser is None
+                else np.asarray(t_imu_laser, np.float64))
+            self._lib.so_imu_buffer_set_conditioning(self._h, _dp(R_li),
+                                                     _dp(t), imu_rate)
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.so_imu_buffer_free(self._h)
+            self._h = None
+
+    def add(self, t: float, acc: np.ndarray, gyr: np.ndarray):
+        acc = np.ascontiguousarray(acc, np.float32)
+        gyr = np.ascontiguousarray(gyr, np.float32)
+        self._lib.so_imu_buffer_add(self._h, t, _fp(acc), _fp(gyr))
+
+    def static_init(self, window_sec: float = 1.0):
+        """Gravity/bias initialization over the first ``window_sec``.
+        Returns (acc_mean, gyr_bias, q0_wxyz), or None without enough data."""
+        out = np.zeros(10, np.float64)
+        if not self._lib.so_imu_buffer_static_init(self._h, window_sec,
+                                                   _dp(out)):
+            return None
+        self.initialized = True
+        return out[:3], out[3:6], out[6:10]
+
+    def __len__(self):
+        return int(self._lib.so_imu_buffer_size(self._h))
+
+    def sync(self, t0: float, t1: float) -> int:
+        """1 = covered, 0 = wait for more IMU, -1 = scan predates buffer."""
+        return int(self._lib.so_imu_buffer_sync(self._h, t0, t1))
+
+    def window(self, t0: float, t1: float, max_out: int
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Samples covering [t0, t1] (one before, one after), evenly
+        decimated to ``max_out``.  Returns (t, acc, gyr, q_wxyz)."""
+        t = np.empty(max_out, np.float64)
+        acc = np.empty((max_out, 3), np.float32)
+        gyr = np.empty((max_out, 3), np.float32)
+        q = np.empty((max_out, 4), np.float32)
+        m = self._lib.so_imu_buffer_window(self._h, t0, t1, max_out, _dp(t),
+                                           _fp(acc), _fp(gyr), _fp(q))
+        return t[:m], acc[:m], gyr[:m], q[:m]

@@ -1,0 +1,495 @@
+"""The odometry step: ``step(cfg, state, scan, imu, imu_available) ->
+(state', output)`` (counterpart of ``superodom_tpu.pipeline``).
+
+One scan runs, in order: feature gates, r^2-stratified thinning and
+even-rate compaction, IMU undistortion with the constant-velocity and
+translation de-skews, prediction-source selection, scan-to-map ICP, motion
+gates, map insert and eviction, and the inertial smoother.  Decisions that
+JAX makes with ``jnp.where`` stay device-side selections here, so a step
+waits on the host only for the ICP early-exit flag.
+
+The step is pure: it never modifies ``state``.  Static branches the ship
+configuration turns off (edge features, VIO undistortion, LIO prediction,
+insert/evict cadences other than 1) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from superodom_tpu_torch.config import MapConfig, PipelineConfig, RuntimeParams
+from superodom_tpu_torch.frontend import (
+    ImuWindow,
+    Scan,
+    decimated_width,
+    thin_and_select,
+    undistort_points,
+    uniform_feature_extraction,
+    uniform_feature_gates,
+)
+from superodom_tpu_torch.geometry import (
+    Pose,
+    matrix_to_quat,
+    pose_delta,
+    quat_conj,
+    quat_from_rpy,
+    quat_identity,
+    quat_mul,
+    quat_normalize,
+    quat_rotate,
+    rpy_from_quat,
+    so3_exp,
+    so3_log,
+)
+from superodom_tpu_torch.inertial import (
+    SmootherState,
+    preintegrate,
+    smoother_init,
+    smoother_update,
+)
+from superodom_tpu_torch.mapstate import (
+    VoxelHashMap,
+    census_box,
+    empty_map,
+    evict_far,
+    insert,
+)
+from superodom_tpu_torch.registration import IcpStats, PosePrior, icp_register
+
+# PredictionSource enum (reference LidarSlam.h:50-52)
+PRED_IMU_ORIENTATION = 0
+PRED_LIO_ODOM = 1
+PRED_VIO_ODOM = 2
+PRED_NEURAL_IMU_ODOM = 3
+PRED_CONSTANT_VELOCITY = 4
+
+
+class OdomState(NamedTuple):
+    """Full estimator state (field meanings: ``superodom_tpu.pipeline``)."""
+
+    pose: Pose
+    pose_prev: Pose
+    q_odom_pre: torch.Tensor
+    startup_count: torch.Tensor
+    initialized: torch.Tensor
+    frame_count: torch.Tensor
+    last_time: torch.Tensor
+    rt: RuntimeParams
+    edge_map: VoxelHashMap
+    surf_map: VoxelHashMap
+    smoother: SmootherState
+    degenerate: torch.Tensor
+    uncertainty: torch.Tensor
+    obs_ema: torch.Tensor
+    vio_pose: Pose
+    vio_available: torch.Tensor
+    prev_imu: ImuWindow
+
+
+class StepOutput(NamedTuple):
+    """Everything the reference publishes per scan."""
+
+    pose: Pose
+    smoothed_pose: Pose
+    vel_body: torch.Tensor
+    ang_vel_body: torch.Tensor
+    acc_bias: torch.Tensor
+    gyr_bias: torch.Tensor
+    prediction_source: torch.Tensor
+    icp: IcpStats
+    surf_stack_num: torch.Tensor
+    edge_stack_num: torch.Tensor
+    surf_map_num: torch.Tensor
+    edge_map_num: torch.Tensor
+    average_distance: torch.Tensor
+    motion_accepted: torch.Tensor
+    imu_healthy: torch.Tensor
+    translation_from_last: torch.Tensor
+    rotation_from_last: torch.Tensor
+    total_translation: torch.Tensor
+    total_rotation: torch.Tensor
+
+
+def _scalar(v, dtype, device):
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+def empty_imu_window(m: int, dtype=torch.float32, device=None) -> ImuWindow:
+    """All-masked-out IMU window (identity orientations)."""
+    return ImuWindow(
+        t=torch.zeros((m,), dtype=dtype, device=device),
+        acc=torch.zeros((m, 3), dtype=dtype, device=device),
+        gyr=torch.zeros((m, 3), dtype=dtype, device=device),
+        q=quat_identity(dtype, device)[None].repeat(m, 1),
+        mask=torch.zeros((m,), dtype=torch.bool, device=device),
+    )
+
+
+def edge_map_config(cfg: PipelineConfig) -> MapConfig:
+    """The edge map's table config: full-size with edge features on,
+    minimal otherwise."""
+    import dataclasses
+
+    if cfg.use_edge_features:
+        return cfg.map
+    return dataclasses.replace(cfg.map, table_size=64, bucket_size=8,
+                               cell_capacity=4)
+
+
+def init_state(cfg: PipelineConfig, dtype=torch.float32,
+               device=None) -> OdomState:
+    loc = cfg.localization
+    if loc.enabled:
+        q0 = quat_from_rpy(*[_scalar(v, dtype, device)
+                             for v in loc.init_pose_rpy])
+        t0 = torch.tensor(loc.init_pose_xyz, dtype=dtype, device=device)
+    else:
+        q0 = quat_identity(dtype, device)
+        t0 = torch.zeros(3, dtype=dtype, device=device)
+    pose0 = Pose(q0, t0)
+    return OdomState(
+        pose=pose0,
+        pose_prev=pose0,
+        q_odom_pre=quat_identity(dtype, device),
+        startup_count=_scalar(cfg.startup_frames, torch.int32, device),
+        initialized=_scalar(False, torch.bool, device),
+        frame_count=_scalar(0, torch.int32, device),
+        last_time=_scalar(0.0, dtype, device),
+        rt=RuntimeParams(
+            line_res=_scalar(cfg.sensor.default_line_res, dtype, device),
+            plane_res=_scalar(cfg.sensor.default_plane_res, dtype, device),
+        ),
+        edge_map=empty_map(edge_map_config(cfg), dtype, device),
+        surf_map=empty_map(cfg.map, dtype, device),
+        smoother=smoother_init(cfg.imu, dtype, device),
+        degenerate=_scalar(False, torch.bool, device),
+        uncertainty=torch.zeros((6,), dtype=dtype, device=device),
+        obs_ema=torch.zeros((3,), dtype=dtype, device=device),
+        vio_pose=Pose.identity(dtype, device),
+        vio_available=_scalar(False, torch.bool, device),
+        prev_imu=empty_imu_window(cfg.imu.max_imu_per_scan, dtype, device),
+    )
+
+
+OBS_EMA_DECAY = 0.8  # per-accepted-frame decay of the observability EMA
+
+
+def update_obs_ema(obs_ema, uncertainty3, run_icp):
+    """Per-axis translation-observability EMA, advanced only on frames
+    whose solve ran."""
+    return torch.where(
+        run_icp, OBS_EMA_DECAY * obs_ema + (1.0 - OBS_EMA_DECAY) * uncertainty3,
+        obs_ema)
+
+
+def _where_pose(c, a: Pose, b: Pose) -> Pose:
+    return Pose(torch.where(c, a.q, b.q), torch.where(c, a.t, b.t))
+
+
+def _extract_roll_pitch(q: torch.Tensor) -> torch.Tensor:
+    """Zero the yaw component (utils::extractRollPitch)."""
+    roll, pitch, _ = rpy_from_quat(q)
+    return quat_from_rpy(roll, pitch, torch.zeros_like(roll))
+
+
+def _select_prediction(cfg: PipelineConfig, state: OdomState,
+                       q_imu: torch.Tensor, imu_available: torch.Tensor):
+    """Prediction-source state machine (laserMapping.cpp:264-412): first
+    frame from IMU roll/pitch, IMU orientation during startup, then IMU
+    orientation (holding position) or constant velocity; VIO under
+    degeneracy when an external pose is available.  (The LIO source is
+    not ported; :func:`step` refuses configs that enable it.)"""
+    dtype, dev = state.pose.t.dtype, state.pose.t.device
+    R_il = torch.tensor(np.asarray(cfg.extrinsics.R_imu_laser), dtype=dtype,
+                        device=dev)
+    q_extr = quat_normalize(matrix_to_quat(R_il))
+
+    q_first = quat_normalize(quat_mul(quat_conj(q_extr),
+                                      _extract_roll_pitch(q_imu)))
+    q_first = torch.where(imu_available, q_first,
+                          quat_identity(dtype, dev))
+    first_pose = Pose(q_first, torch.zeros(3, dtype=dtype, device=dev))
+    if cfg.localization.enabled:
+        first_pose = state.pose  # configured init pose
+
+    startup_pose = Pose(torch.where(imu_available, q_imu, state.pose.q),
+                        state.pose.t)
+
+    use_vio = state.degenerate & state.vio_available
+    # IMU orientation: q_pred = q_curr * q_pre^-1 * q_now, position held
+    q_pred = quat_normalize(
+        quat_mul(state.pose.q, quat_mul(quat_conj(state.q_odom_pre), q_imu)))
+    cv_pose = state.pose.compose(state.pose_prev.inverse().compose(state.pose))
+    normal_pose = _where_pose(imu_available, Pose(q_pred, state.pose.t),
+                              cv_pose)
+    source = torch.where(imu_available, PRED_IMU_ORIENTATION,
+                         PRED_CONSTANT_VELOCITY)
+    normal_pose = _where_pose(use_vio, state.vio_pose, normal_pose)
+    source = torch.where(use_vio, PRED_VIO_ODOM, source).to(torch.int32)
+
+    in_startup = (state.startup_count > 0) & state.initialized
+    pred = _where_pose(in_startup, startup_pose, normal_pose)
+    pred = _where_pose(state.initialized, pred, first_pose)
+    source = torch.where(state.initialized & ~in_startup, source,
+                         PRED_IMU_ORIENTATION).to(torch.int32)
+    return pred, source, use_vio
+
+
+def _adjust_voxel_size(cfg: PipelineConfig, rt: RuntimeParams, xyz, mask):
+    """Scene-scale adaptive resolutions (laserMapping.cpp:600-651)."""
+    w = mask.to(xyz.dtype)
+    n = torch.clamp_min(torch.sum(w), 1.0)
+    avg = torch.sum(torch.abs(xyz) * w[:, None], dim=0) / n
+    average_distance = avg[0] * avg[1] * avg[2]
+    if not cfg.auto_voxel_size:
+        return rt, average_distance
+    near = average_distance < 25.0
+    far = average_distance > 65.0
+    line = torch.where(near, 0.1, torch.where(far, 0.4, rt.line_res))
+    plane = torch.where(near, 0.2, torch.where(far, 0.8, rt.plane_res))
+    return RuntimeParams(line_res=line.to(xyz.dtype),
+                         plane_res=plane.to(xyz.dtype)), average_distance
+
+
+def _vio_information(state, surf_mask, reg, dtype):
+    """Per-axis information of the absolute-pose constraint under
+    degeneracy (LidarSlam.cpp:285-298)."""
+    n_feat = torch.sum(surf_mask.to(dtype))
+    vcf = reg.visual_confidence_factor
+    unc = state.uncertainty
+    w_t = (1.0 - unc[:3]) * torch.clamp_min(n_feat * 0.1, 50.0) * vcf
+    w_rp = (torch.clamp_min(n_feat * 0.01, 10.0) * vcf).expand(2)
+    return torch.cat([w_t, w_rp, torch.zeros((1,), dtype=dtype,
+                                             device=unc.device)])
+
+
+class _Stages:
+    """Consecutive named profiler ranges over the stages of one step
+    ("step.frontend", "step.registration", ...): visible in torch.profiler
+    traces, a few microseconds each when no profiler runs."""
+
+    def __init__(self):
+        self._cur = None
+
+    def __call__(self, name: str):
+        self.close()
+        self._cur = torch.profiler.record_function("step." + name)
+        self._cur.__enter__()
+
+    def close(self):
+        if self._cur is not None:
+            self._cur.__exit__(None, None, None)
+            self._cur = None
+
+
+def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
+         imu_available: torch.Tensor, vio=None
+         ) -> Tuple[OdomState, StepOutput]:
+    """Process one scan end to end (laserMapping::process with the feature
+    extraction ahead of it and the inertial smoother after it)."""
+    if cfg.use_edge_features:
+        raise NotImplementedError("edge features are not ported yet")
+    if cfg.use_vio_undistortion:
+        raise NotImplementedError("VIO undistortion is not ported yet")
+    if cfg.enable_lio_prediction:
+        raise NotImplementedError("LIO prediction is not ported yet")
+    if cfg.map.insert_cadence != 1 or cfg.map.evict_cadence != 1:
+        raise NotImplementedError("map cadences other than 1 are not ported")
+    dtype, dev = scan.xyz.dtype, scan.xyz.device
+    sensor = cfg.sensor
+    reg = cfg.registration
+    R_il = torch.tensor(np.asarray(cfg.extrinsics.R_imu_laser), dtype=dtype,
+                        device=dev)
+    t_il = torch.tensor(np.asarray(cfg.extrinsics.t_imu_laser), dtype=dtype,
+                        device=dev)
+    imu_available = torch.as_tensor(imu_available, device=dev)
+
+    stage = _Stages()
+    # ---------------- frontend: extract features, then undistort ----------
+    stage("frontend")
+    if scan.xyz.shape[0] < sensor.max_points:  # host-decimated layout
+        w = decimated_width(sensor.max_points, sensor.filter_point_size)
+        if scan.xyz.shape[0] != w:
+            raise ValueError(
+                f"scan width {scan.xyz.shape[0]} is neither max_points "
+                f"({sensor.max_points}) nor the decimated width ({w})")
+        feat_mask = uniform_feature_gates(scan.xyz, None, scan.mask,
+                                          sensor.min_range, sensor.max_range,
+                                          skip_dup=True)
+    else:
+        feat_mask = uniform_feature_extraction(
+            scan.xyz, scan.mask, sensor.filter_point_size, sensor.min_range,
+            sensor.max_range)
+    rt, average_distance = _adjust_voxel_size(cfg, state.rt, scan.xyz,
+                                              feat_mask)
+    surf_raw, surf_mask, surf_trel = thin_and_select(
+        scan.xyz, feat_mask, rt.plane_res, sensor.max_surface_features,
+        sensor.compact_width, scan.t_rel, mode=sensor.scan_thin_mode)
+    surf_u, q_w_orig_l, _ = undistort_points(
+        surf_raw, surf_trel, surf_mask, scan.t_start, imu, R_il, t_il)
+    surf_pts = torch.where(imu_available, surf_u, surf_raw)
+    q_imu_pred = torch.where(imu_available, q_w_orig_l,
+                             quat_identity(dtype, dev))
+
+    # de-skews only past the startup window (the early twist is garbage)
+    settled = state.frame_count > cfg.startup_frames
+    if cfg.use_cv_undistortion:
+        # constant-velocity de-skew for IMU-less sweeps
+        rel = state.pose_prev.inverse().compose(state.pose)
+        nominal = sensor.scan_period * max(sensor.skip_frame, 1)
+        rot_vec = so3_log(rel.q)
+        sane = (torch.linalg.norm(rel.t) < 2.0) & (
+            torch.linalg.norm(rot_vec) < 0.5)
+        use_cv = ~imu_available & state.initialized & sane & settled
+        s = (surf_trel / nominal)[:, None]
+        cv = quat_rotate(so3_exp(s * rot_vec[None, :]), surf_raw) \
+            + s * rel.t[None, :]
+        cv = torch.where(surf_mask[:, None], cv, surf_raw)
+        surf_pts = torch.where(use_cv, cv, surf_pts)
+    if cfg.use_translation_deskew:
+        # translation de-skew for IMU-covered sweeps, from the smoother's
+        # body-frame velocity
+        v_b = quat_rotate(quat_conj(state.smoother.q[-1]),
+                          state.smoother.v[-1])
+        smoother_ok = state.smoother.valid[-1] & ~state.smoother.failed
+        v_sane = torch.linalg.norm(v_b) < cfg.imu.max_velocity
+        use_trans = (imu_available & state.initialized & smoother_ok
+                     & v_sane & settled)
+        tr = torch.where(surf_mask[:, None],
+                         surf_trel[:, None] * v_b[None, :], 0.0)
+        surf_pts = torch.where(use_trans, surf_u + tr, surf_pts)
+    edge_pts = torch.zeros((sensor.max_edge_features, 3), dtype=dtype,
+                           device=dev)
+    edge_mask = torch.zeros((sensor.max_edge_features,), dtype=torch.bool,
+                            device=dev)
+
+    # ---------------- prediction ------------------------------------------
+    stage("prediction")
+    lidar2imu = Pose(matrix_to_quat(R_il), t_il)
+    pre = preintegrate(state.prev_imu, state.smoother.ba[-1],
+                       state.smoother.bg[-1], rate=cfg.imu.imu_rate)
+    pred_pose, source, use_vio = _select_prediction(cfg, state, q_imu_pred,
+                                                    imu_available)
+
+    # ---------------- scan-to-map registration ----------------------------
+    stage("registration")
+    half_extent = torch.tensor([125.0, 125.0, 75.0], dtype=dtype, device=dev)
+    surf_map_num = census_box(state.surf_map, cfg.map, pred_pose.t,
+                              half_extent)
+    edge_map_num = census_box(state.edge_map, cfg.map, pred_pose.t,
+                              half_extent)
+    enough = surf_map_num > reg.min_map_surf_features
+    prior = PosePrior(pose=state.vio_pose,
+                      information=_vio_information(state, surf_mask, reg,
+                                                   dtype),
+                      enabled=use_vio)
+    # the per-axis match-count hold is armed only while the map is young
+    hold_enabled = (state.startup_count > 0) | (
+        state.frame_count <= cfg.startup_frames)
+    reg_pose, icp_stats = icp_register(
+        state.edge_map, state.surf_map, cfg.map, reg, pred_pose, edge_pts,
+        edge_mask, surf_pts, surf_mask, rt, prior, use_edges=False,
+        hold_enabled=hold_enabled)
+    enough_matches = icp_stats.plane_rejection_hist[0] >= reg.min_plane_matches
+    run_icp = state.initialized & enough & enough_matches
+    pose = _where_pose(run_icp, reg_pose, pred_pose)
+    finite = torch.all(torch.isfinite(pose.t)) & torch.all(
+        torch.isfinite(pose.q))
+    pose = _where_pose(finite, pose, pred_pose)
+
+    # ---------------- post-optimization (LidarSlam.cpp:155-210) -----------
+    stage("motion_gates")
+    trans_from_last, rot_from_last = pose_delta(state.pose, pose)
+    if reg.yaw_ratio != 0.0:
+        roll, pitch, yaw = rpy_from_quat(pose.q)
+        yaw = yaw + trans_from_last * (reg.yaw_ratio * np.pi / 180.0)
+        pose = Pose(quat_from_rpy(roll, pitch, yaw), pose.t)
+
+    t_start = torch.as_tensor(scan.t_start, dtype=dtype, device=dev)
+    dt_scan = t_start - state.last_time
+    vel_gate = torch.where(
+        state.initialized & (dt_scan > 1e-6),
+        trans_from_last / torch.clamp_min(dt_scan, 1e-6)
+        < reg.velocity_failure_threshold,
+        True)
+    small_motion = (trans_from_last < 0.02) & (rot_from_last < 0.005)
+    accepted = vel_gate & ~small_motion
+    pose = _where_pose(accepted, pose, state.pose)
+    startup_count = torch.where(
+        ~vel_gate, 5, torch.clamp_min(state.startup_count - 1, 0)
+    ).to(torch.int32)
+
+    # ---------------- map update (insert + evict every frame) -------------
+    stage("map_update")
+    do_update_map = (not cfg.localization.enabled) \
+        or cfg.localization.update_map
+    surf_map = insert(state.surf_map, cfg.map, pose.apply(surf_pts),
+                      surf_mask & do_update_map, rt.plane_res)
+    surf_map = evict_far(surf_map, cfg.map, pose.t)
+
+    # ---------------- inertial smoother -----------------------------------
+    stage("smoother")
+    smoother, smoothed_imu = smoother_update(
+        state.smoother, cfg.imu, pose.compose(lidar2imu), t_start,
+        state.prev_imu, pre=pre)
+    smoothed_pose = smoothed_imu.compose(lidar2imu.inverse())
+
+    # ---------------- body velocities (laserMapping.cpp:744-758) ----------
+    stage("outputs")
+    inv_dt = torch.clamp_min(dt_scan, 1e-6)
+    vel_body = quat_rotate(quat_conj(pose.q), (pose.t - state.pose.t) / inv_dt)
+    dq = quat_mul(pose.q, quat_conj(state.pose.q))
+    ang_vel_body = quat_rotate(quat_conj(pose.q), so3_log(dq) / inv_dt)
+    zero_v = ~state.initialized | (dt_scan <= 1e-6)
+    vel_body = torch.where(zero_v, 0.0, vel_body)
+    ang_vel_body = torch.where(zero_v, 0.0, ang_vel_body)
+
+    total_trans, total_rot = pose_delta(pred_pose, pose)
+
+    new_state = OdomState(
+        pose=pose,
+        pose_prev=state.pose,
+        q_odom_pre=torch.where(imu_available, q_imu_pred, state.q_odom_pre),
+        startup_count=startup_count,
+        initialized=torch.ones((), dtype=torch.bool, device=dev),
+        frame_count=state.frame_count + 1,
+        last_time=t_start,
+        rt=rt,
+        edge_map=state.edge_map,
+        surf_map=surf_map,
+        smoother=smoother,
+        degenerate=icp_stats.degenerate & run_icp,
+        uncertainty=torch.where(run_icp, icp_stats.uncertainty,
+                                state.uncertainty),
+        obs_ema=update_obs_ema(state.obs_ema, icp_stats.uncertainty[:3],
+                               run_icp),
+        vio_pose=state.vio_pose,
+        vio_available=state.vio_available,
+        prev_imu=imu._replace(mask=imu.mask & imu_available),
+    )
+    out = StepOutput(
+        pose=pose,
+        smoothed_pose=smoothed_pose,
+        vel_body=vel_body,
+        ang_vel_body=ang_vel_body,
+        acc_bias=smoother.ba[-1],
+        gyr_bias=smoother.bg[-1],
+        prediction_source=source,
+        icp=icp_stats,
+        surf_stack_num=torch.sum(surf_mask.to(torch.int32)).to(torch.int32),
+        edge_stack_num=torch.sum(edge_mask.to(torch.int32)).to(torch.int32),
+        surf_map_num=surf_map_num,
+        edge_map_num=edge_map_num,
+        average_distance=average_distance,
+        motion_accepted=accepted,
+        imu_healthy=~smoother.failed,
+        translation_from_last=trans_from_last,
+        rotation_from_last=rot_from_last,
+        total_translation=total_trans,
+        total_rotation=total_rot,
+    )
+    stage.close()
+    return new_state, out
