@@ -13,7 +13,8 @@ stream, raises if the launch was refused, and adds one to its entry of
 :data:`launch_counts` — there and nowhere else.  They take CUDA tensors
 only; the dispatching wrappers (``mapstate.octant_lookup``,
 ``mapstate.knn_select``, ``registration.plane_fit``,
-``registration.normal_system``) send CPU tensors to the plain versions.
+``registration.normal_system``, ``registration.gauss_newton_solve``) send
+CPU tensors to the plain versions.
 """
 
 from __future__ import annotations
@@ -32,9 +33,20 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-KERNELS = ("octant_lookup", "knn_select", "plane_fit", "normal_system")
+SOURCES = ("octant_lookup", "knn_select", "plane_fit", "normal_system",
+           "launch_floor")
+# the counted entry points; gn_solve and normal_system are the two modes of
+# csrc/normal_system.cu
+KERNELS = ("octant_lookup", "knn_select", "plane_fit", "gn_solve",
+           "normal_system")
+SOURCE_OF = {"gn_solve": "normal_system"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+# gn_solve runs on one cluster of GN_BLOCKS blocks; each block stages
+# ceil(M / GN_BLOCKS) rows (rounded up to 16) of 33 bytes in shared memory,
+# at most GN_MAX_ROW_BYTES (csrc/normal_system.cu)
+GN_BLOCKS = 8
+GN_MAX_ROW_BYTES = 216 * 1024
 
 launch_counts = {name: 0 for name in KERNELS}
 
@@ -49,7 +61,7 @@ def reset_counts() -> None:
 
 
 def _sources():
-    return [os.path.join(CSRC, f"{name}.cu") for name in KERNELS]
+    return [os.path.join(CSRC, f"{name}.cu") for name in SOURCES]
 
 
 def _library_path() -> str:
@@ -108,10 +120,12 @@ def load() -> ctypes.CDLL:
     lib.so_knn_select.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, vp]
     lib.so_plane_fit.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                  vp, vp, vp, vp, vp, vp, vp]
-    lib.so_normal_system.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, vp, vp,
-                                     vp]
+    lib.so_gn_solve.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, vp,
+                                vp, vp, vp, vp, vp, ci, cf, cf, ci,
+                                vp, vp, vp]
+    lib.so_launch_floor.argtypes = [vp]
     for fn in (lib.so_octant_lookup, lib.so_knn_select, lib.so_plane_fit,
-               lib.so_normal_system):
+               lib.so_gn_solve, lib.so_launch_floor):
         fn.restype = ci
     _lib = lib
     return lib
@@ -131,8 +145,8 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _p(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _p(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -174,7 +188,8 @@ def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
     _check("slots", slots, torch.int32, (nq, 8), dev)
     _check("pts", pts, torch.float32, device=dev)
     C = pts.shape[1] // 3
-    if pts.shape[1] != 3 * C or 8 * C > 256 or not 1 <= k <= 8 * C:
+    if pts.shape[1] != 3 * C or not 1 <= C <= 32 or not 1 <= k <= min(
+            32, 8 * C):
         raise ValueError(f"knn_select: unsupported cell capacity {C} or k {k}")
     neigh = torch.empty((nq, k, 3), dtype=torch.float32, device=dev)
     sq = torch.empty((nq, k), dtype=torch.float32, device=dev)
@@ -217,14 +232,12 @@ def plane_fit(neigh: torch.Tensor, sq: torch.Tensor, nvalid: torch.Tensor,
     return normal, d, coeff, valid, code, bins
 
 
-_TRIU = [(i, j) for i in range(6) for j in range(i, 6)]
-
-
-def normal_system(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
-                  coeff: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
-                  t: torch.Tensor, a_sq: torch.Tensor):
-    """K4 on the card: (H f32[6,6], g f32[6], cost f32[]) (see
-    csrc/normal_system.cu)."""
+def _gn_launch(rows, q, t, a_sq, n_iters, out, first_small, *, obs_bins=None,
+               prior=None, hold_min=0, hold_frac=0.0, hold_enabled=None,
+               damping=0.0):
+    """Check the inputs of csrc/normal_system.cu and launch it; returns the
+    C function's code.  ``rows`` = (p_body, normal, d, coeff, valid)."""
+    p_body, normal, d, coeff, valid = rows
     dev = p_body.device
     nm = p_body.shape[0]
     _check("p_body", p_body, torch.float32, (nm, 3))
@@ -235,16 +248,68 @@ def normal_system(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
     _check("q", q, torch.float32, (4,), dev)
     _check("t", t, torch.float32, (3,), dev)
     _check("a_sq", a_sq, torch.float32, (), dev)
-    out = torch.empty((28,), dtype=torch.float32, device=dev)
-    rc = load().so_normal_system(_p(p_body), _p(normal), _p(d), _p(coeff),
-                                 _p(valid), nm, _p(q), _p(t), _p(a_sq),
-                                 _p(out), _stream(dev))
+    if hold_min > 0:
+        if obs_bins is None:
+            raise ValueError("gn_solve: the axis hold needs obs_bins")
+        _check("obs_bins", obs_bins, torch.int32, (nm, 3), dev)
+    if prior is not None:
+        for name, x, dtype, shape in zip(
+                ("prior q", "prior t", "prior information", "prior enabled"),
+                prior, (torch.float32,) * 3 + (torch.bool,),
+                ((4,), (3,), (6,), ())):
+            _check(name, x, dtype, shape, dev)
+    if hold_enabled is not None:
+        _check("hold_enabled", hold_enabled, torch.bool, (), dev)
+    per_block = -(-nm // GN_BLOCKS)
+    if -(-per_block // 16) * 16 * 33 > GN_MAX_ROW_BYTES:
+        raise ValueError(f"gn_solve: {nm} rows do not fit the shared memory "
+                         f"of {GN_BLOCKS} blocks")
+    pq, pt, pi, pe = prior if prior is not None else (None,) * 4
+    return load().so_gn_solve(
+        _p(p_body), _p(normal), _p(d), _p(coeff), _p(valid), _p(obs_bins),
+        nm, _p(q), _p(t), _p(a_sq), _p(pq), _p(pt), _p(pi), _p(pe),
+        _p(hold_enabled), int(hold_min), float(hold_frac), float(damping),
+        int(n_iters), _p(out), _p(first_small), _stream(dev))
+
+
+def normal_system(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
+                  coeff: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
+                  t: torch.Tensor, a_sq: torch.Tensor):
+    """K4 on the card, n_iters = 0 mode: (H f32[6,6], g f32[6], cost f32[])
+    at the pose (q, t) (see csrc/normal_system.cu)."""
+    out = torch.empty((43,), dtype=torch.float32, device=p_body.device)
+    rc = _gn_launch((p_body, normal, d, coeff, valid), q, t, a_sq, 0, out,
+                    None)
     _launched("normal_system", rc)
-    if dev not in _SYM:
-        _SYM[dev] = torch.tensor(
-            [_TRIU.index((min(i, j), max(i, j))) for i in range(6)
-             for j in range(6)], device=dev)
-    return out[_SYM[dev]].reshape(6, 6), out[21:27], out[27]
+    return out[:36].view(6, 6), out[36:42], out[42]
 
 
-_SYM: dict = {}  # device -> index of each H entry in the upper triangle
+def gn_solve(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
+             coeff: torch.Tensor, valid: torch.Tensor, obs_bins: torch.Tensor,
+             q: torch.Tensor, t: torch.Tensor, a_sq: torch.Tensor,
+             n_iters: int, damping: float = 1e-4, prior=None,
+             hold_min: int = 0, hold_frac: float = 0.005, hold_enabled=None):
+    """K4 on the card: ``n_iters`` damped Gauss-Newton iterations in one
+    launch.  ``prior`` is None or (q f32[4], t f32[3], information f32[6],
+    enabled bool[]); ``hold_min`` > 0 arms the axis hold.  Returns
+    (q f32[4], t f32[3], first_small bool[]) (see csrc/normal_system.cu)."""
+    if n_iters < 1:
+        raise ValueError("gn_solve: n_iters must be >= 1 (n_iters = 0 is "
+                         "normal_system)")
+    dev = p_body.device
+    out = torch.empty((7,), dtype=torch.float32, device=dev)
+    small = torch.empty((), dtype=torch.bool, device=dev)
+    rc = _gn_launch((p_body, normal, d, coeff, valid), q, t, a_sq, n_iters,
+                    out, small, obs_bins=obs_bins, prior=prior,
+                    hold_min=hold_min, hold_frac=hold_frac,
+                    hold_enabled=hold_enabled, damping=damping)
+    _launched("gn_solve", rc)
+    return out[:4], out[4:], small
+
+
+def launch_floor(device) -> None:
+    """Launch the empty kernel of csrc/launch_floor.cu (timing only; not
+    counted, not on any path)."""
+    rc = load().so_launch_floor(_stream(device))
+    if rc != 0:
+        raise RuntimeError(f"launch_floor: CUDA launch failed with error {rc}")

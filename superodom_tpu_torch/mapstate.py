@@ -128,6 +128,13 @@ def octant_lookup_reference(keys: torch.Tensor, queries: torch.Tensor,
     """Plain version of K1: slot ids int32[Q, 8] of the 2x2x2 block of cells
     nearest each query (the lookup half of ``gather_candidates``)."""
     nq = queries.shape[0]
+    return _lookup_keys(keys, octant_cells(queries, cell_size).reshape(-1)
+                        ).reshape(nq, 8)
+
+
+def octant_cells(queries: torch.Tensor, cell_size: float) -> torch.Tensor:
+    """Packed keys int32[Q, 8] of the 2x2x2 block of cells nearest each
+    query, in the JAX package's octant order."""
     scaled = true_div(queries, cell_size)
     cell = torch.floor(scaled).to(torch.int32)
     frac = scaled - cell.to(queries.dtype)
@@ -137,7 +144,7 @@ def octant_lookup_reference(keys: torch.Tensor, queries: torch.Tensor,
     o = torch.arange(8, dtype=torch.int32, device=queries.device)
     corners = torch.stack([(o >> 2) & 1, (o >> 1) & 1, o & 1], dim=-1)
     ncells = cell[:, None, :] + corners[None] * side[:, None, :]
-    return _lookup_keys(keys, pack_cells(ncells.reshape(-1, 3))).reshape(nq, 8)
+    return pack_cells(ncells)
 
 
 def octant_lookup(keys: torch.Tensor, queries: torch.Tensor,

@@ -1,14 +1,19 @@
 """Host IMU buffer: ctypes bindings for the repository's native runtime.
 
-The C++ source is the JAX package's own ``superodom_tpu/native/loader.cpp``
-(read as a file; no Python of ``superodom_tpu`` is imported).  It is built
-with the host C++ compiler into this package's ``build/`` directory at
-first use.  A failed build raises: there is no silent numpy fallback here.
+The C++ source is this package's ``csrc/native_loader.cpp``, a byte-for-byte
+copy of the JAX package's native loader (held equal by
+``tests/test_torch_host.py``).  It sits apart from the CUDA kernels and is
+built with the host C++ compiler into this package's ``build/`` directory
+at first use.  The library's name carries a hash of the source, the
+compiler, its flags and what ``-march=native`` means on this host, so a
+library built on another CPU is never loaded.  A failed build raises:
+there is no silent numpy fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -17,20 +22,33 @@ from typing import Optional, Tuple
 import numpy as np
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_PKG), "superodom_tpu", "native",
-                    "loader.cpp")
+_SRC = os.path.join(_PKG, "csrc", "native_loader.cpp")
 _BUILD = os.path.join(_PKG, "build")
-_SO = os.path.join(_BUILD, "libsuperodom_native.so")
-# the flags of superodom_tpu/native/Makefile, so both builds compute alike
+# the flags of the JAX package's native Makefile, so both builds compute alike
 _CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
              "-march=native"]
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _build() -> None:
+def _library_path(cxx: str) -> str:
+    # the compiler's predefined macros under these flags name the target
+    # CPU and every instruction set -march=native turns on
+    proc = subprocess.run([cxx, *_CXXFLAGS, "-dM", "-E", "-x", "c++", "-"],
+                          input="", capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} cannot name its target:\n"
+                           f"{proc.stderr[-4000:]}")
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join([cxx, *_CXXFLAGS]).encode())
+    h.update(proc.stdout.encode())
+    return os.path.join(_BUILD, f"libsuperodom_native-{h.hexdigest()[:16]}.so")
+
+
+def _build(cxx: str, path: str) -> None:
     os.makedirs(_BUILD, exist_ok=True)
-    cxx = os.environ.get("CXX", "g++")
     # build to a private name, then rename: concurrent test workers may
     # build at once, and a half-written library must never be loaded
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
@@ -41,7 +59,7 @@ def _build() -> None:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"building {_SRC} failed:\n{proc.stderr[-4000:]}")
-        os.replace(tmp, _SO)
+        os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -51,10 +69,11 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    if (not os.path.exists(_SO)
-            or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-        _build()
-    lib = ctypes.CDLL(_SO)
+    cxx = os.environ.get("CXX", "g++")
+    path = _library_path(cxx)
+    if not os.path.exists(path):
+        _build(cxx, path)
+    lib = ctypes.CDLL(path)
     i64, i32, f64 = ctypes.c_int64, ctypes.c_int32, ctypes.c_double
     f32p = ctypes.POINTER(ctypes.c_float)
     f64p = ctypes.POINTER(ctypes.c_double)

@@ -5,11 +5,13 @@ Correspondences: the octant slots of every feature are looked up once at
 the predicted pose (K1, :func:`mapstate.octant_lookup`); each ICP round
 re-selects the k nearest map points at the current pose (K2,
 :func:`mapstate.knn_select`) and fits planes to them (K3,
-:func:`plane_fit`).  Each Gauss-Newton step reduces the robust normal
-system of those planes (K4, :func:`normal_system`); the pose-prior
-diagonal, the damped 6x6 solve, the axis hold and the SE(3) retraction
-are plain PyTorch.  ``plane_fit_reference`` and ``normal_system_reference``
-are the plain versions the CPU takes.
+:func:`plane_fit`).  The round's whole damped Gauss-Newton solve — robust
+normal system, pose-prior diagonal, 6x6 Cholesky solve, axis hold and
+SE(3) retraction, every iteration — is one launch of K4
+(:func:`gauss_newton_solve`); its ``n_iters = 0`` mode gives the final
+normal system (:func:`normal_system`).  ``plane_fit_reference``,
+``gauss_newton_solve_reference`` and ``normal_system_reference`` are the
+plain versions the CPU takes.
 
 The edge path (use_edges) and candidate refresh (refresh_width > 0) are
 not ported yet and raise NotImplementedError.
@@ -275,7 +277,8 @@ def normal_system_reference(p_body, normal, d, coeff, valid, q, t, a_sq):
 
 
 def normal_system(p_body, normal, d, coeff, valid, q, t, a_sq):
-    """K4: see :func:`normal_system_reference` for the contract."""
+    """K4 (n_iters = 0 mode): see :func:`normal_system_reference` for the
+    contract."""
     if p_body.is_cuda:
         return kernels.normal_system(p_body, normal, d, coeff, valid, q, t,
                                      a_sq)
@@ -285,19 +288,26 @@ def normal_system(p_body, normal, d, coeff, valid, q, t, a_sq):
     raise ValueError(f"normal_system: unsupported device {p_body.device}")
 
 
+def _tukey_support(rt: RuntimeParams, a_mult, like: torch.Tensor):
+    """a^2 of the Tukey loss: 3 * plane_res * a_mult, a 0-d tensor."""
+    return torch.as_tensor(3.0 * rt.plane_res * a_mult, dtype=like.dtype,
+                           device=like.device)
+
+
 def _accumulate_normal_system(pose: Pose, planes: PlaneCorrs, edges,
                               rt: RuntimeParams, prior: Optional[PosePrior],
-                              use_edges: bool = False, a_mult=1.0):
+                              use_edges: bool = False, a_mult=1.0,
+                              system=normal_system):
     """H (6x6), g (6,) and cost of all correspondences at the current pose,
-    plus the absolute pose prior's diagonal."""
+    plus the absolute pose prior's diagonal.  ``system`` computes the
+    correspondences' part: the dispatching K4, or its plain version."""
     if use_edges:
         raise NotImplementedError("the edge path is not ported yet")
-    a_sq = 3.0 * rt.plane_res * a_mult
-    H, g, cost = normal_system(
+    H, g, cost = system(
         planes.p_body.contiguous(), planes.normal.contiguous(),
         planes.d.contiguous(), planes.coeff.contiguous(),
         planes.valid.contiguous(), pose.q.contiguous(), pose.t.contiguous(),
-        torch.as_tensor(a_sq, dtype=pose.t.dtype, device=pose.t.device))
+        _tukey_support(rt, a_mult, pose.t))
     if prior is not None:
         r_t = pose.t - prior.pose.t
         dq = quat_mul(quat_conj(prior.pose.q), pose.q)
@@ -308,6 +318,28 @@ def _accumulate_normal_system(pose: Pose, planes: PlaneCorrs, edges,
     return H, g, cost
 
 
+def axis_hold_mask(planes: PlaneCorrs, axis_hold_min: int,
+                   axis_hold_frac: float, prior: Optional[PosePrior] = None,
+                   hold_enabled=None) -> torch.Tensor:
+    """bool[3]: the body translation axes whose dominant-normal vote count
+    (``obs_bins[:, 2] - 6`` over valid correspondences) falls below
+    min(axis_hold_min, max(1, axis_hold_frac * n_valid)); disarmed by
+    ``hold_enabled`` False or an enabled prior."""
+    dtype, dev = planes.p_body.dtype, planes.p_body.device
+    votes = planes.obs_bins[:, 2] - 6  # top translation axis per corr
+    cnt = torch.sum((votes[:, None] == torch.arange(3, device=dev)[None])
+                    & planes.valid[:, None], dim=0).to(dtype)
+    n_valid = torch.sum(planes.valid).to(dtype)
+    thresh = torch.clamp_max(torch.clamp_min(axis_hold_frac * n_valid, 1.0),
+                             float(axis_hold_min))
+    hold = cnt < thresh  # bool[3], body axes
+    if hold_enabled is not None:
+        hold = hold & hold_enabled
+    if prior is not None:
+        hold = hold & ~prior.enabled
+    return hold
+
+
 def gauss_newton_solve(pose: Pose, planes: PlaneCorrs, edges,
                        rt: RuntimeParams, n_iters: int,
                        prior: Optional[PosePrior] = None,
@@ -316,30 +348,55 @@ def gauss_newton_solve(pose: Pose, planes: PlaneCorrs, edges,
                        axis_hold_frac: float = 0.005, hold_enabled=None):
     """Fixed-count damped Gauss-Newton on SE(3) with IRLS robust weights
     and the per-axis match-count hold (see the JAX package's docstring).
-    Returns (pose, converged_in_one)."""
+    Returns (pose, converged_in_one).  On CUDA tensors all ``n_iters``
+    iterations run in one launch of K4 (``kernels.gn_solve``); on the CPU
+    the plain :func:`gauss_newton_solve_reference`."""
+    if use_edges:
+        raise NotImplementedError("the edge path is not ported yet")
+    if pose.t.is_cuda:
+        q, t, first_small = kernels.gn_solve(
+            planes.p_body.contiguous(), planes.normal.contiguous(),
+            planes.d.contiguous(), planes.coeff.contiguous(),
+            planes.valid.contiguous(), planes.obs_bins.contiguous(),
+            pose.q.contiguous(), pose.t.contiguous(),
+            _tukey_support(rt, a_mult, pose.t), n_iters, damping,
+            None if prior is None else tuple(
+                x.contiguous() for x in (prior.pose.q, prior.pose.t,
+                                         prior.information, prior.enabled)),
+            axis_hold_min, axis_hold_frac, hold_enabled)
+        return Pose(q, t), first_small
+    if pose.t.device.type == "cpu":
+        return gauss_newton_solve_reference(
+            pose, planes, edges, rt, n_iters, prior, damping, use_edges,
+            a_mult, axis_hold_min, axis_hold_frac, hold_enabled)
+    raise ValueError(f"gauss_newton_solve: unsupported device {pose.t.device}")
+
+
+def gauss_newton_solve_reference(pose: Pose, planes: PlaneCorrs, edges,
+                                 rt: RuntimeParams, n_iters: int,
+                                 prior: Optional[PosePrior] = None,
+                                 damping: float = 1e-4,
+                                 use_edges: bool = False, a_mult=1.0,
+                                 axis_hold_min: int = 0,
+                                 axis_hold_frac: float = 0.005,
+                                 hold_enabled=None):
+    """Plain version of K4's solve: the GN loop in PyTorch ops over
+    :func:`normal_system_reference` (never the kernel, on any device)."""
     if use_edges:
         raise NotImplementedError("the edge path is not ported yet")
     dtype, dev = pose.t.dtype, pose.t.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     hold = None
     if axis_hold_min > 0:
-        votes = planes.obs_bins[:, 2] - 6  # top translation axis per corr
-        cnt = torch.sum((votes[:, None] == torch.arange(3, device=dev)[None])
-                        & planes.valid[:, None], dim=0).to(dtype)
-        n_valid = torch.sum(planes.valid).to(dtype)
-        thresh = torch.clamp_max(torch.clamp_min(axis_hold_frac * n_valid, 1.0),
-                                 float(axis_hold_min))
-        hold = cnt < thresh  # bool[3], body axes
-        if hold_enabled is not None:
-            hold = hold & hold_enabled
-        if prior is not None:
-            hold = hold & ~prior.enabled
+        hold = axis_hold_mask(planes, axis_hold_min, axis_hold_frac, prior,
+                              hold_enabled)
 
     p = pose
     first_small = None
     for _ in range(n_iters):
         H, g, _ = _accumulate_normal_system(p, planes, edges, rt, prior,
-                                            use_edges, a_mult)
+                                            use_edges, a_mult,
+                                            system=normal_system_reference)
         Hd = H + damping * eye6 * (1.0 + torch.diagonal(H))
         delta = -solve6_spd(Hd, g)
         delta = torch.where(torch.isfinite(delta), delta, 0.0)

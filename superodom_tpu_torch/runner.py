@@ -39,10 +39,11 @@ class RunResult:
 
 class OdometryRunner:
     """Feeds scans + IMU windows through :func:`pipeline.step` on
-    ``device``.  Because the native buffer conditions IMU samples into the
-    laser frame, the step runs with identity extrinsics."""
+    ``device`` — the card unless the caller names ``device="cpu"``.
+    Because the native buffer conditions IMU samples into the laser frame,
+    the step runs with identity extrinsics."""
 
-    def __init__(self, cfg: PipelineConfig, device="cpu",
+    def __init__(self, cfg: PipelineConfig, device="cuda",
                  dtype=torch.float32):
         self.cfg = cfg
         self.device = torch.device(device)

@@ -2,8 +2,10 @@
 configuration tree, the synthetic dataset, the native IMU buffer, the
 state converters, and the import isolation of the port (exact)."""
 
+import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -105,11 +107,50 @@ def test_imu_buffer_matches_native(conditioned):
             np.testing.assert_array_equal(a, b)
 
 
+def test_native_loader_is_the_port_own_copy():
+    """The port builds its own copy of the native loader, byte for byte the
+    JAX package's, and its build names no path of the JAX package."""
+    with open(os.path.join(ROOT, "superodom_tpu", "native", "loader.cpp"),
+              "rb") as f:
+        original = f.read()
+    with open(tnative._SRC, "rb") as f:
+        assert f.read() == original
+    assert tnative._SRC.startswith(
+        os.path.join(ROOT, "superodom_tpu_torch") + os.sep)
+    with open(tnative.__file__) as f:
+        assert "superodom_tpu/" not in f.read()
+
+
+def _jax_package_paths(path):
+    """String constants of a Python file that name a path of the JAX
+    package (``file:line`` references to its code are not paths read)."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            s = node.value
+            if s in ("superodom_tpu", "../superodom_tpu") or re.fullmatch(
+                    r"(\.\./)?superodom_tpu/[^\s:]*", s):
+                bad.append(s)
+    return bad
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "superodom_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    bad = {f: b for f in files if (b := _jax_package_paths(f))}
+    assert not bad, bad
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "import superodom_tpu_torch.runner, superodom_tpu_torch.cli, "
-        "superodom_tpu_torch.convert, superodom_tpu_torch.kernels\n"
+        "superodom_tpu_torch.convert, superodom_tpu_torch.kernels, "
+        "superodom_tpu_torch.profile, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'superodom_tpu' or m.startswith('superodom_tpu.')]\n"
         "assert not bad, bad\n"

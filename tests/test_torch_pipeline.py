@@ -4,6 +4,7 @@ a 20-scan replay through ``OdometryRunner.run_dataset`` held to the
 golden-lock pinning rule against the JAX replay of the same data."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -139,11 +140,18 @@ def test_replay_tracks_like_jax(jax_replay):
     assert res.stats[-1]["n_iterations"] >= 1
 
 
+def test_runner_runs_on_the_card_by_default():
+    """The entry point takes the card unless the caller names the CPU
+    (checked by signature: constructing it here would need a card)."""
+    params = inspect.signature(OdometryRunner.__init__).parameters
+    assert params["device"].default == "cuda"
+
+
 def test_unported_branches_raise():
     cfg = _tiny(tcfg, early_exit=True)
     state = tp.init_state(cfg)
-    scan = OdometryRunner(cfg).make_scan(0.0, np.zeros((10, 3), np.float32),
-                                         np.zeros(10, np.float32))
+    scan = OdometryRunner(cfg, device="cpu").make_scan(
+        0.0, np.zeros((10, 3), np.float32), np.zeros(10, np.float32))
     win = tp.empty_imu_window(cfg.imu.max_imu_per_scan)
     for bad in (dataclasses.replace(cfg, use_edge_features=True),
                 dataclasses.replace(cfg, enable_lio_prediction=True),
