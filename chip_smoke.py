@@ -44,7 +44,6 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_SCANS = 64  # OS1-128 scans replayed on the main path
 TOL_K2_SQ_REL = 1e-6
-TOL_K3 = 1e-5
 TOL_K4_REL = 1e-5
 GN_TOL = 1e-5  # GN kernel vs plain solve: metres and quaternion components
 ATE_BAR_M = 0.1
@@ -128,6 +127,17 @@ def bound(nbytes: float, ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def lanes_that_differ(out_a, out_b, torch):
+    """bool[M]: the rows in which any of two versions' per-row outputs
+    differs (NaN equal to NaN)."""
+    differ = None
+    for a, b in zip(out_a, out_b):
+        ne = (a != b) & ~((a != a) & (b != b))
+        ne = ne if ne.dim() == 1 else ne.flatten(1).any(dim=1)
+        differ = ne if differ is None else differ | ne
+    return differ
+
+
 def make_ship_dataset(cfg, n_scans, seed=7):
     """The replay benchmark's dataset (bench._dataset): a 80 x 60 x 16 m
     box, radius-5 m circle, 0.5 laps per 120 scans, distorted sweeps."""
@@ -197,11 +207,14 @@ def phase_kernels(cfg, ds, torch, dev, timer, host_timer):
     s_r = mapstate.octant_lookup_reference(m.keys, queries, cfg.map.cell_size)
     torch.cuda.synchronize()
     mism = int((s_k != s_r).sum())
+    nb, B = m.keys.shape
+    found = s_r[s_r >= 0]
     log(f"K1 octant_lookup: {mism} of {s_r.numel()} slot ids differ; "
-        f"{int((s_r >= 0).sum())} found")
+        f"{found.numel()} found, {int((found % B < 32).sum())} of them in "
+        f"the first 32 lanes of their row; {int((m.keys >= 0).sum(1).max())} "
+        f"keys in the fullest row")
     if mism:
         raise SystemExit("K1 octant_lookup disagrees with its plain version")
-    nb, B = m.keys.shape
     touched = torch.unique(mapstate._bucket_of(
         mapstate.octant_cells(queries, cfg.map.cell_size).reshape(-1),
         nb)).numel()
@@ -242,7 +255,10 @@ def phase_kernels(cfg, ds, torch, dev, timer, host_timer):
                     + nq * k * (12 + 4 + 1 + 8),
                     int((s_r >= 0).sum()) * C * 8))
 
-    # K3 plane_fit: codes exact away from gate thresholds, floats 1e-5
+    # K3 plane_fit: normal and d identical to the bit on every row; coeff,
+    # valid, code and bins too, except that they may differ in a lane that
+    # gate_margin_lanes flags (a decision within 1e-5 of a gate threshold
+    # or an arg-max tie), and the line says how many do
     args3 = (nr.contiguous(), sr.contiguous(), vr.contiguous(), mask,
              queries, q, res)
     out_k = kernels.plane_fit(*args3)
@@ -250,22 +266,18 @@ def phase_kernels(cfg, ds, torch, dev, timer, host_timer):
     torch.cuda.synchronize()
     near = registration.gate_margin_lanes(nr, sr, vr, queries, q, out_r[0],
                                           out_r[1], res)
-    far = ~near
-    int_ok = all(torch.equal(a[far], b[far])
-                 for a, b in zip(out_k[3:], out_r[3:]))
-    # normal and coeff are unitless; d is a distance in metres, compared
-    # relative to its size (at 40 m one float ulp is 3.8e-6)
-    errs = [float((out_k[0] - out_r[0])[far].abs().max()),
-            float(((out_k[1] - out_r[1]).abs()
-                   / out_r[1].abs().clamp_min(1.0))[far].max()),
-            float((out_k[2] - out_r[2])[far].abs().max())]
-    err3 = max(errs)
-    n_diff = int((out_k[4] != out_r[4]).sum())
+    differ = lanes_that_differ(out_k, out_r, torch)
+    fit_differ = lanes_that_differ(out_k[:2], out_r[:2], torch)
+    err3 = max(float((out_k[0] - out_r[0]).abs().max()),
+               float((out_k[1] - out_r[1]).abs().max()),
+               float((out_k[2] - out_r[2])[~near].abs().max()))
     log(f"K3 plane_fit: {int(out_r[3].sum())} valid planes, "
         f"{int(near.sum())} lanes within 1e-5 of a gate, "
-        f"{n_diff} codes differ, max err normal {errs[0]:.3e}, "
-        f"d (relative) {errs[1]:.3e}, coeff {errs[2]:.3e}")
-    if not int_ok or not err3 <= TOL_K3:
+        f"{int(differ.sum())} lanes differ in any output "
+        f"({int((differ & ~near).sum())} of them away from a gate, "
+        f"{int(fit_differ.sum())} in normal or d), max abs err of normal "
+        f"and d, and of coeff away from a gate, {err3:.3e}")
+    if bool((differ & ~near).any() | fit_differ.any()) or err3 != 0.0:
         raise SystemExit("K3 plane_fit disagrees with its plain version")
     results["plane_fit"] = dict(
         err=err3, ms=timer(lambda: kernels.plane_fit(*args3)),

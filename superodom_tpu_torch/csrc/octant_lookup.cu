@@ -12,13 +12,36 @@
 // scramble of the key masked to NB buckets; the slot is the FIRST lane of
 // that bucket's B-key row holding the key (-1 if none).
 //
-// What bounds it on an H100: bytes, not arithmetic.  Each (query, octant)
-// reads one B = 128-key row (512 bytes); the key table itself is 256 KB
-// (512 x 128 int32) and stays in the 50 MB L2, so the kernel is bound by
-// L2 latency of 8 row reads per query.  Design: one warp per (query,
-// octant), the row read coalesced as four 128-byte segments, the first
-// match found with one ballot per segment and the scan stopped there.
+// What bounds it on an H100: neither the bytes that reach device memory
+// (queries, the touched rows, the slot ids: ~0.1 us) nor arithmetic.  Each
+// (query, octant) probe compares one whole B = 128-key row (512 bytes):
+// 16,384 probes read 8.4 MB through L1 / L2 (the 256 KB key table stays in
+// the 50 MB L2), and the launch is so short that what costs is the chain
+// query -> key -> row -> match -> store of one warp.  Design:
+//   * 8 lanes share a probe, so a warp serves 4 octants and two
+//     warps a query: the main path's 2,048 queries are 4,096 warps,
+//     resident on the card in one wave.  4, 16 and 32 lanes a probe
+//     measured slower (PERF.md);
+//   * every lane starts all its 16-byte loads of the row before the first
+//     compare (4 independent int4 loads a lane at B = 128; the lanes of a
+//     probe read neighbouring vectors, 128 contiguous bytes a load
+//     instruction), so a probe pays one memory round trip whether it hits
+//     or misses.  Reading the row's first 32 keys alone and the rest only
+//     after a miss saved nothing on the main path's data, where all hits
+//     but one lie there (PERF.md), and costs a miss a second round trip;
+//   * a lane keeps the lowest key index it matched, and the probe's lanes
+//     take the minimum with one hardware warp reduction (redux.sync over
+//     the probe's lanes): the lowest index in the row wins, as in the plain
+//     version, also where a row holds a key twice;
+//   * the quotient is the IEEE one (__fdiv_rn), as the plain version
+//     divides: that is what makes the cell floor agree with it to the bit.
 #include "common.cuh"
+
+// lanes that share one (query, octant) probe, and threads a block
+#define OL_LANES 8
+#define OL_THREADS 128
+
+#define OL_NONE 0xffffffffu
 
 static __device__ __forceinline__ uint32_t so_bucket_scramble(uint32_t h) {
   h ^= h >> 16;
@@ -27,16 +50,25 @@ static __device__ __forceinline__ uint32_t so_bucket_scramble(uint32_t h) {
   return h;
 }
 
-__global__ void octant_lookup_kernel(const int* __restrict__ keys, int nb,
-                                     int B, const float* __restrict__ queries,
-                                     int nq, float cell_size,
-                                     int* __restrict__ out) {
-  const int warp = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+// NV > 0: 16-byte vectors a lane, known when compiled (B = 4 * NV *
+// OL_LANES); NV == 0: any B that is a multiple of 4.  The table is 16-byte
+// aligned (kernels.octant_lookup refuses another) and is read as int4.
+template <int NV>
+__global__ void __launch_bounds__(OL_THREADS) octant_lookup_kernel(
+    const int* __restrict__ keys, int nb, int B,
+    const float* __restrict__ queries, int nq, float cell_size,
+    int* __restrict__ out) {
+  constexpr int L = OL_LANES;
+  // a warp serves 4 octants, two warps a query
+  const int warp = (int)((blockIdx.x * OL_THREADS + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
-  if (warp >= nq * 8) return;  // uniform per warp
-  const int qi = warp >> 3, o = warp & 7;
+  const int qi = warp >> 1;
+  if (qi >= nq) return;  // uniform per warp
+  const int o = (warp & 1) * 4 + lane / L;
+  const int sub = lane % L;
 
   uint32_t packed = 0;
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float s = __fdiv_rn(queries[qi * 3 + a], cell_size);
     const int c = (int)floorf(s);
@@ -46,29 +78,59 @@ __global__ void octant_lookup_kernel(const int* __restrict__ keys, int nb,
     packed |= ((uint32_t)nc & 1023u) << (10 * a);
   }
   const uint32_t b = so_bucket_scramble(packed) & (uint32_t)(nb - 1);
-  const int* row = keys + (size_t)b * B;
-  int found = -1;
-  for (int base = 0; base < B; base += 32) {
-    const int l = base + lane;
-    const bool hit = l < B && row[l] == (int)packed;
-    const unsigned bal = __ballot_sync(0xffffffffu, hit);
-    if (bal) {
-      found = base + __ffs(bal) - 1;
-      break;
+  const int4* row = reinterpret_cast<const int4*>(keys + (size_t)b * B);
+  const int key = (int)packed;
+  const int nvec = B >> 2;  // 16-byte vectors in the row
+  const int per_lane = NV > 0 ? NV : (nvec + L - 1) / L;
+  // the lanes of this probe
+  const uint32_t probe = ((1u << L) - 1u) << (lane - sub);
+
+  // the lowest matching key index among this lane's vectors (the indices
+  // grow with v, but the minimum keeps the loads independent of the
+  // compares), then among the probe's lanes
+  uint32_t mine = OL_NONE;
+#pragma unroll(NV > 0 ? NV : 4)
+  for (int v = 0; v < per_lane; ++v) {
+    const int vi = v * L + sub;
+    if (NV > 0 || vi < nvec) {
+      const int4 kv = row[vi];
+      const uint32_t at = (uint32_t)vi * 4u;
+      uint32_t hit = kv.w == key ? at + 3u : OL_NONE;
+      hit = kv.z == key ? at + 2u : hit;
+      hit = kv.y == key ? at + 1u : hit;
+      hit = kv.x == key ? at : hit;
+      mine = min(mine, hit);
     }
   }
-  if (lane == 0) out[qi * 8 + o] = found >= 0 ? (int)b * B + found : -1;
+  const uint32_t best = __reduce_min_sync(probe, mine);
+  if (sub == 0)
+    out[qi * 8 + o] = best != OL_NONE ? (int)(b * (uint32_t)B + best) : -1;
 }
 
+template <int NV>
+static void so_launch_octant_lookup(const int* keys, int nb, int B,
+                                    const float* queries, int nq,
+                                    float cell_size, int* out,
+                                    cudaStream_t stream) {
+  const long long threads = (long long)nq * 8 * OL_LANES;
+  const int blocks = (int)((threads + OL_THREADS - 1) / OL_THREADS);
+  octant_lookup_kernel<NV><<<blocks, OL_THREADS, 0, stream>>>(
+      keys, nb, B, queries, nq, cell_size, out);
+}
+
+// nb a power of two, B a multiple of 4, keys 16-byte aligned.
 extern "C" int so_octant_lookup(const int* keys, int nb, int B,
                                 const float* queries, int nq, float cell_size,
                                 int* out, void* stream) {
+  if (nb < 1 || (nb & (nb - 1)) || B < 4 || (B & 3) ||
+      (reinterpret_cast<uintptr_t>(keys) & 15))
+    return (int)cudaErrorInvalidValue;
   if (nq > 0) {
-    const int threads = 256;  // 8 warps: one query's 8 octants per block
-    const long long warps = (long long)nq * 8;
-    const int blocks = (int)((warps * 32 + threads - 1) / threads);
-    octant_lookup_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        keys, nb, B, queries, nq, cell_size, out);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (B == 128)  // 4 vectors a lane
+      so_launch_octant_lookup<128 / (4 * OL_LANES)>(keys, nb, B, queries, nq, cell_size, out, s);
+    else
+      so_launch_octant_lookup<0>(keys, nb, B, queries, nq, cell_size, out, s);
   }
   return (int)cudaGetLastError();
 }

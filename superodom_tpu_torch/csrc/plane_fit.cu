@@ -17,15 +17,57 @@
 //
 // What bounds it on an H100: neither arithmetic (~400 flops a query) nor
 // bytes (~120 bytes in, ~40 out a query) at Q = 2,048 — it is one short
-// launch.  Design: one thread per correspondence, everything in registers,
-// written op for op as the plain version so the two agree to rounding.
+// launch, and what costs is one round trip to memory, then the serial chain
+// of one thread (IEEE divisions, roots, acosf, cosf), then the stores.
+// Design:
+//   * one thread per correspondence, written op for op as the plain
+//     version, every sum in index order in that one thread, so the two
+//     agree to the bit;
+//   * k is a template parameter for the presets' 5 and for 10: the row,
+//     the weights and the scatter sit in registers, every loop unrolls and
+//     nothing is indexed by a runtime value (no local memory), and one
+//     read of the row serves the mean, the scatter and the residuals; any
+//     other k <= 16 takes the runtime-k instance, which re-reads the row
+//     where it is used;
+//   * every load of a thread (row, validity, k-th distance, point, mask,
+//     pose, resolution) is made at the top, before the first use, so the
+//     thread waits for memory once;
+//   * blocks of PF_BLOCK = 64 correspondences: the main path's 2,048 rows
+//     are 32 blocks of 2 warps.
+// Measured on the H100 and not kept, because none was faster here (the
+// 276 KB of inputs are in L2, written by K2 just before; PERF.md): staging
+// each block's contiguous tile in shared memory with 16-byte asynchronous
+// copies, coalesced stores of normal and bins through shared memory, and
+// the body axes computed once a block into shared memory (each costs a
+// block barrier).
 #include <math.h>
 
 #include "common.cuh"
 
 #define PF_MAX_K 16
+// correspondences (= threads) a block; 32, 128 and 256 measured no faster
+// on the H100 (PERF.md)
+#define PF_BLOCK 64
+
+// ---------------------------------------------------------- eigensolver
 
 static __device__ __forceinline__ float so_sq(float x) { return x * x; }
+
+// first index of the largest value (strict >, the lower index wins a tie;
+// a NaN never wins), without indexing by a runtime value, so v stays in
+// registers
+template <int N>
+static __device__ __forceinline__ int so_argmax(const float (&v)[N]) {
+  int best = 0;
+  float top = v[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i)
+    if (v[i] > top) {
+      top = v[i];
+      best = i;
+    }
+  return best;
+}
 
 // row-cross-product eigenvector of A for eigenvalue lam (eigh3._eigvec)
 static __device__ void so_eigvec(const float A[3][3], float lam,
@@ -37,22 +79,17 @@ static __device__ void so_eigvec(const float A[3][3], float lam,
   so_cross(r0, r1, c[0]);
   so_cross(r0, r2, c[1]);
   so_cross(r1, r2, c[2]);
-  float n[3];
-  for (int i = 0; i < 3; ++i) n[i] = so_dot3(c[i], c[i]);
-  int best = 0;
-  for (int i = 1; i < 3; ++i)
-    if (n[i] > n[best]) best = i;
+  const float n[3] = {so_dot3(c[0], c[0]), so_dot3(c[1], c[1]),
+                      so_dot3(c[2], c[2])};
+  const int best = so_argmax<3>(n);
   // a NaN norm takes the fallback, as jnp.max / torch.amax propagate it
   const bool any_nan = isnan(n[0]) || isnan(n[1]) || isnan(n[2]);
   const float nmax = fmaxf(fmaxf(n[0], n[1]), n[2]);
-  if (!any_nan && nmax > 1e-12f) {
-    v[0] = c[best][0];
-    v[1] = c[best][1];
-    v[2] = c[best][2];
-  } else {
-    v[0] = 1.0f;
-    v[1] = 0.0f;
-    v[2] = 0.0f;
+  const bool use = !any_nan && nmax > 1e-12f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float ca = best == 0 ? c[0][a] : best == 1 ? c[1][a] : c[2][a];
+    v[a] = use ? ca : (a == 0 ? 1.0f : 0.0f);
   }
   const float nv = fmaxf(sqrtf(so_dot3(v, v)), 1e-20f);
   v[0] /= nv;
@@ -96,58 +133,90 @@ static __device__ void so_eigvals3(const float A[3][3], float ev[3]) {
   }
 }
 
-static __device__ __forceinline__ int so_argmax(const float* v, int n) {
-  int best = 0;
-  for (int i = 1; i < n; ++i)
-    if (v[i] > v[best]) best = i;
-  return best;
-}
-
-__global__ void plane_fit_kernel(
+// K > 0: k known when compiled; K == 0: any k <= PF_MAX_K, given as k_rt.
+template <int K>
+__global__ void __launch_bounds__(PF_BLOCK) plane_fit_kernel(
     const float* __restrict__ neigh, const float* __restrict__ sq,
     const unsigned char* __restrict__ nvalid,
     const unsigned char* __restrict__ mask, const float* __restrict__ w_pt,
     const float* __restrict__ pose_q, const float* __restrict__ plane_res_p,
-    int nq, int k, float* __restrict__ normal_out, float* __restrict__ d_out,
-    float* __restrict__ coeff_out, unsigned char* __restrict__ valid_out,
-    int* __restrict__ code_out, int* __restrict__ bins_out) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+    int nq, int k_rt, float* __restrict__ normal_out,
+    float* __restrict__ d_out, float* __restrict__ coeff_out,
+    unsigned char* __restrict__ valid_out, int* __restrict__ code_out,
+    int* __restrict__ bins_out) {
+  const int k = K > 0 ? K : k_rt;
+  const int m = (int)(blockIdx.x * PF_BLOCK + threadIdx.x);
   if (m >= nq) return;
-  const float plane_res = plane_res_p[0];
-  const float* P = neigh + (size_t)m * k * 3;
+  const float* row = neigh + (size_t)m * k * 3;
+  const unsigned char* nv = nvalid + (size_t)m * k;
 
-  float w[PF_MAX_K];
+  // every load of the thread is made here, before any use: one round trip
+  // to memory.  The row and its weights sit in registers where k is known
+  // (one read serves the mean, the scatter and the residuals); the
+  // runtime-k instance reads them where they are used.
+  float P[K > 0 ? K * 3 : 1], w[K > 0 ? K : 1];
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      w[j] = nv[j] ? 1.0f : 0.0f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) P[j * 3 + a] = row[j * 3 + a];
+    }
+  }
+  const float sq_last = sq[(size_t)m * k + k - 1];
+  const float wpv[3] = {w_pt[(size_t)m * 3], w_pt[(size_t)m * 3 + 1],
+                        w_pt[(size_t)m * 3 + 2]};
+  const bool mk = mask[m] != 0;
+  const float plane_res = plane_res_p[0];
+  const float q[4] = {pose_q[0], pose_q[1], pose_q[2], pose_q[3]};
+
+  auto pt = [&](int j, int a) -> float {
+    if constexpr (K > 0) return P[j * 3 + a];
+    else return row[j * 3 + a];
+  };
+  auto wt = [&](int j) -> float {
+    if constexpr (K > 0) return w[j];
+    else return nv[j] ? 1.0f : 0.0f;
+  };
+
   int n_found = 0;
   float wsum = 0.0f;
+#pragma unroll
   for (int j = 0; j < k; ++j) {
-    w[j] = nvalid[(size_t)m * k + j] ? 1.0f : 0.0f;
-    n_found += nvalid[(size_t)m * k + j] ? 1 : 0;
-    wsum += w[j];
+    n_found += wt(j) != 0.0f ? 1 : 0;
+    wsum += wt(j);
   }
   const bool enough = n_found >= k;
   const float max_sq = 3.0f * plane_res;
-  const bool near = enough && sq[(size_t)m * k + k - 1] <= max_sq;
+  const bool near = enough && sq_last <= max_sq;
 
   // weighted mean + unnormalised scatter (_weighted_pca)
   wsum = fmaxf(wsum, 1e-6f);
   float mean[3];
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
     float s = 0.0f;
-    for (int j = 0; j < k; ++j) s += P[j * 3 + a] * w[j];
+#pragma unroll
+    for (int j = 0; j < k; ++j) s += pt(j, a) * wt(j);
     mean[a] = s / wsum;
   }
   float cov[3][3] = {{0.0f}};
+#pragma unroll
   for (int j = 0; j < k; ++j) {
     float c[3];
-    for (int a = 0; a < 3; ++a) c[a] = (P[j * 3 + a] - mean[a]) * w[j];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) c[a] = (pt(j, a) - mean[a]) * wt(j);
+#pragma unroll
     for (int a = 0; a < 3; ++a)
+#pragma unroll
       for (int b = 0; b < 3; ++b) cov[a][b] += c[a] * c[b];
   }
   float ev[3], v_lo[3];
   so_eigvals3(cov, ev);
   so_eigvec(cov, ev[0], v_lo);
 
-  const bool pca_ok = ev[0] >= 1e-6f && ev[1] / fmaxf(ev[2], 1e-12f) >= 0.1f;
+  const bool pca_ok =
+      ev[0] >= 1e-6f && ev[1] / fmaxf(ev[2], 1e-12f) >= 0.1f;
 
   float n[3] = {v_lo[0], v_lo[1], v_lo[2]};
   float d = -so_dot3(n, mean);
@@ -162,9 +231,11 @@ __global__ void plane_fit_kernel(
 
   bool mse_ok = true;
   float dist_sum = 0.0f;
+#pragma unroll
   for (int j = 0; j < k; ++j) {
-    const float pd = fabsf(so_dot3(P + j * 3, n) + d);
-    if (w[j] != 0.0f) {
+    const float pj[3] = {pt(j, 0), pt(j, 1), pt(j, 2)};
+    const float pd = fabsf(so_dot3(pj, n) + d);
+    if (wt(j) != 0.0f) {
       mse_ok = mse_ok && pd <= plane_res / 2.0f;
       dist_sum += pd;
     }
@@ -172,7 +243,6 @@ __global__ void plane_fit_kernel(
   const float mean_dist = dist_sum / fmaxf((float)n_found, 1.0f);
   const float coeff =
       1.0f - sqrtf(fminf(fmaxf(mean_dist / max_sq, 0.0f), 1.0f));
-  const bool mk = mask[m] != 0;
   const bool valid = mk && enough && near && pca_ok && numeric_ok && mse_ok;
 
   int code = 0;
@@ -189,21 +259,19 @@ __global__ void plane_fit_kernel(
   const float lam2 = sqrtf(fmaxf(ev[1], 0.0f));
   const float lam3 = sqrtf(fmaxf(ev[0], 0.0f));
   const float planar2 = (lam2 - lam3) / fmaxf(lam1, 1e-12f);
-  const float* wp = w_pt + (size_t)m * 3;
   float on[3] = {v_lo[0], v_lo[1], v_lo[2]};
-  if (so_dot3(wp, on) < 0.0f) {
+  if (so_dot3(wpv, on) < 0.0f) {
     on[0] = -on[0];
     on[1] = -on[1];
     on[2] = -on[2];
   }
-  const float q[4] = {pose_q[0], pose_q[1], pose_q[2], pose_q[3]};
-  float axes[3][3];
+  float axes[3][3];  // the body axes in the world frame
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float e[3] = {i == 0 ? 1.0f : 0.0f, i == 1 ? 1.0f : 0.0f,
                         i == 2 ? 1.0f : 0.0f};
     so_quat_rotate(q, e, axes[i]);
   }
-  const float wpv[3] = {wp[0], wp[1], wp[2]};
   float cr[3];
   so_cross(wpv, on, cr);
   const float rx = so_dot3(cr, axes[0]), ry = so_dot3(cr, axes[1]),
@@ -213,21 +281,36 @@ __global__ void plane_fit_kernel(
   const float tq[3] = {p2 * fabsf(so_dot3(on, axes[0])),
                        p2 * fabsf(so_dot3(on, axes[1])),
                        p2 * fabsf(so_dot3(on, axes[2]))};
-  const int top1 = so_argmax(rot, 6);
-  rot[top1] = -INFINITY;
-  const int top2 = so_argmax(rot, 6);
-  const int ttop = so_argmax(tq, 3) + 6;
+  const int top1 = so_argmax<6>(rot);
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    if (i == top1) rot[i] = -INFINITY;
+  const int top2 = so_argmax<6>(rot);
+  const int ttop = so_argmax<3>(tq) + 6;
 
-  normal_out[m * 3 + 0] = n[0];
-  normal_out[m * 3 + 1] = n[1];
-  normal_out[m * 3 + 2] = n[2];
+  normal_out[(size_t)m * 3 + 0] = n[0];
+  normal_out[(size_t)m * 3 + 1] = n[1];
+  normal_out[(size_t)m * 3 + 2] = n[2];
+  bins_out[(size_t)m * 3 + 0] = valid ? top1 : -1;
+  bins_out[(size_t)m * 3 + 1] = valid ? top2 : -1;
+  bins_out[(size_t)m * 3 + 2] = valid ? ttop : -1;
   d_out[m] = d;
   coeff_out[m] = valid ? coeff : 0.0f;
   valid_out[m] = valid;
   code_out[m] = code;
-  bins_out[m * 3 + 0] = valid ? top1 : -1;
-  bins_out[m * 3 + 1] = valid ? top2 : -1;
-  bins_out[m * 3 + 2] = valid ? ttop : -1;
+}
+
+template <int K>
+static void so_launch_plane_fit(
+    const float* neigh, const float* sq, const unsigned char* nvalid,
+    const unsigned char* mask, const float* w_pt, const float* pose_q,
+    const float* plane_res, int nq, int k, float* normal, float* d,
+    float* coeff, unsigned char* valid, int* code, int* bins,
+    cudaStream_t stream) {
+  const int blocks = (nq + PF_BLOCK - 1) / PF_BLOCK;
+  plane_fit_kernel<K><<<blocks, PF_BLOCK, 0, stream>>>(
+      neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d,
+      coeff, valid, code, bins);
 }
 
 extern "C" int so_plane_fit(const float* neigh, const float* sq,
@@ -237,13 +320,14 @@ extern "C" int so_plane_fit(const float* neigh, const float* sq,
                             int nq, int k, float* normal, float* d,
                             float* coeff, unsigned char* valid, int* code,
                             int* bins, void* stream) {
-  if (k > PF_MAX_K) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > PF_MAX_K) return (int)cudaErrorInvalidValue;
   if (nq > 0) {
-    const int threads = 128;
-    const int blocks = (nq + threads - 1) / threads;
-    plane_fit_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d,
-        coeff, valid, code, bins);
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (k) {
+      case 5: so_launch_plane_fit<5>(neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d, coeff, valid, code, bins, s); break;
+      case 10: so_launch_plane_fit<10>(neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d, coeff, valid, code, bins, s); break;
+      default: so_launch_plane_fit<0>(neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d, coeff, valid, code, bins, s); break;
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -171,6 +171,9 @@ def octant_lookup(keys: torch.Tensor, queries: torch.Tensor,
     if nb & (nb - 1) or B % 32:
         raise ValueError(f"octant_lookup: need power-of-two buckets and a "
                          f"bucket size that is a multiple of 32, got {nb}x{B}")
+    if keys.data_ptr() % 16:
+        raise ValueError("octant_lookup: the key table must start on a "
+                         "16-byte line (its rows are read as 16-byte vectors)")
     out = torch.empty((nq, 8), dtype=torch.int32, device=dev)
     rc = load().so_octant_lookup(_p(keys), nb, B, _p(queries), nq,
                                  float(cell_size), _p(out), _stream(dev))

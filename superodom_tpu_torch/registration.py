@@ -525,11 +525,12 @@ def icp_register(
     dtype, dev = surf_pts.dtype, surf_pts.device
     surf_pts = surf_pts.contiguous()
 
-    slots = octant_lookup(surf_map.keys, pose0.apply(surf_pts).contiguous(),
-                          map_cfg.cell_size)
+    w_pt0 = pose0.apply(surf_pts).contiguous()
+    slots = octant_lookup(surf_map.keys, w_pt0, map_cfg.cell_size)
 
-    def correspondences(pose: Pose) -> PlaneCorrs:
-        w_pt = pose.apply(surf_pts).contiguous()
+    def correspondences(pose: Pose, w_pt=None) -> PlaneCorrs:
+        if w_pt is None:
+            w_pt = pose.apply(surf_pts).contiguous()
         neigh, sq, nvalid, _ = knn_select(surf_map.pts, slots, w_pt,
                                           reg.plane_knn)
         return _plane_fit(neigh, sq, nvalid, reg, pose, surf_pts, surf_mask,
@@ -537,8 +538,10 @@ def icp_register(
 
     rounds = torch.arange(max_it, device=dev)
 
-    def icp_round(c: _Carry) -> _Carry:
-        planes = correspondences(c.pose)
+    def icp_round(c: _Carry, w_pt=None) -> _Carry:
+        """One round from ``c``; ``w_pt`` = the features at ``c.pose`` where
+        the caller has them already."""
+        planes = correspondences(c.pose, w_pt)
         new_pose, one_step = gauss_newton_solve(
             c.pose, planes, None, rt, reg.max_gn_iters, prior,
             use_edges=False, a_mult=anneal_mult(reg, c.it, dtype),
@@ -566,7 +569,8 @@ def icp_register(
         it=torch.zeros((), dtype=torch.int32, device=dev), planes=None,
         t_norms=torch.zeros((max_it,), dtype=dtype, device=dev),
         r_norms=torch.zeros((max_it,), dtype=dtype, device=dev),
-        surf_ns=torch.zeros((max_it,), dtype=torch.int32, device=dev)))
+        surf_ns=torch.zeros((max_it,), dtype=torch.int32, device=dev)),
+        w_pt0)
     for _ in range(max_it - 1):
         if reg.icp_early_exit and bool(c.converged):
             break

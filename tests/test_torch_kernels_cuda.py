@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 shapes and cases the main path does not reach: odd query counts, other
-cell capacities, k = 10, missing slots, tied distances; the Gauss-Newton
-kernel at row counts that do not fill its cluster's blocks,
+cell capacities, k = 10, missing slots, tied distances; the octant lookup
+over bucket sizes and counts, duplicate keys, wrapped and boundary cells;
+the plane fit, bit for bit, over k (templated and
+generic instances), tile heads and tails, unaligned base pointers,
+invalid, NaN and inf rows; the Gauss-Newton kernel at row counts that do not fill its cluster's blocks,
 with the axis hold biting, an enabled prior, a non-finite system, and
 repeat runs; a replay repeated over poisoned freed memory; and the
 wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
@@ -35,8 +38,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _map(dev, cap, seed):
-    """A map filled by the port's insert from clustered random points."""
+def _map(dev, cap, seed, nq=333):
+    """A map filled by the port's insert from clustered random points, and
+    ``nq`` queries near its points."""
     cfg = MapConfig(cell_size=1.0, table_size=1 << 12, cell_capacity=cap)
     g = torch.Generator(device="cpu").manual_seed(seed)
     centers = torch.rand((40, 3), generator=g) * 12.0 - 6.0
@@ -48,7 +52,7 @@ def _map(dev, cap, seed):
         m = mapstate.insert(m, cfg, pts[sl].contiguous(),
                             torch.ones(1000, dtype=torch.bool, device=dev),
                             torch.tensor(0.05, device=dev))
-    q = (pts[:333] + 0.1 * torch.randn((333, 3), generator=g).to(dev))
+    q = (pts[:nq] + 0.1 * torch.randn((nq, 3), generator=g).to(dev))
     return cfg, m, q.contiguous()
 
 
@@ -85,6 +89,207 @@ def test_select_ties_go_to_the_lower_lane(dev):
     assert torch.all(out_k[3][0, 1:] > out_k[3][0, :-1])
 
 
+def _wall_map(dev, seed, nq):
+    """A map of three noisy walls (x = 5, y = 5, z = 5), dense enough that
+    16 neighbours lie within the plane fit's reach, and ``nq`` queries
+    near them."""
+    cfg = MapConfig(cell_size=1.0, table_size=1 << 12, cell_capacity=16)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pts = torch.rand((8000, 3), generator=g) * 8.0 - 4.0
+    wall = torch.randint(0, 3, (8000,), generator=g)
+    pts[torch.arange(8000), wall] = 5.0
+    pts = (pts + 0.02 * torch.randn((8000, 3), generator=g)).to(dev)
+    m = mapstate.empty_map(cfg, device=dev)
+    for i in range(4):
+        sl = slice(2000 * i, 2000 * (i + 1))
+        m = mapstate.insert(m, cfg, pts[sl].contiguous(),
+                            torch.ones(2000, dtype=torch.bool, device=dev),
+                            torch.tensor(0.05, device=dev))
+    q = pts[:nq] + 0.05 * torch.randn((nq, 3), generator=g).to(dev)
+    return cfg, m, q.contiguous()
+
+
+def _keys_table(cells, nb, B, dev):
+    """A key table int32[nb, B] holding ``cells`` (int [N, 3]), each in the
+    first free lane of its bucket row, as the map's insert places them;
+    cells that find their row full are dropped."""
+    packed = mapstate.pack_cells(torch.as_tensor(cells, dtype=torch.int32))
+    bucket = mapstate._bucket_of(packed, nb)
+    keys = np.full((nb, B), -1, np.int32)
+    fill = np.zeros(nb, np.int64)
+    for p, b in zip(packed.tolist(), bucket.tolist()):
+        if fill[b] < B and p not in keys[b, :fill[b]]:
+            keys[b, fill[b]] = p
+            fill[b] += 1
+    return torch.from_numpy(keys).to(dev)
+
+
+def _lookup_both(keys, q, cell_size):
+    s_k = kernels.octant_lookup(keys, q, cell_size)
+    s_r = mapstate.octant_lookup_reference(keys, q, cell_size)
+    torch.cuda.synchronize()
+    assert s_k.dtype == torch.int32 and s_k.shape == (q.shape[0], 8)
+    assert torch.equal(s_k, s_r)
+    return s_r
+
+
+@pytest.mark.parametrize("nb", [1, 64, 512])
+@pytest.mark.parametrize("B", [32, 64, 128, 256])
+def test_octant_lookup_bucket_shapes(dev, B, nb):
+    """Every bucket size and count: B = 128 is the instance with the row's
+    vector count known when compiled, the others take the generic one."""
+    rng = np.random.default_rng(B + nb)
+    cells = rng.integers(-7, 8, size=(min(nb * B, 1500), 3))
+    keys = _keys_table(cells, nb, B, dev)
+    q = torch.from_numpy(rng.uniform(-8.0, 8.0, (500, 3)).astype(np.float32))
+    s = _lookup_both(keys, q.to(dev), 1.0)
+    assert (s >= 0).any() and (s < 0).any()
+
+
+@pytest.mark.parametrize("nq", [0, 1, 2048])
+def test_octant_lookup_query_counts(dev, nq):
+    rng = np.random.default_rng(nq)
+    keys = _keys_table(rng.integers(-7, 8, size=(1500, 3)), 512, 128, dev)
+    q = torch.from_numpy(rng.uniform(-8.0, 8.0, (nq, 3)).astype(np.float32))
+    s = _lookup_both(keys, q.to(dev), 1.0)
+    assert nq == 0 or (s >= 0).any()
+
+
+@pytest.mark.parametrize("B,lanes", [(128, (70, 5)), (128, (33, 32)),
+                                     (128, (127, 0)), (32, (31, 9)),
+                                     (256, (200, 130))])
+def test_octant_lookup_duplicate_key_takes_the_lowest_lane(dev, B, lanes):
+    """A row that holds the key twice (in one 16-byte vector, in vectors
+    of different lanes of a probe): the lowest index wins."""
+    nb = 64
+    cell = torch.tensor([[2, -3, 1]], dtype=torch.int32)
+    packed = int(mapstate.pack_cells(cell)[0])
+    b = int(mapstate._bucket_of(mapstate.pack_cells(cell), nb)[0])
+    keys = torch.full((nb, B), -1, dtype=torch.int32)
+    keys[b, list(lanes)] = packed
+    q = torch.tensor([[2.25, -2.75, 1.25]], device=dev)
+    s = _lookup_both(keys.to(dev), q, 1.0)
+    assert int(s[0, 0]) == b * B + min(lanes) and int((s >= 0).sum()) == 1
+
+
+def test_octant_lookup_negative_and_wrapped_cells(dev):
+    """Cells below zero and on both sides of the +-512-cell wrap of the
+    10-bit key fields."""
+    edge = [-513, -512, -511, -2, -1, 0, 1, 510, 511, 512]
+    cells = np.array([(x, y, z) for x in edge for y in (-1, 0, 511)
+                      for z in (-512, 0)])
+    keys = _keys_table(cells, 64, 128, dev)
+    rng = np.random.default_rng(3)
+    q = np.stack([rng.choice(edge, 600) + rng.uniform(0, 1, 600),
+                  rng.choice([-1, 0, 511], 600) + rng.uniform(0, 1, 600),
+                  rng.choice([-512, 0], 600) + rng.uniform(0, 1, 600)], 1)
+    s = _lookup_both(keys, torch.from_numpy(q.astype(np.float32)).to(dev),
+                     1.0)
+    assert (s >= 0).sum() > 600 and (s < 0).any()
+
+
+@pytest.mark.parametrize("cell_size", [1.0, 0.4, 0.3])
+def test_octant_lookup_boundary_queries(dev, cell_size):
+    """Queries exactly on a cell boundary and on the half cell, where the
+    quotient's rounding decides the cell and the side."""
+    rng = np.random.default_rng(11)
+    keys = _keys_table(rng.integers(-6, 7, size=(1200, 3)), 64, 128, dev)
+    steps = torch.arange(-10, 11, dtype=torch.float32) * 0.5  # cells, halves
+    g = torch.stack(torch.meshgrid(steps, steps[::3], steps[::5],
+                                   indexing="ij"), -1).reshape(-1, 3)
+    q = (g * torch.tensor(cell_size)).contiguous()
+    s = _lookup_both(keys, q.to(dev), cell_size)
+    assert (s >= 0).any() and (s < 0).any()
+
+
+def _plane_fit_args(dev, k, nq, offset=False, seed=5):
+    """K3's inputs from the plain K1 and K2 over the map of walls.  With
+    ``offset`` every per-row tensor is a contiguous view that starts one
+    row into its allocation, so no base pointer lies on a 16-byte line
+    unless the row size happens to."""
+    n = nq + 1 if offset else nq
+    cfg, m, q = _wall_map(dev, seed, n)
+    slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
+    neigh, sq, nvalid, _ = mapstate.knn_select_reference(m.pts, slots, q, k)
+    mask = torch.arange(n, device=dev) % 7 != 0
+    quat = quat_mul(so3_exp(torch.tensor([0.01, -0.02, 0.03], device=dev)),
+                    torch.tensor([1.0, 0, 0, 0], device=dev)).contiguous()
+    rows = [neigh.contiguous(), sq.contiguous(), nvalid.contiguous(), mask,
+            q]
+    if offset:
+        whole, rows = rows, [x[1:].contiguous() for x in rows]
+        assert nq == 0 or all(
+            x.data_ptr() == y.data_ptr() + y.stride(0) * y.element_size()
+            for x, y in zip(rows, whole))
+        assert nq == 0 or k % 4 == 0 or rows[0].data_ptr() % 16 != 0
+    return (*rows, quat, torch.tensor(0.3, device=dev))
+
+
+def _assert_plane_fit_bitwise(args):
+    """Every output of the kernel equals the plain version's to the bit
+    (NaN equal to NaN): normal and d on every row; coeff, valid, code and
+    bins may differ only in a row that gate_margin_lanes flags.  Returns
+    (the plain outputs, rows that differ)."""
+    out_k = kernels.plane_fit(*args)
+    out_r = registration.plane_fit_reference(*args)
+    torch.cuda.synchronize()
+    neigh, sq, nvalid, _, w_pt, quat, res = args
+    near = registration.gate_margin_lanes(neigh, sq, nvalid, w_pt, quat,
+                                          out_r[0], out_r[1], res)
+    differ = torch.zeros_like(near)
+    for i, (a, b) in enumerate(zip(out_k, out_r)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        ne = (a != b) & ~((a != a) & (b != b))
+        ne = ne if ne.dim() == 1 else ne.any(dim=1)
+        assert i >= 2 or not ne.any(), (
+            f"{int(ne.sum())} rows differ in {('normal', 'd')[i]}")
+        differ |= ne
+    n_differ, n_far = int(differ.sum()), int((differ & ~near).sum())
+    print(f"plane_fit: {n_differ} of {near.numel()} rows differ, "
+          f"{int(near.sum())} rows at a gate margin")
+    assert n_far == 0, (f"{n_far} rows away from every gate differ "
+                        f"({n_differ} rows differ in all)")
+    return out_r, n_differ
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("nq", [0, 1, 31, 33, 333, 2048, 2049])
+@pytest.mark.parametrize("k", [3, 5, 10, 16])
+def test_plane_fit_bitwise(dev, k, nq, offset):
+    """k = 5 and 10 are the instances with k known when compiled, 3 and 16
+    the generic one; the row counts end inside, on and just past a tile."""
+    out_r, _ = _assert_plane_fit_bitwise(_plane_fit_args(dev, k, nq, offset))
+    if nq >= 333:  # 3 points span a plane exactly: the PCA gate refuses
+        assert (~out_r[3]).sum() > 10 and (k == 3 or out_r[3].sum() > 10)
+
+
+@pytest.mark.parametrize("k", [5, 16])
+def test_plane_fit_degenerate_rows(dev, k):
+    """Rows with no valid neighbour, with NaN or inf neighbours (valid or
+    not), and a whole launch that is invalid or masked out."""
+    args = list(_plane_fit_args(dev, k, 333))
+    neigh, sq, nvalid = (x.clone() for x in args[:3])
+    nvalid[3] = False
+    nvalid[4, k - 1] = False
+    neigh[5, 0, 1] = float("nan")
+    neigh[6, k - 1, 2] = float("inf")
+    neigh[7, 1, 0] = float("-inf")
+    neigh[8, 1] = float("nan")
+    nvalid[8, 1] = False
+    sq[9, k - 1] = float("inf")
+    neigh[10] = neigh[10, :1]  # k identical points: an isotropic scatter
+    out_r, _ = _assert_plane_fit_bitwise((neigh, sq, nvalid, *args[3:]))
+    assert not out_r[3][3:11].any() and out_r[3].sum() > 10
+    assert int(out_r[4][3]) == registration.MATCH_NOT_ENOUGH_NEIGHBORS
+    dead, _ = _assert_plane_fit_bitwise(
+        (neigh, sq, torch.zeros_like(nvalid), *args[3:]))
+    assert not dead[3].any() and bool((dead[5] == -1).all())
+    masked, _ = _assert_plane_fit_bitwise(
+        (*args[:3], torch.zeros_like(args[3]), *args[4:]))
+    assert not masked[3].any()
+    assert bool((masked[4] == registration.MATCH_UNKNOWN).all())
+
+
 def test_plane_fit_and_normal_system_match_plain(dev):
     cfg, m, q = _map(dev, 16, seed=5)
     slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
@@ -97,15 +302,19 @@ def test_plane_fit_and_normal_system_match_plain(dev):
     res = torch.tensor(0.3, device=dev)
     args = (neigh.contiguous(), sq.contiguous(), nvalid.contiguous(), mask,
             q, pose.q.contiguous(), res)
-    out_k = kernels.plane_fit(*args)
-    out_r = registration.plane_fit_reference(*args)
-    for a, b in zip(out_k, out_r):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    out_r, n_differ = _assert_plane_fit_bitwise(args)
+    assert n_differ == 0  # bit for bit on every row of this case
     assert out_r[3].sum() > 10
     args4 = (q, out_r[0].contiguous(), out_r[1], out_r[2], out_r[3],
              pose.q.contiguous(), pose.t.contiguous(), 3.0 * res)
     with pytest.raises(ValueError):  # the wrappers take contiguous inputs
         kernels.plane_fit(neigh, sq, *args[2:])
+    with pytest.raises(ValueError):  # k beyond the kernel's 16
+        kernels.plane_fit(torch.zeros((4, 17, 3), device=dev),
+                          torch.zeros((4, 17), device=dev),
+                          torch.zeros((4, 17), dtype=torch.bool, device=dev),
+                          mask[:4].contiguous(), q[:4].contiguous(),
+                          pose.q.contiguous(), res)
     H_k, g_k, c_k = kernels.normal_system(*args4)
     H_r, g_r, c_r = registration.normal_system_reference(*args4)
     scale = float(H_r.abs().max())
@@ -255,6 +464,9 @@ def test_wrappers_check_inputs_and_count(dev):
                                               device=dev), q, 5)
     with pytest.raises(ValueError):
         kernels.octant_lookup(m.keys.cpu(), q, cfg.cell_size)
+    buf = torch.empty((m.keys.numel() + 1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # the table must be 16-byte aligned
+        kernels.octant_lookup(buf[1:].view(m.keys.shape), q, cfg.cell_size)
     # a CUDA tensor always reaches the kernel through the dispatcher
     n = kernels.launch_counts["octant_lookup"]
     mapstate.octant_lookup(m.keys, q, cfg.cell_size)

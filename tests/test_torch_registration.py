@@ -68,9 +68,9 @@ def scene():
     return jax.device_get(m), p_body, mask, q0, t0
 
 
-def _planes_j(scene):
+def _planes_j(scene, k=JReg().plane_knn):
     m, p_body, mask, q0, t0 = scene
-    reg = JReg(**REG)
+    reg = JReg(**REG, plane_knn=k)
     pose = jg.Pose(q0, t0)
     w_pt = np.asarray(pose.apply(p_body))
     cand, cvalid = jm.gather_candidates(m, JMapConfig(**MAP), w_pt)
@@ -97,6 +97,36 @@ def test_plane_fit_reference_matches_jax(scene):
     # a rejected neighbourhood's normal carries no weight, and on
     # line-like ones (lambda0 ~ lambda1) it is ill-conditioned: compare the
     # accepted planes' normal and offset
+    used = far & pj.valid
+    np.testing.assert_allclose(normal.numpy()[used], pj.normal[used],
+                               atol=1e-5)
+    np.testing.assert_allclose(d.numpy()[used], pj.d[used], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(coeff.numpy()[far], pj.coeff[far], atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [3, 10, 16])
+def test_plane_fit_reference_matches_jax_other_k(scene, k):
+    """The plain K3 at the neighbour counts beside the presets' 5 that the
+    kernel serves (10: its other instance with k known when compiled; 3 and
+    16: the generic one), with the tolerances of the test above, lanes at a
+    gate margin excluded.  Three points span a plane exactly, so at k = 3
+    the PCA gate refuses every lane (most of them within the margin of
+    that gate) and only the decisions are compared."""
+    _, p_body, mask, q0, t0 = scene
+    pj, (neigh, sq, nvalid, w_pt) = _planes_j(scene, k)
+    assert neigh.shape == (M_FEAT, k, 3)
+    normal, d, coeff, valid, code, bins = tr.plane_fit(
+        T(neigh), T(sq), T(nvalid), T(mask), T(w_pt), T(q0),
+        torch.tensor(RES))
+    far = ~tr.gate_margin_lanes(
+        T(neigh), T(sq), T(nvalid), T(w_pt), T(q0), T(pj.normal), T(pj.d),
+        torch.tensor(RES)).numpy()
+    assert far.mean() > (0.9 if k > 3 else 0.3)
+    assert (pj.valid.sum() > 100) == (k > 3) and (~pj.valid).sum() > 100
+    np.testing.assert_array_equal(valid.numpy()[far], pj.valid[far])
+    np.testing.assert_array_equal(code.numpy()[far], pj.code[far])
+    np.testing.assert_array_equal(bins.numpy()[far], pj.obs_bins[far])
     used = far & pj.valid
     np.testing.assert_allclose(normal.numpy()[used], pj.normal[used],
                                atol=1e-5)
