@@ -8,24 +8,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
 0. Requires a CUDA device; prints the card's name and power limit, the
    torch and CUDA versions; builds the hand-written kernels from
    ``superodom_tpu_torch/csrc`` (one nvcc, sm_90a) and times the build.
-1. Each kernel at the main path's shapes (Q = 2,048 features at a
-   perturbed pose, a 65,536 x 48 point table filled by the port's own
-   insert from seeded OS1-128 scans, k = 5, 4 GN iterations) against its
-   plain PyTorch version on the same card and inputs: K1-K3, K4's
-   ``n_iters = 0`` mode, and K4's whole GN solve (pose within GN_TOL of
-   the plain solve, the same ``first_small``,
-   repeat runs bit-identical).  Device time of every kernel and of its
-   plain version (CUDA graph of 20 launches, CUDA events, median of 50
-   replays), of an empty kernel (the launch floor), the least time the
+1. Each kernel against its plain PyTorch version on the same card and
+   inputs, once for every path of phase 2, at that path's shapes: its
+   configuration's thinning gives the features (at a perturbed pose) and
+   the port's own insert fills its map from seeded scans (OS1-128,
+   capacity 16: a 65,536 x 48 point table; VLP-16, capacity 32:
+   65,536 x 96, 256 candidates a query).  K1-K3, K4's ``n_iters = 0``
+   mode, and K4's whole GN solve (pose within GN_TOL of the plain solve,
+   the same ``first_small``, repeat runs bit-identical) on each path; K9a
+   reduce_candidates and K9b select_reduced on the reference-envelope
+   path's warm map (W = 16, k = 5; ``valid`` and every valid lane
+   identical).  K10
+   voxel_claim on a real decimated VLP-16 scan (10,923 lanes, a 2^17
+   table) and an OS1-128 one (43,691 lanes, 2^19): the keep-mask
+   identical, repeat runs identical.  Device time of every kernel and of
+   its plain version (CUDA graph of 20 launches, CUDA events, median of
+   50 replays), of an empty kernel (the launch floor), the least time the
    card could take (bytes or operations, from this run's inputs), and the
    host wall time of one whole GN solve, kernel vs plain, in turns.
-2. The main path: ``OdometryRunner(ship_config("os1"), device="cuda")
-   .run_dataset`` over the benchmark's synthetic OS1-128 dataset (seed 7,
-   131,072 points a scan).  Launch counters are reset just before and must
-   match what the step count implies; poses must be finite and the ATE
-   below the reference's 10 cm bar.
-3. The first scans of the same dataset through the plain PyTorch path on
-   the CPU: the GPU trajectory must agree with it.
+2. Three paths through ``OdometryRunner(cfg, device="cuda").run_dataset``
+   over the benchmark's synthetic world (seed 7), N_SCANS scans each: the
+   ship path (``ship_config("os1")``, 131,072 points a scan), the
+   reference-envelope path (``parity_config("os1")``: 5 ICP rounds with
+   early exit, candidate refresh through K9) and the VLP-16 default path
+   (``ship_config("vlp16")``: 32,768 points a scan, voxel thinning
+   through K10, capacity 32, 4 rounds).  Launch counters are reset just
+   before each and must match what its step and round counts imply;
+   poses must be finite and the ATE below the reference's 10 cm bar.
+3. The first scans of each path through the plain PyTorch path on the
+   CPU: the GPU trajectory must agree with it.
 
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, then the last
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -42,7 +53,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-N_SCANS = 64  # OS1-128 scans replayed on the main path
+N_SCANS = 64  # scans replayed on each path
 TOL_K2_SQ_REL = 1e-6
 TOL_K4_REL = 1e-5
 GN_TOL = 1e-5  # GN kernel vs plain solve: metres and quaternion components
@@ -61,6 +72,9 @@ REPLACES = {
     "plane_fit": "superodom_tpu/registration.py:212",
     "gn_solve": "superodom_tpu/registration.py:530",
     "normal_system": "superodom_tpu/registration.py:463",
+    "reduce_candidates": "superodom_tpu/mapstate.py:444",
+    "select_reduced": "superodom_tpu/mapstate.py:473",
+    "voxel_claim": "superodom_tpu/ops/voxel.py:110",
 }
 
 
@@ -153,12 +167,17 @@ def make_ship_dataset(cfg, n_scans, seed=7):
                         distortion=True)
 
 
-def phase_kernels(cfg, ds, torch, dev, timer, host_timer):
-    """Phase 1: every kernel against its plain version on the card."""
+def phase_kernels(name, cfg, ds, torch, dev):
+    """Phase 1: every kernel the ``name`` path runs between thinning and
+    the pose, against its plain version on the card at that path's
+    shapes."""
     from superodom_tpu_torch import frontend, kernels, mapstate, registration
     from superodom_tpu_torch.config import RuntimeParams
     from superodom_tpu_torch.geometry import Pose, quat_mul, so3_exp
     from superodom_tpu_torch.runner import OdometryRunner
+
+    def timer(fn):
+        return device_ms(fn, torch)
 
     sensor, reg = cfg.sensor, cfg.registration
     res = torch.full((), sensor.default_plane_res, device=dev)
@@ -172,7 +191,8 @@ def phase_kernels(cfg, ds, torch, dev, timer, host_timer):
             skip_dup=True)
         pts, mask, _ = frontend.thin_and_select(
             scan.xyz, gate, res, sensor.max_surface_features,
-            sensor.compact_width, scan.t_rel, mode=sensor.scan_thin_mode)
+            sensor.compact_width, scan.t_rel, mode=sensor.scan_thin_mode,
+            table_bits=max((sensor.max_points * 4 - 1).bit_length(), 4))
         return pts.contiguous(), mask.contiguous()
 
     def gt_pose(i):
@@ -185,7 +205,7 @@ def phase_kernels(cfg, ds, torch, dev, timer, host_timer):
         pts, mask = features(i)
         m = mapstate.insert(m, cfg.map, gt_pose(i).apply(pts), mask, res)
     stored = int(torch.sum(torch.where(m.keys >= 0, m.cnt, 0)))
-    log(f"phase 1: map of {stored} points in "
+    log(f"phase 1 [{name}]: map of {stored} points in "
         f"{int((m.keys >= 0).sum())} cells from {n_map} scans, "
         f"table {tuple(m.pts.shape)}")
 
@@ -198,8 +218,8 @@ def phase_kernels(cfg, ds, torch, dev, timer, host_timer):
     q, t = pose.q.contiguous(), pose.t.contiguous()
     nq, k = queries.shape[0], reg.plane_knn
     C = cfg.map.cell_capacity
-    floor_ms = timer(lambda: kernels.launch_floor(dev))
-    log(f"launch floor (empty kernel, same harness): {floor_ms * 1e3:.2f} us")
+    log(f"phase 1 [{name}]: {nq} queries ({int(mask.sum())} live), "
+        f"{8 * C} candidates a query, k = {k}")
     results = {}
 
     # K1 octant_lookup: exact
@@ -352,11 +372,11 @@ def phase_kernels(cfg, ds, torch, dev, timer, host_timer):
             raise SystemExit("K4 gn_solve disagrees with the plain solve")
         gn_err = max(gn_err, dt, dq)
     args_kw = gn_args(kw["prior"])
-    host = host_timer({
+    host = host_us_in_turns({
         "plain": lambda: registration.gauss_newton_solve_reference(
             *solve_args, **kw),
         "kernel": lambda: registration.gauss_newton_solve(*solve_args,
-                                                          **kw)})
+                                                          **kw)}, torch)
     log(f"host wall time of one whole GN solve ({n_it} iterations, ending "
         f"in a synchronize): kernel {host['kernel']:.1f} us, plain "
         f"{host['plain']:.1f} us")
@@ -368,11 +388,154 @@ def phase_kernels(cfg, ds, torch, dev, timer, host_timer):
         # iteration ~124 operations a row and ~600 for the 6x6 solve
         bound=bound(nq * 37 + 32 + 53 + 29, n_it * (nq * 124 + 600)),
         host_us=host)
-    return results, floor_ms
+
+    W = reg.refresh_width
+    if W == 0:
+        return results
+
+    # K9a reduce_candidates on this path's warm map: valid and every
+    # coordinate of a valid lane identical; a lane that is not valid holds
+    # no point of the query's cells and is not compared
+    red_k = mapstate.ReducedCandidates(
+        *kernels.reduce_candidates(m.pts, s_r, queries, W))
+    red_r = mapstate.reduce_candidates_reference(m.pts, s_r, queries, W)
+    torch.cuda.synchronize()
+    v = red_r.valid
+    same_valid = torch.equal(red_k.valid, v)
+    err9a = max(float((a - b)[v].abs().max()) for a, b in
+                zip(red_k[:3], red_r[:3]))
+    log(f"K9a reduce_candidates: validity equal {same_valid}, "
+        f"{int(v.sum())} of {v.numel()} lanes valid, "
+        f"{int((v.sum(1) < W).sum())} of {nq} rows with fewer than {W}, max "
+        f"abs err of a valid coordinate {err9a:.3e}, every lane equal "
+        f"{all(torch.equal(a, b) for a, b in zip(red_k, red_r))}")
+    if not (same_valid and err9a == 0.0 and bool(v.any())):
+        raise SystemExit("K9a reduce_candidates disagrees with its plain "
+                         "version")
+    results["reduce_candidates"] = dict(
+        err=err9a,
+        ms=timer(lambda: kernels.reduce_candidates(m.pts, s_r, queries, W)),
+        plain_ms=timer(lambda: mapstate.reduce_candidates_reference(
+            m.pts, s_r, queries, W)),
+        # slot ids, queries, the live slot rows; three planes and validity
+        bound=bound(nq * 8 * 4 + nq * 12 + live * 3 * C * 4 + nq * W * 13,
+                    int((s_r >= 0).sum()) * C * 8))
+
+    # K9b select_reduced from those lanes, at the features moved as a round
+    # of GN moves them (to the plain solve's pose above): validity, points
+    # and distances of every valid lane
+    moved_q = ref.apply(pts).contiguous()
+    nk9, sk9, vk9 = kernels.select_reduced(*red_r, moved_q, k)
+    nr9, sr9, vr9 = mapstate.select_knn_reduced_reference(red_r, moved_q, k)
+    torch.cuda.synchronize()
+    same_valid = torch.equal(vk9, vr9)
+    err9b = max(float((nk9 - nr9)[vr9].abs().max()),
+                float((sk9 - sr9)[vr9].abs().max()))
+    log(f"K9b select_reduced: validity equal {same_valid}, "
+        f"{int(vr9.sum())} of {vr9.numel()} neighbours valid, max abs err "
+        f"of a valid point or distance {err9b:.3e}; the features moved "
+        f"{float((moved_q - queries).norm(dim=1).max()):.3e} m at most")
+    if not (same_valid and err9b == 0.0 and bool(vr9.any())):
+        raise SystemExit("K9b select_reduced disagrees with its plain version")
+    results["select_reduced"] = dict(
+        err=err9b,
+        ms=timer(lambda: kernels.select_reduced(*red_r, moved_q, k)),
+        plain_ms=timer(lambda: mapstate.select_knn_reduced_reference(
+            red_r, moved_q, k)),
+        # the reduced lanes and the queries; points, distances, validity
+        bound=bound(nq * W * 13 + nq * 12 + nq * k * 17, nq * W * 8))
+    return results
 
 
-def phase_main(cfg, ds, torch, dev, out_dir, card):
-    """Phase 2: the main path through the user's entry point."""
+def phase_voxel_claim(cases, torch, dev):
+    """Phase 1, K10: ``cases`` = (label, configuration, dataset); returns
+    label -> result.  Each on a real scan in the
+    layout the runner uploads (host-decimated), gated as the step gates
+    it, with the claim table sized by the sensor."""
+    from superodom_tpu_torch import frontend, kernels
+    from superodom_tpu_torch.ops import voxel
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    results = {}
+    for label, cfg, ds in cases:
+        sensor = cfg.sensor
+        s = ds.scans[len(ds.scans) // 2]
+        scan = OdometryRunner(cfg, device=dev).make_scan(
+            s.t_start, s.xyz_body, s.t_rel)
+        gate = frontend.uniform_feature_gates(
+            scan.xyz, None, scan.mask, sensor.min_range, sensor.max_range,
+            skip_dup=True).contiguous()
+        xyz = scan.xyz.contiguous()
+        n = xyz.shape[0]
+        bits = max((sensor.max_points * 4 - 1).bit_length(), 4)
+        res = torch.full((), sensor.default_plane_res, device=dev)
+        keep_k = kernels.voxel_claim(xyz, gate, res, bits)
+        keep_r = voxel.voxel_downsample_scatter_reference(xyz, gate, res,
+                                                          bits)
+        keep_d = voxel.voxel_downsample_scatter(xyz, gate, res,
+                                                table_bits=bits)
+        # another resolution through the same device scalar, then back
+        res.fill_(2.0 * sensor.default_plane_res)
+        coarse_k = kernels.voxel_claim(xyz, gate, res, bits)
+        coarse_r = voxel.voxel_downsample_scatter_reference(xyz, gate, res,
+                                                            bits)
+        res.fill_(sensor.default_plane_res)
+        keep_k2 = kernels.voxel_claim(xyz, gate, res, bits)
+        torch.cuda.synchronize()
+        differ = int((keep_k != keep_r).sum()) + int(
+            (coarse_k != coarse_r).sum())
+        repeat = torch.equal(keep_k, keep_k2) and torch.equal(keep_k, keep_d)
+        log(f"K10 voxel_claim ({label}): {n} lanes, {int(gate.sum())} "
+            f"gated in, table 2^{bits}, {int(keep_r.sum())} survive at "
+            f"{sensor.default_plane_res} m and {int(coarse_r.sum())} at "
+            f"twice that; {differ} lanes differ from the plain version, "
+            f"repeat identical {repeat}")
+        if differ or not repeat or not bool(keep_r.any()) \
+                or int(keep_r.sum()) >= int(gate.sum()):
+            raise SystemExit("K10 voxel_claim disagrees with its plain "
+                             "version")
+        r = dict(
+            err=float(differ),
+            ms=device_ms(lambda: kernels.voxel_claim(xyz, gate, res, bits),
+                         torch),
+            plain_ms=device_ms(
+                lambda: voxel.voxel_downsample_scatter_reference(
+                    xyz, gate, res, bits), torch),
+            # points, mask, the resolution; the keep-mask (the table is
+            # scratch); ~40 integer operations and 3 divisions a lane,
+            # held against the float32 rate
+            bound=bound(n * 12 + n + 4 + n, n * 46))
+        log(f"  voxel_claim ({label}): kernel {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound "
+            f"{r['bound'][0] * 1e3:.4f} us ({r['bound'][1]})")
+        results[label] = r
+    return results
+
+
+def expected_launches(cfg, stats):
+    """What one replay must launch, from its configuration and the ICP
+    rounds its scans report."""
+    n = len(stats)
+    rounds = sum(s["n_iterations"] for s in stats)
+    refresh = cfg.registration.refresh_width > 0
+    return {
+        "octant_lookup": n,
+        # with candidate refresh only round 1 selects at full width
+        "knn_select": n if refresh else rounds,
+        "plane_fit": rounds,
+        "gn_solve": rounds,
+        "normal_system": n,
+        # one reduction a scan that goes on past round 1
+        "reduce_candidates": (sum(s["n_iterations"] > 1 for s in stats)
+                              if refresh else 0),
+        "select_reduced": rounds - n if refresh else 0,
+        # one counted launch a scan (its fill, claim and compare kernels)
+        "voxel_claim": n if cfg.sensor.scan_thin_mode == "voxel" else 0,
+    }
+
+
+def phase_main(name, cfg, ds, torch, dev, out_dir, card):
+    """Phase 2: one path through the user's entry point."""
     import numpy as np
 
     from superodom_tpu_torch import kernels
@@ -380,40 +543,43 @@ def phase_main(cfg, ds, torch, dev, out_dir, card):
     from superodom_tpu_torch.runner import OdometryRunner
 
     runner = OdometryRunner(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    res = runner.run_dataset(ds, use_imu=True,
-                             log_path=os.path.join(out_dir, "stats.jsonl"))
+    res = runner.run_dataset(ds, use_imu=True, log_path=os.path.join(
+        out_dir, f"stats_{name}.jsonl"))
     counts = dict(kernels.launch_counts)
     n = len(ds.scans)
     rounds = sum(s["n_iterations"] for s in res.stats)
-    expect = {"octant_lookup": n, "knn_select": rounds, "plane_fit": rounds,
-              "gn_solve": rounds, "normal_system": n}
-    log(f"phase 2: launches {counts}, expected {expect} "
+    expect = expected_launches(cfg, res.stats)
+    log(f"phase 2 [{name}]: launches {counts}, expected {expect} "
         f"({rounds} ICP rounds over {n} scans); K4-family launches per "
         f"scan {(counts['gn_solve'] + counts['normal_system']) / n:.3f}")
-    if counts != expect or min(counts.values()) <= 0:
-        raise SystemExit("kernel launch counts do not match the main path")
+    if counts != expect:
+        raise SystemExit(f"kernel launch counts do not match the {name} path")
     if not (np.isfinite(res.poses_t).all() and np.isfinite(res.poses_q).all()):
-        raise SystemExit("non-finite pose on the main path")
+        raise SystemExit(f"non-finite pose on the {name} path")
     ate = ate_rmse(res.poses_t, np.asarray(ds.gt_poses_t))
     times = np.asarray([s["time_elapsed_ms"] for s in res.stats])
     summary = {
+        "path": name,
         "scans": n,
+        "points_per_scan": cfg.sensor.max_points,
+        "icp_rounds": rounds,
         "scans_per_sec": res.scans_per_sec,
         "p50_step_ms": float(np.percentile(times, 50)),
         "p90_step_ms": float(np.percentile(times, 90)),
         "ate_m": ate,
         "final_t": res.poses_t[-1].tolist(),
-        "peak_mem_mb": (torch.cuda.max_memory_allocated() / 2 ** 20
-                        if dev.type == "cuda" else None),
+        "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
     }
-    log(f"phase 2 main path ({card}): " + json.dumps(summary))
+    log(f"phase 2 [{name}] ({card}): " + json.dumps(summary))
     if not ate < ATE_BAR_M:
-        raise SystemExit(f"ATE {ate:.4f} m is not below {ATE_BAR_M} m")
+        raise SystemExit(f"{name} path: ATE {ate:.4f} m is not below "
+                         f"{ATE_BAR_M} m")
     return res, counts, summary
 
 
-def phase_cpu_agree(cfg, ds, res_gpu, torch):
+def phase_cpu_agree(name, cfg, ds, res_gpu, torch):
     """Phase 3: the plain PyTorch path on the CPU over the first scans."""
     import numpy as np
 
@@ -427,10 +593,18 @@ def phase_cpu_agree(cfg, ds, res_gpu, torch):
     res_cpu = OdometryRunner(cfg, device="cpu").run_dataset(small)
     dt = float(np.abs(res_cpu.poses_t - res_gpu.poses_t[:n]).max())
     dq = float(np.abs(res_cpu.poses_q - res_gpu.poses_q[:n]).max())
-    log(f"phase 3: first {n} scans, GPU vs CPU plain path: max |dt| "
-        f"{dt:.3e} m, max |dq| {dq:.3e}")
+    log(f"phase 3 [{name}]: first {n} scans, GPU vs CPU plain path: max "
+        f"|dt| {dt:.3e} m, max |dq| {dq:.3e}")
     if not (dt <= CPU_AGREE_M and dq <= CPU_AGREE_M):
-        raise SystemExit("the GPU trajectory disagrees with the CPU path")
+        raise SystemExit(f"{name} path: the GPU trajectory disagrees with "
+                         f"the CPU path")
+
+
+def measured(r):
+    """The kernels line's measured fields of one phase-1 result."""
+    return {"max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1]}
 
 
 def main(argv=None):
@@ -454,52 +628,93 @@ def main(argv=None):
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     from superodom_tpu_torch import kernels
-    from superodom_tpu_torch.config import ship_config
+    from superodom_tpu_torch.config import parity_config, ship_config
 
     kernels.build(verbose=True)
     log(f"phase 0: built {len(kernels.SOURCES)} sources in "
         f"{kernels.build_seconds:.2f} s")
     with open(os.path.join(args.out, "ptxas.txt"), "w") as f:
         f.write(kernels.build_log)
+    dev = torch.device("cuda")
 
     cfg = ship_config("os1")
-    t0 = time.perf_counter()
-    ds = make_ship_dataset(cfg, N_SCANS)
-    log(f"dataset: {len(ds.scans)} scans of {cfg.sensor.max_points} points "
-        f"in {time.perf_counter() - t0:.1f} s")
+    cfg_vlp = ship_config("vlp16")
+    datasets = {}
+    for label, c in (("OS1-128", cfg), ("VLP-16", cfg_vlp)):
+        t0 = time.perf_counter()
+        datasets[label] = make_ship_dataset(c, N_SCANS)
+        log(f"dataset {label}: {N_SCANS} scans of {c.sensor.max_points} "
+            f"points in {time.perf_counter() - t0:.1f} s")
+    ds, ds_vlp = datasets["OS1-128"], datasets["VLP-16"]
+    # path -> (configuration, dataset, the kernels whose launches and
+    # times the kernels line reports from it)
+    paths = {
+        "ship": (cfg, ds, ("octant_lookup", "knn_select", "plane_fit",
+                           "gn_solve", "normal_system")),
+        "parity": (parity_config("os1"), ds, ("reduce_candidates",
+                                              "select_reduced")),
+        "vlp16": (cfg_vlp, ds_vlp, ("voxel_claim",)),
+    }
+    path_of = {k: name for name, p in paths.items() for k in p[2]}
+    if set(path_of) != set(kernels.KERNELS):
+        raise SystemExit("a kernel is reported from no path")
 
-    dev = torch.device("cuda")
-    kres, floor_ms = phase_kernels(
-        cfg, ds, torch, dev, lambda fn: device_ms(fn, torch),
-        lambda fns: host_us_in_turns(fns, torch))
-    res, counts, summary = phase_main(cfg, ds, torch, dev, args.out, smi)
-    n = len(ds.scans)
-    for name, r in kres.items():
-        log(f"  {name}: kernel {r['ms'] * 1e3:.2f} us, plain "
-            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound'][0] * 1e3:.4f} "
-            f"us ({r['bound'][1]}), launch floor {floor_ms * 1e3:.2f} us, "
-            f"{counts[name] / n:.3f} launches a scan ({smi})")
-    phase_cpu_agree(cfg, ds, res, torch)
+    # phase 1: on every path's own map and features
+    floor_ms = device_ms(lambda: kernels.launch_floor(dev), torch)
+    log(f"launch floor (empty kernel, same harness): {floor_ms * 1e3:.2f} us")
+    kres = {name: phase_kernels(name, c, d, torch, dev)
+            for name, (c, d, _) in paths.items()}
+    claim = phase_voxel_claim(
+        (("VLP-16", cfg_vlp, ds_vlp), ("OS1-128", cfg, ds)), torch, dev)
+    kres["vlp16"]["voxel_claim"] = claim["VLP-16"]
 
+    # phase 2
+    runs = {name: phase_main(name, c, d, torch, dev, args.out, smi)
+            for name, (c, d, _) in paths.items()}
+    launches = {k: runs[name][1][k] for k, name in path_of.items()}
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel was launched no time on its path: "
+                         f"{launches}")
+    for name, (_, d, _) in paths.items():
+        for k, r in kres[name].items():
+            if runs[name][1][k] <= 0:
+                raise SystemExit(f"{k} was held at the {name} path's shapes "
+                                 f"but that path did not launch it")
+            log(f"  {k} [{name}]: kernel {r['ms'] * 1e3:.2f} us, plain "
+                f"{r['plain_ms'] * 1e3:.2f} us, bound "
+                f"{r['bound'][0] * 1e3:.4f} us ({r['bound'][1]}), launch "
+                f"floor {floor_ms * 1e3:.2f} us, "
+                f"{runs[name][1][k] / len(d.scans):.3f} launches a scan "
+                f"({smi})")
+
+    # phase 3
+    for name, (c, d, _) in paths.items():
+        phase_cpu_agree(name, c, d, runs[name][0], torch)
+
+    # every number but ``launches`` and ``bound_ms`` is of the path under
+    # ``path``; ``by_path`` has the same fields for every path that runs
+    # the kernel
     entries = [{
-        "name": name,
+        "name": k,
         "route": "cuda",
         "source": "superodom_tpu_torch/csrc/"
-                  f"{kernels.SOURCE_OF.get(name, name)}.cu",
-        "replaces": REPLACES[name],
-        "launches": counts[name],
-        "max_abs_err": kres[name]["err"],
-        "ms": kres[name]["ms"],
-        "plain_ms": kres[name]["plain_ms"],
-        "bound_ms": kres[name]["bound"][0],
-        "bound_by": kres[name]["bound"][1],
+                  f"{kernels.SOURCE_OF.get(k, k)}.cu",
+        "replaces": REPLACES[k],
+        "launches": launches[k],
+        "path": path_of[k],
+        **measured(kres[path_of[k]][k]),
         "library_ms": None,  # no single PyTorch call computes these
-    } for name in kernels.KERNELS]
+        "by_path": {p: dict(measured(kres[p][k]), launches=runs[p][1][k])
+                    for p in paths if k in kres[p]},
+    } for k in kernels.KERNELS]
+    record = {"card": smi, "kernels": entries, "main_path": runs["ship"][2],
+              "paths": {p: runs[p][2] for p in paths},
+              "launch_floor_ms": floor_ms,
+              "voxel_claim_os1_128": measured(claim["OS1-128"]),
+              "gn_solve_host_us": {p: kres[p]["gn_solve"]["host_us"]
+                                   for p in paths}}
     with open(os.path.join(args.out, "result.json"), "w") as f:
-        json.dump({"card": smi, "kernels": entries, "main_path": summary,
-                   "launch_floor_ms": floor_ms,
-                   "gn_solve_host_us": kres["gn_solve"]["host_us"]}, f,
-                  indent=1)
+        json.dump(record, f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

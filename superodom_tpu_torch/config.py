@@ -223,12 +223,22 @@ class PipelineConfig:
         )
 
 
+# the sensors the command-line entry points offer
+PROFILES = ("os1_128", "vlp_16", "livox_mid360")
+
+
 def profile_by_name(name: str) -> SensorProfile:
+    """A sensor by any of its names: the profile's own (``os1_128``, the
+    entry points' spelling), the maker's, or the replay benchmark's short
+    one (``os1``, ``vlp16``, ``livox``), which the benchmark's
+    configurations below are known by."""
     table = {
         "velodyne": VLP_16,
         "vlp_16": VLP_16,
+        "vlp16": VLP_16,
         "ouster": OS1_128,
         "os1_128": OS1_128,
+        "os1": OS1_128,
         "livox": LIVOX_MID360,
         "livox_mid360": LIVOX_MID360,
     }
@@ -240,8 +250,9 @@ def ship_config(name: str = "os1") -> PipelineConfig:
     with ``tuned=True``): OS1-128 with r^2-stratified scan thinning, a
     16-point cell capacity, 2 ICP rounds x 4 GN steps with Tukey annealing
     and a 2-iteration smoother.  Other sensors get the untuned defaults,
-    as in ``bench._config``."""
-    sensor = {"os1": OS1_128, "vlp16": VLP_16, "livox": LIVOX_MID360}[name]
+    as in ``bench._config``.  ``name`` is any name of
+    :func:`profile_by_name`."""
+    sensor = profile_by_name(name)
     cfg = PipelineConfig(
         sensor=sensor,
         map=MapConfig(),
@@ -249,7 +260,7 @@ def ship_config(name: str = "os1") -> PipelineConfig:
         imu=ImuConfig(),
         auto_voxel_size=False,
     )
-    if name == "os1":
+    if sensor is OS1_128:
         cfg = dataclasses.replace(
             cfg,
             sensor=dataclasses.replace(sensor, scan_thin_mode="range"),
@@ -259,3 +270,27 @@ def ship_config(name: str = "os1") -> PipelineConfig:
             imu=ImuConfig(smoother_gn_iters=2),
         )
     return cfg
+
+
+def parity_config(name: str = "os1") -> PipelineConfig:
+    """The reference-envelope configuration of the replay benchmark
+    (``bench._config`` with ``parity=True``): the reference's full ICP
+    budget — 5 outer rounds with early exit x 4 GN steps — over the ship
+    configuration's tuning underneath it: candidate refresh from 16 lanes
+    for rounds 2..5, r^2-stratified scan thinning, a 16-point cell
+    capacity, Tukey annealing and a 2-iteration smoother.  ``name`` as in
+    :func:`ship_config`."""
+    cfg = ship_config(name)
+    return dataclasses.replace(
+        cfg,
+        sensor=dataclasses.replace(cfg.sensor, scan_thin_mode="range"),
+        map=MapConfig(cell_capacity=16),
+        registration=RegistrationConfig(max_icp_iters=5, refresh_width=16,
+                                        tukey_anneal=0.25),
+        imu=ImuConfig(smoother_gn_iters=2),
+    )
+
+
+def config_for(profile: str, parity: bool = False) -> PipelineConfig:
+    """What the entry points' ``--profile`` / ``--parity`` pair selects."""
+    return (parity_config if parity else ship_config)(profile)

@@ -17,7 +17,7 @@ from superodom_tpu_torch.config import RuntimeParams
 from superodom_tpu_torch.frontend import ImuWindow, Scan
 from superodom_tpu_torch.geometry import Pose
 from superodom_tpu_torch.inertial import Preintegrated, SmootherState
-from superodom_tpu_torch.mapstate import VoxelHashMap
+from superodom_tpu_torch.mapstate import ReducedCandidates, VoxelHashMap
 from superodom_tpu_torch.pipeline import OdomState, StepOutput
 from superodom_tpu_torch.registration import (
     IcpStats,
@@ -29,7 +29,7 @@ from superodom_tpu_torch.registration import (
 _TYPES = {cls.__name__: cls for cls in (
     OdomState, StepOutput, Pose, RuntimeParams, VoxelHashMap, SmootherState,
     Preintegrated, ImuWindow, Scan, IcpStats, RegistrationError, PlaneCorrs,
-    PosePrior)}
+    PosePrior, ReducedCandidates)}
 
 
 def _is_namedtuple(x) -> bool:

@@ -33,15 +33,29 @@
 //   * lane r keeps round r's winner, and lanes 0..k-1 write the outputs
 //     together at the end (coordinates re-read from the winner's row, in
 //     L1 from the distance pass).
+//
+// K9a reduce_candidates is this function at k = W (the refresh width, 16 on
+// the reference-envelope path) with another output: the W winners'
+// coordinates as planes x, y, z f32[Q,W] with valid bool[Q,W], no distances
+// and no lane ids — the layout K9b select_reduced (select_reduced.cu) reads
+// row by row.  It replaces superodom_tpu/mapstate.py reduce_candidates
+// (:444-470, plain version mapstate.reduce_candidates_reference), shares the
+// device code below through the PLANAR template parameter, and has its own
+// entry point so that its launches are counted apart from K2's.  A lane
+// that is not valid (fewer than W live candidates) holds whatever its
+// winner's row holds there — the BIG sentinel of an empty lane, or a point
+// of row 0 for a missing slot — exactly as the plain version gathers it.
 #include "common.cuh"
 
 #define KNN_THREADS 128
 
-template <int P, bool VEC>
+// PLANAR false (K2): o0 = neighbours [Q,k,3], o1 = sq [Q,k], lane_out set.
+// PLANAR true (K9a): o0, o1, o2 = x, y, z [Q,k]; lane_out unused.
+template <int P, bool VEC, bool PLANAR>
 __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
     const float* __restrict__ pts, int C, const int* __restrict__ slots,
     const float* __restrict__ queries, int nq, int k,
-    float* __restrict__ neigh, float* __restrict__ sq_out,
+    float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
     unsigned char* __restrict__ valid_out, long long* __restrict__ lane_out) {
   const int qi = blockIdx.x * (KNN_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -141,53 +155,80 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
     const int c = (int)win_i - wo * C;
     const float* wrow = pts + (size_t)(wslot > 0 ? wslot : 0) * (3 * C);
     const size_t out = (size_t)qi * k + lane;
-    neigh[out * 3 + 0] = wrow[c];
-    neigh[out * 3 + 1] = wrow[C + c];
-    neigh[out * 3 + 2] = wrow[2 * C + c];
     const float d = __uint_as_float(win_d);
-    sq_out[out] = d;
+    if constexpr (PLANAR) {
+      o0[out] = wrow[c];
+      o1[out] = wrow[C + c];
+      o2[out] = wrow[2 * C + c];
+    } else {
+      o0[out * 3 + 0] = wrow[c];
+      o0[out * 3 + 1] = wrow[C + c];
+      o0[out * 3 + 2] = wrow[2 * C + c];
+      o1[out] = d;
+      lane_out[out] = (long long)win_i;
+    }
     valid_out[out] = d < SO_BIG * 0.5f;
-    lane_out[out] = (long long)win_i;
   }
 }
 
-template <int P, bool VEC>
+template <int P, bool VEC, bool PLANAR>
 static void launch_knn(const float* pts, int C, const int* slots,
-                       const float* queries, int nq, int k, float* neigh,
-                       float* sq, unsigned char* valid, long long* lane,
-                       cudaStream_t stream) {
+                       const float* queries, int nq, int k, float* o0,
+                       float* o1, float* o2, unsigned char* valid,
+                       long long* lane, cudaStream_t stream) {
   const int per_block = KNN_THREADS / 32;
   const int blocks = (nq + per_block - 1) / per_block;
-  knn_select_kernel<P, VEC><<<blocks, KNN_THREADS, 0, stream>>>(
-      pts, C, slots, queries, nq, k, neigh, sq, valid, lane);
+  knn_select_kernel<P, VEC, PLANAR><<<blocks, KNN_THREADS, 0, stream>>>(
+      pts, C, slots, queries, nq, k, o0, o1, o2, valid, lane);
 }
 
 // C in 1..32 (P = ceil(C/4) points a lane), 1 <= k <= min(32, 8*C).
-extern "C" int so_knn_select(const float* pts, int C, const int* slots,
-                             const float* queries, int nq, int k, float* neigh,
-                             float* sq, unsigned char* valid, long long* lane,
-                             void* stream) {
+template <bool PLANAR>
+static int knn_dispatch(const float* pts, int C, const int* slots,
+                        const float* queries, int nq, int k, float* o0,
+                        float* o1, float* o2, unsigned char* valid,
+                        long long* lane, void* stream) {
   if (C < 1 || C > 32 || k < 1 || k > 32 || k > 8 * C)
     return (int)cudaErrorInvalidValue;
   if (nq > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     const bool vec = C % 16 == 0 && (reinterpret_cast<uintptr_t>(pts) & 15) == 0;
+#define KNN_GO(P, V) \
+  launch_knn<P, V, PLANAR>(pts, C, slots, queries, nq, k, o0, o1, o2, valid, lane, s)
     switch ((C + 3) / 4) {
-      case 1: launch_knn<1, false>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s); break;
-      case 2: launch_knn<2, false>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s); break;
-      case 3: launch_knn<3, false>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s); break;
+      case 1: KNN_GO(1, false); break;
+      case 2: KNN_GO(2, false); break;
+      case 3: KNN_GO(3, false); break;
       case 4:
-        if (vec) launch_knn<4, true>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s);
-        else launch_knn<4, false>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s);
+        if (vec) KNN_GO(4, true);
+        else KNN_GO(4, false);
         break;
-      case 5: launch_knn<5, false>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s); break;
-      case 6: launch_knn<6, false>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s); break;
-      case 7: launch_knn<7, false>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s); break;
+      case 5: KNN_GO(5, false); break;
+      case 6: KNN_GO(6, false); break;
+      case 7: KNN_GO(7, false); break;
       default:
-        if (vec) launch_knn<8, true>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s);
-        else launch_knn<8, false>(pts, C, slots, queries, nq, k, neigh, sq, valid, lane, s);
+        if (vec) KNN_GO(8, true);
+        else KNN_GO(8, false);
         break;
     }
+#undef KNN_GO
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int so_knn_select(const float* pts, int C, const int* slots,
+                             const float* queries, int nq, int k, float* neigh,
+                             float* sq, unsigned char* valid, long long* lane,
+                             void* stream) {
+  return knn_dispatch<false>(pts, C, slots, queries, nq, k, neigh, sq, nullptr,
+                             valid, lane, stream);
+}
+
+// K9a: the W nearest candidates as planes x, y, z f32[Q,W], valid bool[Q,W].
+extern "C" int so_reduce_candidates(const float* pts, int C, const int* slots,
+                                    const float* queries, int nq, int w,
+                                    float* x, float* y, float* z,
+                                    unsigned char* valid, void* stream) {
+  return knn_dispatch<true>(pts, C, slots, queries, nq, w, x, y, z, valid,
+                            nullptr, stream);
 }

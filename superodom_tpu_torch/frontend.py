@@ -1,6 +1,7 @@
-"""Scan frontend: feature gates, r^2-stratified thinning, even-rate
-compaction and IMU undistortion (counterpart of ``superodom_tpu.frontend``,
-the ship path).
+"""Scan frontend: feature gates, scan thinning in its four modes (voxel
+claim, voxel centroid, r^2-stratified, none), even-rate compaction and IMU
+undistortion (counterpart of ``superodom_tpu.frontend``; edge extraction is
+not ported yet).
 
 Every array keeps its static width with a validity mask: no ``nonzero()``
 and no boolean indexing, so the step never waits on the host.
@@ -26,6 +27,8 @@ from superodom_tpu_torch.ops.voxel import (
     true_div,
     uniform_stride_mask,
     voxel_coords,
+    voxel_downsample_centroid,
+    voxel_downsample_scatter,
 )
 
 
@@ -166,11 +169,33 @@ def select_features(xyz: torch.Tensor, mask: torch.Tensor, capacity: int,
 
 
 def thin_and_select(xyz, mask, res, capacity: int, compact_width: int,
-                    *extras, mode: str = "range"):
-    """Spatially thin masked lanes, then compact to ``capacity`` lanes.
-    The port carries the ship config's ``"range"`` mode; the other modes
-    come with a later kernel."""
-    if mode != "range":
-        raise NotImplementedError(f"scan_thin_mode={mode!r} is not ported yet")
-    keep = range_stratified_mask(xyz, mask, 3 * capacity)
+                    *extras, mode: str = "voxel", table_bits: int = 0):
+    """Spatially thin masked lanes, then compact to ``capacity`` feature
+    lanes (the role of the reference's downSizeFilterSurf).
+
+    * ``"voxel"`` — scatter-claim one point per ``res`` voxel (K10,
+      :func:`ops.voxel.voxel_downsample_scatter`); a cloud wider than
+      ``compact_width`` is compacted to that width first.  ``table_bits``
+      sizes the claim table: a caller that pre-slices lanes passes the
+      pre-slice width's value, so that the survivor set follows the sensor
+      and not the slice.
+    * ``"centroid"`` — per-voxel centroids, extras averaged (PCL VoxelGrid
+      semantics), by two stable sorts.
+    * ``"range"`` — r^2-stratified hash thinning
+      (:func:`range_stratified_mask`).
+    * ``"none"`` — even-rate decimation only."""
+    if mode not in ("voxel", "centroid", "range", "none"):
+        raise ValueError(f"unknown scan_thin_mode {mode!r}")
+    if mode == "range":
+        keep = range_stratified_mask(xyz, mask, 3 * capacity)
+        return select_features(xyz, keep, capacity, *extras)
+    if mode == "none":
+        return select_features(xyz, mask, capacity, *extras)
+    if xyz.shape[0] > compact_width:
+        xyz, mask, *extras = select_features(xyz, mask, compact_width,
+                                             *extras)
+    if mode == "centroid":
+        out = voxel_downsample_centroid(xyz, mask, res, *extras)
+        return select_features(out[0], out[1], capacity, *out[2:])
+    keep = voxel_downsample_scatter(xyz, mask, res, table_bits=table_bits)
     return select_features(xyz, keep, capacity, *extras)

@@ -12,9 +12,11 @@ allocates its outputs with ``torch.empty``, launches on the current CUDA
 stream, raises if the launch was refused, and adds one to its entry of
 :data:`launch_counts` — there and nowhere else.  They take CUDA tensors
 only; the dispatching wrappers (``mapstate.octant_lookup``,
-``mapstate.knn_select``, ``registration.plane_fit``,
-``registration.normal_system``, ``registration.gauss_newton_solve``) send
-CPU tensors to the plain versions.
+``mapstate.knn_select``, ``mapstate.reduce_candidates``,
+``mapstate.select_knn_reduced``, ``ops.voxel.voxel_downsample_scatter``,
+``registration.plane_fit``, ``registration.normal_system``,
+``registration.gauss_newton_solve``) send CPU tensors to the plain
+versions.
 """
 
 from __future__ import annotations
@@ -34,14 +36,18 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("octant_lookup", "knn_select", "plane_fit", "normal_system",
-           "launch_floor")
+           "select_reduced", "voxel_claim", "launch_floor")
 # the counted entry points; gn_solve and normal_system are the two modes of
-# csrc/normal_system.cu
+# csrc/normal_system.cu, reduce_candidates is csrc/knn_select.cu with the
+# planar output
 KERNELS = ("octant_lookup", "knn_select", "plane_fit", "gn_solve",
-           "normal_system")
-SOURCE_OF = {"gn_solve": "normal_system"}
+           "normal_system", "reduce_candidates", "select_reduced",
+           "voxel_claim")
+SOURCE_OF = {"gn_solve": "normal_system", "reduce_candidates": "knn_select"}
+# --threads 0: the sources compile side by side, one thread a core
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "--threads", "0"]
 # gn_solve runs on one cluster of GN_BLOCKS blocks; each block stages
 # ceil(M / GN_BLOCKS) rows (rounded up to 16) of 33 bytes in shared memory,
 # at most GN_MAX_ROW_BYTES (csrc/normal_system.cu)
@@ -123,9 +129,16 @@ def load() -> ctypes.CDLL:
     lib.so_gn_solve.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, vp,
                                 vp, vp, vp, vp, vp, ci, cf, cf, ci,
                                 vp, vp, vp]
+    lib.so_reduce_candidates.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp,
+                                         vp, vp]
+    lib.so_select_reduced.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci, vp, vp,
+                                      vp, vp]
+    lib.so_voxel_claim.argtypes = [vp, vp, ci, vp, ci, vp, vp, vp]
     lib.so_launch_floor.argtypes = [vp]
     for fn in (lib.so_octant_lookup, lib.so_knn_select, lib.so_plane_fit,
-               lib.so_gn_solve, lib.so_launch_floor):
+               lib.so_gn_solve, lib.so_reduce_candidates,
+               lib.so_select_reduced, lib.so_voxel_claim,
+               lib.so_launch_floor):
         fn.restype = ci
     _lib = lib
     return lib
@@ -181,10 +194,8 @@ def octant_lookup(keys: torch.Tensor, queries: torch.Tensor,
     return out
 
 
-def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
-               k: int):
-    """K2 on the card: (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k],
-    lane int64[Q,k]) (see csrc/knn_select.cu)."""
+def _check_candidates(name: str, pts, slots, queries, k: int) -> int:
+    """The shared input checks of K2 and K9a; returns the cell capacity."""
     dev = queries.device
     nq = queries.shape[0]
     _check("queries", queries, torch.float32, (nq, 3))
@@ -193,7 +204,17 @@ def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
     C = pts.shape[1] // 3
     if pts.shape[1] != 3 * C or not 1 <= C <= 32 or not 1 <= k <= min(
             32, 8 * C):
-        raise ValueError(f"knn_select: unsupported cell capacity {C} or k {k}")
+        raise ValueError(f"{name}: unsupported cell capacity {C} or k {k}")
+    return C
+
+
+def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
+               k: int):
+    """K2 on the card: (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k],
+    lane int64[Q,k]) (see csrc/knn_select.cu)."""
+    dev = queries.device
+    nq = queries.shape[0]
+    C = _check_candidates("knn_select", pts, slots, queries, k)
     neigh = torch.empty((nq, k, 3), dtype=torch.float32, device=dev)
     sq = torch.empty((nq, k), dtype=torch.float32, device=dev)
     valid = torch.empty((nq, k), dtype=torch.bool, device=dev)
@@ -203,6 +224,68 @@ def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
                               _stream(dev))
     _launched("knn_select", rc)
     return neigh, sq, valid, lane
+
+
+def reduce_candidates(pts: torch.Tensor, slots: torch.Tensor,
+                      queries: torch.Tensor, w: int):
+    """K9a on the card: the ``w`` nearest candidates of each query as planes
+    (x f32[Q,w], y, z, valid bool[Q,w]) (see csrc/knn_select.cu)."""
+    dev = queries.device
+    nq = queries.shape[0]
+    C = _check_candidates("reduce_candidates", pts, slots, queries, w)
+    x, y, z = (torch.empty((nq, w), dtype=torch.float32, device=dev)
+               for _ in range(3))
+    valid = torch.empty((nq, w), dtype=torch.bool, device=dev)
+    rc = load().so_reduce_candidates(_p(pts), C, _p(slots), _p(queries), nq,
+                                     w, _p(x), _p(y), _p(z), _p(valid),
+                                     _stream(dev))
+    _launched("reduce_candidates", rc)
+    return x, y, z, valid
+
+
+def select_reduced(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                   valid: torch.Tensor, queries: torch.Tensor, k: int):
+    """K9b on the card: the ``k`` nearest of each query's reduced lanes,
+    (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k]) (see
+    csrc/select_reduced.cu)."""
+    dev = queries.device
+    nq = queries.shape[0]
+    _check("queries", queries, torch.float32, (nq, 3))
+    w = x.shape[1] if x.dim() == 2 else -1
+    for name, t in (("x", x), ("y", y), ("z", z)):
+        _check(name, t, torch.float32, (nq, w), dev)
+    _check("valid", valid, torch.bool, (nq, w), dev)
+    if not 1 <= k <= w <= 32:
+        raise ValueError(f"select_reduced: need 1 <= k <= width <= 32, got "
+                         f"k {k}, width {w}")
+    neigh = torch.empty((nq, k, 3), dtype=torch.float32, device=dev)
+    sq = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    nvalid = torch.empty((nq, k), dtype=torch.bool, device=dev)
+    rc = load().so_select_reduced(_p(x), _p(y), _p(z), _p(valid), w,
+                                  _p(queries), nq, k, _p(neigh), _p(sq),
+                                  _p(nvalid), _stream(dev))
+    _launched("select_reduced", rc)
+    return neigh, sq, nvalid
+
+
+def voxel_claim(xyz: torch.Tensor, mask: torch.Tensor, res: torch.Tensor,
+                table_bits: int) -> torch.Tensor:
+    """K10 on the card: the keep-mask bool[N] of scatter-claim voxel
+    thinning over a table of ``1 << table_bits`` slots; ``res`` is a 0-d
+    float32 tensor on the card (see csrc/voxel_claim.cu)."""
+    dev = xyz.device
+    n = xyz.shape[0]
+    _check("xyz", xyz, torch.float32, (n, 3))
+    _check("mask", mask, torch.bool, (n,), dev)
+    _check("res", res, torch.float32, (), dev)
+    if not 4 <= table_bits <= 30:
+        raise ValueError(f"voxel_claim: table_bits {table_bits} outside 4..30")
+    table = torch.empty((1 << table_bits,), dtype=torch.int32, device=dev)
+    keep = torch.empty((n,), dtype=torch.bool, device=dev)
+    rc = load().so_voxel_claim(_p(xyz), _p(mask), n, _p(res), table_bits,
+                               _p(table), _p(keep), _stream(dev))
+    _launched("voxel_claim", rc)
+    return keep
 
 
 def plane_fit(neigh: torch.Tensor, sq: torch.Tensor, nvalid: torch.Tensor,

@@ -9,7 +9,7 @@ Layout, as in the JAX package:
 Unoccupied point lanes hold the BIG sentinel, so a query needs no per-slot
 count: sentinel lanes lose every distance comparison.
 
-Two hand-written CUDA kernels carry the read side (``csrc/``):
+Hand-written CUDA kernels carry the read side (``csrc/``):
 
 * ``octant_lookup`` (K1) — the 2x2x2 cells nearest each query, their
   packed keys, the fmix bucket and a first-match scan of the bucket row:
@@ -17,6 +17,10 @@ Two hand-written CUDA kernels carry the read side (``csrc/``):
 * ``knn_select`` (K2) — the k nearest stored points among those 8 slot
   rows, read straight from the point table, ordered by (distance, lane)
   exactly as ``lax.top_k`` orders them.
+* ``reduce_candidates`` (K9a) — K2's selection at k = W, materialised as
+  planes ``[Q, W]`` once a scan; ``select_reduced`` (K9b) — the k nearest
+  among those W lanes, for the ICP rounds after the first
+  (``RegistrationConfig.refresh_width``).
 
 Each has a plain PyTorch version here (``*_reference``) with the JAX
 package's layout; CPU tensors take it, CUDA tensors take the kernel.
@@ -157,33 +161,51 @@ def octant_lookup(keys: torch.Tensor, queries: torch.Tensor,
     raise ValueError(f"octant_lookup: unsupported device {queries.device}")
 
 
+def _nearest_lanes(planes, valid: torch.Tensor, queries: torch.Tensor,
+                   k: int):
+    """The k candidate lanes nearest each query, of coordinate planes
+    (x, y, z), each [Q, L]: squared distance ((x-qx)^2 + (y-qy)^2) +
+    (z-qz)^2, BIG where ``valid`` is false, the k smallest in (distance,
+    lane) order — a stable sort, since ``torch.topk`` does not guarantee
+    the lower lane wins a tie.  Returns (the winners' coordinate planes,
+    each [Q, k]; sq [Q, k]; lane int64[Q, k]): gathered, never a one-hot
+    product (0 * inf is NaN)."""
+    cx, cy, cz = planes
+    d2 = ((cx - queries[:, 0:1]) ** 2 + (cy - queries[:, 1:2]) ** 2
+          + (cz - queries[:, 2:3]) ** 2)
+    d2 = torch.where(valid, d2, BIG)
+    sq, lane = torch.sort(d2, dim=-1, stable=True)
+    sq, lane = sq[:, :k], lane[:, :k]
+    return tuple(torch.gather(c, 1, lane) for c in planes), sq, lane
+
+
+def _candidate_planes(pts: torch.Tensor, slots: torch.Tensor):
+    """The 8*C candidate lanes of each query's octant slots as coordinate
+    planes (x, y, z), each [Q, 8C], and their validity (``gather_candidates``
+    + ``cand_planes``).  Candidate lane ``o*C + c`` is point ``c`` of octant
+    slot ``o``; a missing slot reads row 0 and is not valid."""
+    nq = slots.shape[0]
+    C = pts.shape[1] // 3
+    cand = pts[torch.clamp_min(slots, 0)]  # [Q, 8, 3C]
+    cvalid = (slots >= 0)[..., None].expand(nq, 8, C).reshape(nq, 8 * C)
+    planes = tuple(cand[:, :, a * C:(a + 1) * C].reshape(nq, 8 * C)
+                   for a in range(3))
+    return planes, cvalid
+
+
 def knn_select_reference(pts: torch.Tensor, slots: torch.Tensor,
                          queries: torch.Tensor, k: int):
     """Plain version of K2 (``gather_candidates`` + ``select_knn``).
 
-    Candidate lane ``o*C + c`` is point ``c`` of octant slot ``o``.  A
-    missing slot reads row 0 with distance BIG; an empty lane of a live slot
+    A missing slot's lanes have distance BIG; an empty lane of a live slot
     holds the BIG sentinel and squares to inf.  The k smallest distances
-    are taken in (distance, lane) order — a stable sort, since
-    ``torch.topk`` does not guarantee the lower lane wins a tie.
+    are taken in (distance, lane) order.
 
     Returns (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k],
     lane int64[Q,k])."""
-    nq = queries.shape[0]
-    C = pts.shape[1] // 3
-    cand = pts[torch.clamp_min(slots, 0)]  # [Q, 8, 3C]
-    cvalid = (slots >= 0)[..., None].expand(nq, 8, C).reshape(nq, 8 * C)
-    cx = cand[:, :, 0:C].reshape(nq, 8 * C)
-    cy = cand[:, :, C:2 * C].reshape(nq, 8 * C)
-    cz = cand[:, :, 2 * C:].reshape(nq, 8 * C)
-    d2 = ((cx - queries[:, 0:1]) ** 2 + (cy - queries[:, 1:2]) ** 2
-          + (cz - queries[:, 2:3]) ** 2)
-    d2 = torch.where(cvalid, d2, BIG)
-    sq, lane = torch.sort(d2, dim=-1, stable=True)
-    sq, lane = sq[:, :k], lane[:, :k]
-    neigh = torch.stack([torch.gather(cx, 1, lane), torch.gather(cy, 1, lane),
-                         torch.gather(cz, 1, lane)], dim=-1)
-    return neigh, sq, sq < BIG * 0.5, lane
+    planes, cvalid = _candidate_planes(pts, slots)
+    near, sq, lane = _nearest_lanes(planes, cvalid, queries, k)
+    return torch.stack(near, dim=-1), sq, sq < BIG * 0.5, lane
 
 
 def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
@@ -195,6 +217,62 @@ def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
     if queries.device.type == "cpu":
         return knn_select_reference(pts, slots, queries, k)
     raise ValueError(f"knn_select: unsupported device {queries.device}")
+
+
+class ReducedCandidates(NamedTuple):
+    """The W candidates nearest each query, in (distance, lane) order, as
+    coordinate planes.  Made once a scan by :func:`reduce_candidates`; the
+    ICP refresh rounds select their k neighbours from these W lanes instead
+    of the 8*C gathered ones.  A lane that is not valid holds no point of
+    the query's cells (the BIG sentinel, or a point of table row 0)."""
+
+    x: torch.Tensor  # f32[Q, W]
+    y: torch.Tensor  # f32[Q, W]
+    z: torch.Tensor  # f32[Q, W]
+    valid: torch.Tensor  # bool[Q, W]
+
+
+def reduce_candidates_reference(pts: torch.Tensor, slots: torch.Tensor,
+                                queries: torch.Tensor,
+                                w: int) -> ReducedCandidates:
+    """Plain version of K9a (``gather_candidates`` + ``reduce_candidates``):
+    :func:`knn_select_reference` at k = ``w`` with the planar layout.  With
+    fewer than ``w`` live candidates the tail takes BIG (missing slot) and
+    inf (empty lane) distances, ties to the lower lane, valid false."""
+    planes, cvalid = _candidate_planes(pts, slots)
+    (x, y, z), sq, _ = _nearest_lanes(planes, cvalid, queries, w)
+    return ReducedCandidates(x, y, z, sq < BIG * 0.5)
+
+
+def reduce_candidates(pts: torch.Tensor, slots: torch.Tensor,
+                      queries: torch.Tensor, w: int) -> ReducedCandidates:
+    """K9a: see :func:`reduce_candidates_reference` for the contract."""
+    if queries.is_cuda:
+        return ReducedCandidates(*kernels.reduce_candidates(pts, slots,
+                                                            queries, w))
+    if queries.device.type == "cpu":
+        return reduce_candidates_reference(pts, slots, queries, w)
+    raise ValueError(f"reduce_candidates: unsupported device {queries.device}")
+
+
+def select_knn_reduced_reference(red: ReducedCandidates,
+                                 queries: torch.Tensor, k: int):
+    """Plain version of K9b (``select_knn_reduced``): the k nearest of the
+    reduced lanes, lanes that are not valid at distance BIG.  Returns
+    (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k])."""
+    near, sq, _ = _nearest_lanes((red.x, red.y, red.z), red.valid, queries, k)
+    return torch.stack(near, dim=-1), sq, sq < BIG * 0.5
+
+
+def select_knn_reduced(red: ReducedCandidates, queries: torch.Tensor, k: int):
+    """K9b: see :func:`select_knn_reduced_reference` for the contract."""
+    if queries.is_cuda:
+        return kernels.select_reduced(red.x, red.y, red.z, red.valid, queries,
+                                      k)
+    if queries.device.type == "cpu":
+        return select_knn_reduced_reference(red, queries, k)
+    raise ValueError(f"select_knn_reduced: unsupported device "
+                     f"{queries.device}")
 
 
 def _run_start(flag: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,17 @@
 """The odometry step: ``step(cfg, state, scan, imu, imu_available) ->
 (state', output)`` (counterpart of ``superodom_tpu.pipeline``).
 
-One scan runs, in order: feature gates, r^2-stratified thinning and
-even-rate compaction, IMU undistortion with the constant-velocity and
+One scan runs, in order: feature gates, scan thinning and even-rate
+compaction, IMU undistortion with the constant-velocity and
 translation de-skews, prediction-source selection, scan-to-map ICP, motion
 gates, map insert and eviction, and the inertial smoother.  Decisions that
 JAX makes with ``jnp.where`` stay device-side selections here, so a step
-waits on the host only for the ICP early-exit flag.
+waits on the host only for the ICP early-exit flag and, where a map
+cadence is not 1, for the frame count.
 
-The step is pure: it never modifies ``state``.  Static branches the ship
-configuration turns off (edge features, VIO undistortion, LIO prediction,
-insert/evict cadences other than 1) raise NotImplementedError.
+The step is pure: it never modifies ``state``.  The static branches that
+are not ported yet (edge features, VIO undistortion, LIO prediction) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -296,8 +297,6 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
         raise NotImplementedError("VIO undistortion is not ported yet")
     if cfg.enable_lio_prediction:
         raise NotImplementedError("LIO prediction is not ported yet")
-    if cfg.map.insert_cadence != 1 or cfg.map.evict_cadence != 1:
-        raise NotImplementedError("map cadences other than 1 are not ported")
     dtype, dev = scan.xyz.dtype, scan.xyz.device
     sensor = cfg.sensor
     reg = cfg.registration
@@ -327,7 +326,8 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
                                               feat_mask)
     surf_raw, surf_mask, surf_trel = thin_and_select(
         scan.xyz, feat_mask, rt.plane_res, sensor.max_surface_features,
-        sensor.compact_width, scan.t_rel, mode=sensor.scan_thin_mode)
+        sensor.compact_width, scan.t_rel, mode=sensor.scan_thin_mode,
+        table_bits=max((sensor.max_points * 4 - 1).bit_length(), 4))
     surf_u, q_w_orig_l, _ = undistort_points(
         surf_raw, surf_trel, surf_mask, scan.t_start, imu, R_il, t_il)
     surf_pts = torch.where(imu_available, surf_u, surf_raw)
@@ -422,13 +422,25 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
         ~vel_gate, 5, torch.clamp_min(state.startup_count - 1, 0)
     ).to(torch.int32)
 
-    # ---------------- map update (insert + evict every frame) -------------
+    # ---------------- map update ------------------------------------------
+    # insert and evict on their cadences (the first 8 frames always insert,
+    # to seed the map).  Eager code skips the work outright: one host read
+    # of the frame count decides, made only where a cadence is not 1
     stage("map_update")
     do_update_map = (not cfg.localization.enabled) \
         or cfg.localization.update_map
-    surf_map = insert(state.surf_map, cfg.map, pose.apply(surf_pts),
-                      surf_mask & do_update_map, rt.plane_res)
-    surf_map = evict_far(surf_map, cfg.map, pose.t)
+    do_insert = do_evict = True
+    if cfg.map.insert_cadence != 1 or cfg.map.evict_cadence != 1:
+        frame = int(state.frame_count)
+        do_insert = (cfg.map.insert_cadence == 1
+                     or frame % cfg.map.insert_cadence == 0 or frame < 8)
+        do_evict = frame % cfg.map.evict_cadence == 0
+    surf_map = state.surf_map
+    if do_insert:
+        surf_map = insert(surf_map, cfg.map, pose.apply(surf_pts),
+                          surf_mask & do_update_map, rt.plane_res)
+    if do_evict:
+        surf_map = evict_far(surf_map, cfg.map, pose.t)
 
     # ---------------- inertial smoother -----------------------------------
     stage("smoother")

@@ -1,10 +1,12 @@
 """Where a step's time goes on the GPU, by stage.
 
-    python -m superodom_tpu_torch.profile [--scans 40] [--warm 20]
+    python -m superodom_tpu_torch.profile [--profile os1_128] [--parity]
+                                          [--scans 40] [--warm 20]
                                           [--trace FILE]
 
-Replays the replay benchmark's dataset (OS1-128, ship configuration,
-seed 7) through ``OdometryRunner`` on cuda: ``--warm`` scans unprofiled,
+Replays the replay benchmark's dataset (seed 7, the chosen sensor's full
+scan width; its ship configuration, or with ``--parity`` its
+reference-envelope one) through ``OdometryRunner`` on cuda: ``--warm`` scans unprofiled,
 then the rest under ``torch.profiler``.  Prints one JSON line with, per
 stage range of :func:`pipeline.step` ("step.frontend", ...), the host
 wall time inside it (ms per scan), the top device kernels, and the
@@ -21,9 +23,14 @@ import time
 import numpy as np
 import torch
 
+from superodom_tpu_torch.config import PROFILES, config_for
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", default="os1_128", choices=PROFILES)
+    ap.add_argument("--parity", action="store_true",
+                    help="the reference-envelope configuration")
     ap.add_argument("--scans", type=int, default=40)
     ap.add_argument("--warm", type=int, default=20)
     ap.add_argument("--trace", help="write the Chrome trace here")
@@ -31,12 +38,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
 
-    from superodom_tpu_torch.config import ship_config
     from superodom_tpu_torch.convert import to_numpy
     from superodom_tpu_torch.io.datasets import BoxWorld, make_dataset
     from superodom_tpu_torch.runner import OdometryRunner
 
-    cfg = ship_config("os1")
+    cfg = config_for(args.profile, args.parity)
     ds = make_dataset(np.random.default_rng(7), n_scans=args.scans,
                       points_per_scan=cfg.sensor.max_points,
                       world=BoxWorld(half_extent=np.array([40.0, 30.0, 8.0])),
@@ -88,6 +94,8 @@ def main(argv=None):
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
+        "profile": args.profile,
+        "parity": args.parity,
         "scans_profiled": n,
         "wall_ms_per_scan": wall * 1e3 / n,
         "device_busy_share": busy,

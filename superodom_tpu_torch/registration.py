@@ -13,8 +13,14 @@ normal system (:func:`normal_system`).  ``plane_fit_reference``,
 ``gauss_newton_solve_reference`` and ``normal_system_reference`` are the
 plain versions the CPU takes.
 
-The edge path (use_edges) and candidate refresh (refresh_width > 0) are
-not ported yet and raise NotImplementedError.
+Candidate refresh (``RegistrationConfig.refresh_width`` = W > 0): after
+round 1 the W nearest candidates of every feature at the once-corrected
+pose are materialised once (K9a, :func:`mapstate.reduce_candidates`), and
+the later rounds select their neighbours from those W lanes (K9b,
+:func:`mapstate.select_knn_reduced`) instead of the 8*C gathered ones.
+
+The edge path (use_edges) is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,7 +40,14 @@ from superodom_tpu_torch.geometry import (
     quat_mul,
     quat_rotate,
 )
-from superodom_tpu_torch.mapstate import VoxelHashMap, knn_select, octant_lookup
+from superodom_tpu_torch.mapstate import (
+    ReducedCandidates,
+    VoxelHashMap,
+    knn_select,
+    octant_lookup,
+    reduce_candidates,
+    select_knn_reduced,
+)
 from superodom_tpu_torch.ops.eigh3 import eigh3
 from superodom_tpu_torch.ops.smallsolve import inv6_spd, solve6_spd
 
@@ -250,6 +263,20 @@ def _plane_fit(neigh, sq, nvalid, reg: RegistrationConfig, pose: Pose,
         plane_res)
     return PlaneCorrs(p_body=p_body, normal=normal, d=d, coeff=coeff,
                       valid=valid, code=code, obs_bins=obs_bins)
+
+
+def plane_correspondences_from_reduced(red: ReducedCandidates,
+                                       reg: RegistrationConfig, pose: Pose,
+                                       p_body, mask, plane_res,
+                                       w_pt=None) -> PlaneCorrs:
+    """Plane correspondences selected from a once-materialised top-W
+    candidate subset (the ICP refresh rounds); ``w_pt`` = the features at
+    ``pose`` where the caller has them already."""
+    if w_pt is None:
+        w_pt = pose.apply(p_body).contiguous()
+    neigh, sq, nvalid = select_knn_reduced(red, w_pt, reg.plane_knn)
+    return _plane_fit(neigh, sq, nvalid, reg, pose, p_body, mask, plane_res,
+                      w_pt)
 
 
 # ---------------------------------------------------------------------------
@@ -512,15 +539,17 @@ def icp_register(
     robust GN, a convergence mask freezing a finished solve.
 
     The octant slots are looked up ONCE at the predicted pose and every
-    round re-selects from them.  Round 1 always runs.  With
+    round re-selects from them.  Round 1 always runs, at full width.  With
     ``icp_early_exit`` each further round runs only while the solve has
     not converged — one host read of the converged flag per round, the
     eager counterpart of the JAX ``while_loop``; without it every round
-    runs with the converged solve frozen (the JAX ``scan``)."""
+    runs with the converged solve frozen (the JAX ``scan``).  With
+    ``refresh_width`` > 0 the candidates are reduced once at the round-1
+    pose, just after the read that lets round 2 run (a scan that converged
+    in round 1 skips the reduction, as the JAX ``cond`` does), and rounds
+    2.. select from the reduced set."""
     if use_edges:
         raise NotImplementedError("the edge path is not ported yet")
-    if reg.refresh_width > 0:
-        raise NotImplementedError("candidate refresh is not ported yet")
     max_it = reg.max_icp_iters
     dtype, dev = surf_pts.dtype, surf_pts.device
     surf_pts = surf_pts.contiguous()
@@ -528,9 +557,8 @@ def icp_register(
     w_pt0 = pose0.apply(surf_pts).contiguous()
     slots = octant_lookup(surf_map.keys, w_pt0, map_cfg.cell_size)
 
-    def correspondences(pose: Pose, w_pt=None) -> PlaneCorrs:
-        if w_pt is None:
-            w_pt = pose.apply(surf_pts).contiguous()
+    def correspondences(pose: Pose, w_pt) -> PlaneCorrs:
+        """Full-width extraction; ``w_pt`` = the features at ``pose``."""
         neigh, sq, nvalid, _ = knn_select(surf_map.pts, slots, w_pt,
                                           reg.plane_knn)
         return _plane_fit(neigh, sq, nvalid, reg, pose, surf_pts, surf_mask,
@@ -538,10 +566,9 @@ def icp_register(
 
     rounds = torch.arange(max_it, device=dev)
 
-    def icp_round(c: _Carry, w_pt=None) -> _Carry:
-        """One round from ``c``; ``w_pt`` = the features at ``c.pose`` where
-        the caller has them already."""
-        planes = correspondences(c.pose, w_pt)
+    def icp_round(c: _Carry, planes: PlaneCorrs) -> _Carry:
+        """One round from ``c`` on the correspondences extracted at
+        ``c.pose``."""
         new_pose, one_step = gauss_newton_solve(
             c.pose, planes, None, rt, reg.max_gn_iters, prior,
             use_edges=False, a_mult=anneal_mult(reg, c.it, dtype),
@@ -570,11 +597,21 @@ def icp_register(
         t_norms=torch.zeros((max_it,), dtype=dtype, device=dev),
         r_norms=torch.zeros((max_it,), dtype=dtype, device=dev),
         surf_ns=torch.zeros((max_it,), dtype=torch.int32, device=dev)),
-        w_pt0)
+        correspondences(pose0, w_pt0))
+    red = None  # the reduced candidates, made when round 2 is to run
     for _ in range(max_it - 1):
         if reg.icp_early_exit and bool(c.converged):
             break
-        c = icp_round(c)
+        w_pt = c.pose.apply(surf_pts).contiguous()
+        if reg.refresh_width > 0:
+            if red is None:
+                red = reduce_candidates(surf_map.pts, slots, w_pt,
+                                        reg.refresh_width)
+            planes = plane_correspondences_from_reduced(
+                red, reg, c.pose, surf_pts, surf_mask, rt.plane_res, w_pt)
+        else:
+            planes = correspondences(c.pose, w_pt)
+        c = icp_round(c, planes)
     pose, planes, n_it = c.pose, c.planes, c.it
 
     # one H at the final pose, at the last executed round's Tukey support

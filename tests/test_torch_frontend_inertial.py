@@ -1,7 +1,16 @@
 """Frontend and inertial modules of the PyTorch port against the JAX
 package: gates, r^2-stratified thinning and compaction (lane sets exact),
 IMU undistortion (1e-5), preintegration with its bias Jacobians and the
-fixed-lag smoother (1e-4)."""
+fixed-lag smoother (1e-4); and scan thinning: the plain version of the
+voxel_claim kernel (K10, keep-masks exact), the per-voxel centroid
+downsample with an extra channel (masks and lane order exact, centroids
+1e-6: ``index_add_`` and ``segment_sum`` may add in different orders),
+``thin_and_select`` in its four modes and through the ``compact_width``
+pre-compaction (lane sets exact), and the adaptive voxel size on a near and
+a far cloud."""
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -11,18 +20,24 @@ torch.set_num_threads(2)
 
 import jax  # noqa: E402
 
+from superodom_tpu import config as jcfg  # noqa: E402
 from superodom_tpu import frontend as jf  # noqa: E402
 from superodom_tpu import geometry as jg  # noqa: E402
 from superodom_tpu import inertial as ji  # noqa: E402
+from superodom_tpu import pipeline as jp  # noqa: E402
 from superodom_tpu.config import ImuConfig as JImu  # noqa: E402
 from superodom_tpu.io.datasets import BoxWorld, make_dataset  # noqa: E402
+from superodom_tpu.ops import voxel as jv  # noqa: E402
 
-from superodom_tpu_torch import convert  # noqa: E402
+from superodom_tpu_torch import config as tcfg  # noqa: E402
+from superodom_tpu_torch import convert, kernels  # noqa: E402
 from superodom_tpu_torch import frontend as tf  # noqa: E402
 from superodom_tpu_torch import inertial as ti  # noqa: E402
+from superodom_tpu_torch import pipeline as tp  # noqa: E402
 from superodom_tpu_torch.config import ImuConfig  # noqa: E402
 from superodom_tpu_torch.geometry import Pose  # noqa: E402
 from superodom_tpu_torch.native import ImuBuffer  # noqa: E402
+from superodom_tpu_torch.ops import voxel as tv  # noqa: E402
 
 M_IMU = 48
 
@@ -118,8 +133,9 @@ def test_thin_and_select_range_mode(data):
                                mode="range")
     for a, b in zip(out_t, out_j):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    with pytest.raises(NotImplementedError):
-        tf.thin_and_select(T(xyz), T(mask), 0.2, 512, 4096, mode="voxel")
+    # the other three modes: test_thin_and_select_modes below
+    with pytest.raises(ValueError):
+        tf.thin_and_select(T(xyz), T(mask), 0.2, 512, 4096, mode="octree")
 
 
 @pytest.mark.parametrize("k", [14, 22])
@@ -211,3 +227,162 @@ def test_smoother_update_sequence(data):
     for a, b in zip(ti.propagate_state(st_t, cfg_t, convert.from_numpy(
             jax.device_get(pre))), ji.propagate_state(sj, cfg_j, pre)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-2)
+
+
+# ---- scan thinning (K10, centroid, thin_and_select, voxel size) ----
+
+N_CLOUD = 3000
+
+
+def _cloud(seed=0, n=N_CLOUD, centre=(0.0, 0.0, 0.0)):
+    """Points on and around a few surfaces, several a 0.2 m voxel, on both
+    sides of every axis; every seventh lane masked out."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-6.0, 6.0, (n, 3)).astype(np.float32)
+    xyz[: n // 2, 2] = np.float32(-1.5)  # a floor: many points a voxel
+    xyz[n // 2: 3 * n // 4, 0] = np.float32(4.0)
+    xyz = (xyz + np.float32(centre)).astype(np.float32)
+    mask = np.arange(n) % 7 != 3
+    t_rel = rng.uniform(0.0, 0.1, n).astype(np.float32)
+    return xyz, mask, t_rel
+
+
+SCATTER_CASES = {
+    # name: (table_bits, res, centre, all lanes masked out)
+    "default_table": (0, 0.2, (0.0, 0.0, 0.0), False),
+    "given_table": (14, 0.2, (0.0, 0.0, 0.0), False),
+    "16_entries": (4, 0.2, (0.0, 0.0, 0.0), False),  # collisions everywhere
+    "negative_coordinates": (0, 0.2, (-40.0, -25.0, -9.0), False),
+    "all_masked_out": (0, 0.2, (0.0, 0.0, 0.0), True),
+    "coarse": (0, 0.8, (3.0, -2.0, 0.5), False),
+}
+
+
+@pytest.mark.parametrize("res_as_tensor", [False, True],
+                         ids=["float", "tensor"])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_voxel_downsample_scatter_exact(case, res_as_tensor):
+    bits, res, centre, dead = SCATTER_CASES[case]
+    xyz, mask, _ = _cloud(1, centre=centre)
+    if dead:
+        mask = np.zeros_like(mask)
+    keep_j = np.asarray(jv.voxel_downsample_scatter(xyz, mask,
+                                                    np.float32(res), bits))
+    keep_t = tv.voxel_downsample_scatter(
+        T(xyz), T(mask), torch.tensor(res) if res_as_tensor else res,
+        table_bits=bits)
+    assert keep_t.dtype == torch.bool
+    np.testing.assert_array_equal(keep_t.numpy(), keep_j)
+    if dead:
+        assert not keep_j.any()
+    elif bits == 4:
+        assert keep_j.sum() == 16  # every table entry has one survivor
+    else:
+        assert 100 < keep_j.sum() < mask.sum()
+    if case == "negative_coordinates":
+        assert (xyz < 0).all()
+
+
+def test_voxel_downsample_scatter_dispatch():
+    xyz, mask, _ = _cloud(2)
+    a = tv.voxel_downsample_scatter(T(xyz), T(mask), 0.2)
+    b = tv.voxel_downsample_scatter_reference(T(xyz), T(mask), 0.2)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError):  # the kernel's wrapper: CUDA tensors only
+        kernels.voxel_claim(T(xyz), T(mask), torch.tensor(0.2), 14)
+
+
+@pytest.mark.parametrize("res", [0.2, 0.7])
+def test_voxel_downsample_centroid_with_extras(res):
+    xyz, mask, t_rel = _cloud(3)
+    two = np.stack([t_rel, 1.0 - t_rel], axis=1).astype(np.float32)
+    out_j = jv.voxel_downsample_centroid(xyz, mask, np.float32(res), t_rel,
+                                         two)
+    out_t = tv.voxel_downsample_centroid(T(xyz), T(mask), torch.tensor(res),
+                                         T(t_rel), T(two))
+    assert len(out_t) == 4
+    np.testing.assert_array_equal(out_t[1].numpy(), np.asarray(out_j[1]))
+    for a, b in zip((out_t[0], *out_t[2:]), (out_j[0], *out_j[2:])):
+        assert a.shape == np.asarray(b).shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-6)
+    n_vox = int(np.asarray(out_j[1]).sum())
+    assert 50 < n_vox < mask.sum()
+    assert not out_t[0].numpy()[n_vox:].any()  # compacted to the front
+
+
+THIN_CASES = {
+    # name: (mode, compact_width): 4096 leaves the 3,000 lanes alone, 1024
+    # compacts them first
+    "voxel": ("voxel", 4096),
+    "voxel_compacted": ("voxel", 1024),
+    "centroid": ("centroid", 4096),
+    "centroid_compacted": ("centroid", 1024),
+    "range": ("range", 4096),
+    "none": ("none", 4096),
+}
+
+
+@pytest.mark.parametrize("case", list(THIN_CASES))
+def test_thin_and_select_modes(case):
+    mode, width = THIN_CASES[case]
+    xyz, mask, t_rel = _cloud(4)
+    bits = max((4 * N_CLOUD * 3 - 1).bit_length(), 4)  # a 3x wider sensor's table
+    out_j = jf.thin_and_select(xyz, mask, np.float32(0.2), 512, width, t_rel,
+                               mode=mode, table_bits=bits)
+    out_t = tf.thin_and_select(T(xyz), T(mask), torch.tensor(0.2), 512, width,
+                               T(t_rel), mode=mode, table_bits=bits)
+    assert len(out_t) == 3 and out_t[0].shape == (512, 3)
+    np.testing.assert_array_equal(out_t[1].numpy(), np.asarray(out_j[1]))
+    assert 100 < int(out_t[1].sum()) <= 512
+    if mode == "centroid":  # lanes are means: 1e-6
+        for a, b in zip(out_t, out_j):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-6)
+    else:  # lanes are input lanes: exact
+        for a, b in zip(out_t, out_j):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_thin_and_select_table_bits_follows_the_sensor():
+    """The table size decides which voxels merge: the default (4x the lane
+    count) and a wider sensor's table keep different lanes, and both sides
+    agree on each."""
+    xyz, mask, _ = _cloud(5)
+    keeps = []
+    for bits in (0, 11):
+        kj = np.asarray(jv.voxel_downsample_scatter(xyz, mask,
+                                                    np.float32(0.2), bits))
+        kt = tv.voxel_downsample_scatter(T(xyz), T(mask), 0.2, bits).numpy()
+        np.testing.assert_array_equal(kt, kj)
+        keeps.append(kj)
+    assert (keeps[0] != keeps[1]).any()
+
+
+@pytest.mark.parametrize("scale,expect", [(0.25, (0.1, 0.2)),
+                                          (1.0, (0.3, 0.6)),
+                                          (2.5, (0.4, 0.8))],
+                         ids=["near", "between", "far"])
+def test_adjust_voxel_size_auto(scale, expect):
+    """auto_voxel_size: the product of the per-axis mean |coordinate|
+    selects the near preset (< 25), the far one (> 65), or keeps the
+    running resolutions."""
+    xyz, mask, _ = _cloud(6)
+    xyz = (np.abs(xyz) * np.float32(scale) + np.float32(0.5)).astype(
+        np.float32)
+    cfg_j = jcfg.PipelineConfig(auto_voxel_size=True)
+    cfg_t = tcfg.PipelineConfig(auto_voxel_size=True)
+    rt_j, avg_j = jp._adjust_voxel_size(
+        cfg_j, jcfg.RuntimeParams(np.float32(0.3), np.float32(0.6)), xyz, mask)
+    rt_t, avg_t = tp._adjust_voxel_size(
+        cfg_t, tcfg.RuntimeParams(torch.tensor(0.3), torch.tensor(0.6)),
+        T(xyz), T(mask))
+    np.testing.assert_allclose(float(avg_t), float(avg_j), rtol=1e-5)
+    assert rt_t.line_res.dtype == torch.float32 and rt_t.line_res.dim() == 0
+    for got, want_j, want in zip(rt_t, rt_j, expect):
+        assert float(got) == float(np.float32(want_j)) == float(
+            np.float32(want))
+    # off: the running resolutions pass through untouched
+    off = dataclasses.replace(cfg_t, auto_voxel_size=False)
+    rt0 = tcfg.RuntimeParams(torch.tensor(0.3), torch.tensor(0.6))
+    assert tp._adjust_voxel_size(off, rt0, T(xyz), T(mask))[0] is rt0

@@ -53,6 +53,31 @@ def test_ship_config_equals_bench(name):
     assert _asdict(tcfg.ship_config(name)) == _asdict(_config(name))
 
 
+@pytest.mark.parametrize("name", ["os1", "vlp16", "livox"])
+def test_parity_config_equals_bench(name):
+    """The reference-envelope configuration, field by field."""
+    sys.path.insert(0, ROOT)
+    from bench import _config
+
+    got, want = _asdict(tcfg.parity_config(name)), _asdict(
+        _config(name, parity=True))
+    assert got == want
+    assert got["registration"]["refresh_width"] == 16
+    assert got["registration"]["max_icp_iters"] == 5
+    assert got != _asdict(tcfg.ship_config(name))
+
+
+@pytest.mark.parametrize("profile,short", zip(tcfg.PROFILES,
+                                              ["os1", "vlp16", "livox"]))
+@pytest.mark.parametrize("parity", [False, True])
+def test_config_for_profile(profile, short, parity):
+    """What ``--profile`` / ``--parity`` select is the benchmark's
+    configuration of that sensor, under either of its names."""
+    want = (tcfg.parity_config if parity else tcfg.ship_config)(short)
+    assert _asdict(tcfg.config_for(profile, parity)) == _asdict(want)
+    assert tcfg.profile_by_name(profile) is tcfg.profile_by_name(short)
+
+
 def test_profile_by_name_and_runtime():
     for n in ("velodyne", "vlp_16", "ouster", "os1_128", "livox",
               "livox_mid360"):

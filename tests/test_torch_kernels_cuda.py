@@ -6,8 +6,11 @@ the plane fit, bit for bit, over k (templated and
 generic instances), tile heads and tails, unaligned base pointers,
 invalid, NaN and inf rows; the Gauss-Newton kernel at row counts that do not fill its cluster's blocks,
 with the axis hold biting, an enabled prior, a non-finite system, and
-repeat runs; a replay repeated over poisoned freed memory; and the
-wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
+repeat runs; the candidate reduction and the selection from it over cell
+capacities, widths, k, query counts, rows with nothing valid and tied
+distances; the voxel claim over lane counts, table sizes, a resolution that
+changes on the device and repeat runs; replays of the three paths repeated
+over poisoned freed memory; and the wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
 test skips.
 
 Run on the GPU machine (no JAX there, so without the JAX conftest):
@@ -22,9 +25,10 @@ torch = pytest.importorskip("torch")
 
 from superodom_tpu_torch import kernels, mapstate, registration  # noqa: E402
 from superodom_tpu_torch.config import MapConfig, RuntimeParams  # noqa: E402
-from superodom_tpu_torch.config import ship_config  # noqa: E402
+from superodom_tpu_torch.config import parity_config, ship_config  # noqa: E402
 from superodom_tpu_torch.geometry import Pose, quat_mul, so3_exp  # noqa: E402
 from superodom_tpu_torch.io.datasets import BoxWorld, make_dataset  # noqa: E402
+from superodom_tpu_torch.ops import voxel  # noqa: E402
 from superodom_tpu_torch.runner import OdometryRunner  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -414,28 +418,214 @@ def test_gn_solve_hold_prior_and_guard(dev):
     assert torch.equal(pk.t, pose0.t)
 
 
-def test_replay_repeats_bit_for_bit(dev):
-    """Two replays of the same OS1-128 scans in one process give the same
-    poses to the bit, with the freed device memory filled with NaN in
-    between: no kernel reads memory it was not given, and no reduction
-    depends on the order blocks run in."""
-    cfg = ship_config("os1")
-    ds = make_dataset(np.random.default_rng(7), n_scans=20,
+def _replay_twice(dev, cfg, n_scans=20):
+    """Two replays of the same scans in one process, the freed device
+    memory filled with NaN in between; returns (the two pose arrays, the
+    last replay's stats, the launches of both)."""
+    ds = make_dataset(np.random.default_rng(7), n_scans=n_scans,
                       points_per_scan=cfg.sensor.max_points,
                       world=BoxWorld(half_extent=np.array([40.0, 30.0, 8.0])),
-                      radius=5.0, laps=0.5 * 20 / 120.0, distortion=True)
+                      radius=5.0, laps=0.5 * n_scans / 120.0, distortion=True)
     poses = []
-    n = kernels.launch_counts["gn_solve"]
+    before = dict(kernels.launch_counts)
     for _ in range(2):
         res = OdometryRunner(cfg, device=dev).run_dataset(ds)
         poses.append(np.concatenate([res.poses_t, res.poses_q], axis=1))
         junk = [torch.full(((1 << k) + 3 * j,), float("nan"), device=dev)
                 for k in range(2, 23) for j in range(4)]
         del junk
-    assert kernels.launch_counts["gn_solve"] - n == 2 * sum(
-        s["n_iterations"] for s in res.stats)
+    launched = {k: kernels.launch_counts[k] - before[k] for k in before}
     assert np.isfinite(poses[0]).all()
     np.testing.assert_array_equal(poses[0], poses[1])
+    return poses, res.stats, launched
+
+
+def test_replay_repeats_bit_for_bit(dev):
+    """Two replays of the same OS1-128 scans in one process give the same
+    poses to the bit, with the freed device memory filled with NaN in
+    between: no kernel reads memory it was not given, and no reduction
+    depends on the order blocks run in."""
+    _, stats, launched = _replay_twice(dev, ship_config("os1"))
+    assert launched["gn_solve"] == 2 * sum(s["n_iterations"] for s in stats)
+
+
+@pytest.mark.parametrize("path", ["parity", "vlp16"])
+def test_further_paths_replay_bit_for_bit(dev, path):
+    """The same for the reference-envelope path (candidate refresh: the
+    reduction's winners and the claim table are scratch that must be
+    written before it is read) and the VLP-16 default path (integer
+    atomics: any arrival order gives the same table)."""
+    cfg = parity_config("os1") if path == "parity" else ship_config("vlp16")
+    _, stats, launched = _replay_twice(dev, cfg)
+    rounds = sum(s["n_iterations"] for s in stats)
+    n = len(stats)
+    assert launched["gn_solve"] == 2 * rounds
+    if path == "parity":
+        assert launched["knn_select"] == 2 * n
+        assert launched["select_reduced"] == 2 * (rounds - n) > 0
+        assert launched["reduce_candidates"] == 2 * sum(
+            s["n_iterations"] > 1 for s in stats) > 0
+        assert launched["voxel_claim"] == 0
+    else:
+        assert launched["knn_select"] == 2 * rounds
+        assert launched["voxel_claim"] == 2 * n
+        assert launched["reduce_candidates"] == 0
+
+
+def _assert_reduced_match(pts, slots, q, w, k, q_shift=0.02):
+    """K9a against its plain version, then K9b (from the plain version's
+    lanes, at queries moved as a round of ICP moves them) against its
+    own: ``valid`` identical and every value of a valid lane identical.
+    What a lane that is not valid holds is no part of the contract (the
+    BIG sentinel, or a point of table row 0), except its distance, which
+    is at least BIG / 2.  Returns both plain results."""
+    red_k = kernels.reduce_candidates(pts, slots, q, w)
+    red_r = mapstate.reduce_candidates_reference(pts, slots, q, w)
+    torch.cuda.synchronize()
+    v = red_r.valid
+    assert red_k[3].dtype == torch.bool and red_k[3].shape == v.shape
+    assert torch.equal(red_k[3], v)
+    for a, b in zip(red_k[:3], red_r[:3]):
+        assert a.shape == b.shape and torch.equal(a[v], b[v])
+    return red_r, _assert_select_match(red_r, (q + q_shift).contiguous(), k)
+
+
+def _assert_select_match(red, q, k):
+    sel_k = kernels.select_reduced(*red, q, k)
+    sel_r = mapstate.select_knn_reduced_reference(red, q, k)
+    torch.cuda.synchronize()
+    vs = sel_r[2]
+    assert torch.equal(sel_k[2], vs)
+    assert torch.equal(sel_k[0][vs], sel_r[0][vs])
+    assert torch.equal(sel_k[1][vs], sel_r[1][vs])
+    assert bool((sel_k[1][~vs] >= mapstate.BIG * 0.5).all())
+    return sel_r
+
+
+@pytest.mark.parametrize("w,k", [(5, 5), (16, 5), (16, 10), (20, 5),
+                                 (20, 10)])
+@pytest.mark.parametrize("cap", [16, 24, 32])
+def test_reduce_and_select_reduced_match_plain(dev, cap, w, k):
+    """Capacities with and without the vector loads, the widths of the
+    reference-envelope path (16), of its edge half (20) and the least
+    (w = k); rows with fewer than w and fewer than k live candidates."""
+    cfg, m, q = _map(dev, cap, seed=cap + w)
+    slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
+    red, sel = _assert_reduced_match(m.pts, slots, q, w, k)
+    n_valid = red.valid.sum(1)
+    assert (n_valid == w).any() and sel[2].any()
+    assert w == 5 or (n_valid < w).any()
+    # fewer valid lanes than k: every other row keeps its first three
+    few = red.valid.clone()
+    few[::2, 3:] = False
+    sel = _assert_select_match(red._replace(valid=few),
+                               (q - 0.01).contiguous(), k)
+    assert not sel[2][::2, 3:].any() and sel[2][::2, :3].any()
+
+
+@pytest.mark.parametrize("nq", [0, 1, 2047, 2048])
+def test_reduce_and_select_reduced_query_counts(dev, nq):
+    cfg, m, q = _map(dev, 16, seed=3, nq=nq)
+    slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
+    red, sel = _assert_reduced_match(m.pts, slots, q, 16, 5)
+    assert red.x.shape == (nq, 16) and sel[0].shape == (nq, 5, 3)
+    assert nq == 0 or red.valid.any()
+
+
+def test_reduced_rows_with_nothing_valid(dev):
+    """Rows whose eight slots are all missing, and a whole launch of
+    them: nothing valid comes out of either kernel."""
+    cfg, m, q = _map(dev, 16, seed=4)
+    slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
+    slots[::3] = -1
+    red, sel = _assert_reduced_match(m.pts, slots, q, 16, 5)
+    assert not red.valid[::3].any() and red.valid[1::3].any()
+    assert not sel[2][::3].any()
+    red, sel = _assert_reduced_match(m.pts, torch.full_like(slots, -1), q,
+                                     16, 5)
+    assert not red.valid.any() and not sel[2].any()
+
+
+def test_reduced_ties_go_to_the_lower_lane(dev):
+    """Three live slots that hold the same eight points: every distance
+    occurs three or more times, and both kernels must order the tied
+    lanes as the stable sort does."""
+    C = 8
+    pts = torch.full((64, 3 * C), 1e30, device=dev)
+    offs = torch.tensor([[0.5, 0, 0], [0, 0.5, 0], [0, 0, 0.5], [-0.5, 0, 0],
+                         [0, -0.5, 0], [0, 0, -0.5], [1, 0, 0], [0, 1, 0]],
+                        device=dev)
+    for row in (3, 9):
+        for j in range(C):
+            for a in range(3):
+                pts[row, a * C + j] = 1.0 + offs[(j + row) % 8, a]
+    slots = torch.tensor([[3, -1, 9, -1, -1, 3, -1, -1]], dtype=torch.int32,
+                         device=dev)
+    q = torch.ones((1, 3), device=dev)
+    red, sel = _assert_reduced_match(pts, slots, q, 16, 8, q_shift=0.0)
+    assert red.valid.all() and sel[2].all()
+    assert torch.all(sel[1] == 0.25)
+    # the kernels' lanes that are not contract-bound agree here too: all
+    # lanes are valid, so the outputs are equal as wholes
+    for a, b in zip(kernels.reduce_candidates(pts, slots, q, 16), red):
+        assert torch.equal(a, b)
+    for a, b in zip(kernels.select_reduced(*red, q, 8), sel):
+        assert torch.equal(a, b)
+
+
+def _cloud(dev, n, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    xyz = (torch.rand((n, 3), generator=g) * 60.0 - 30.0)
+    xyz[: n // 2, 2] = -1.5  # a floor: many points a voxel
+    mask = torch.rand((n,), generator=g) > 0.15
+    return xyz.to(dev).contiguous(), mask.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("bits", [4, 17, 19])
+@pytest.mark.parametrize("n", [0, 1, 10923, 43691])
+def test_voxel_claim_matches_plain(dev, n, bits):
+    """The lane counts of a decimated VLP-16 and OS1-128 scan and the
+    edges; the tables of those sensors and a 16-entry one that makes every
+    lane collide; the resolution changed on the device between launches;
+    repeat runs identical (integer atomics)."""
+    xyz, mask = _cloud(dev, n, seed=n + bits)
+    res = torch.tensor(0.2, device=dev)
+    keeps = []
+    for r in (0.2, 0.8, 0.2):
+        res.fill_(r)
+        keep_k = kernels.voxel_claim(xyz, mask, res, bits)
+        keep_r = voxel.voxel_downsample_scatter_reference(xyz, mask, res,
+                                                          bits)
+        torch.cuda.synchronize()
+        assert keep_k.dtype == torch.bool and keep_k.shape == (n,)
+        assert torch.equal(keep_k, keep_r)
+        assert not (keep_k & ~mask).any()
+        keeps.append(keep_k)
+    assert torch.equal(keeps[0], keeps[2])
+    if n > 1:
+        assert keeps[0].any() and (keeps[0] != keeps[1]).any()
+        assert int(keeps[0].sum()) <= min(1 << bits, int(mask.sum()))
+    if n > 1 and bits == 4:
+        assert int(keeps[0].sum()) == 16  # one survivor a table entry
+    dead = kernels.voxel_claim(xyz, torch.zeros_like(mask), res, bits)
+    assert not dead.any()
+
+
+def test_voxel_claim_through_the_dispatcher(dev):
+    """A CUDA tensor reaches the kernel, with the resolution as a device
+    scalar or a Python number, negative coordinates included; the default
+    table is four times the lane count."""
+    xyz, mask = _cloud(dev, 3000, seed=1)
+    n0 = kernels.launch_counts["voxel_claim"]
+    a = voxel.voxel_downsample_scatter(xyz, mask, torch.tensor(0.2,
+                                                               device=dev))
+    b = voxel.voxel_downsample_scatter(xyz, mask, 0.2)
+    assert kernels.launch_counts["voxel_claim"] == n0 + 2
+    ref = voxel.voxel_downsample_scatter_reference(xyz, mask, 0.2)
+    assert torch.equal(a, ref) and torch.equal(b, ref)
+    assert torch.equal(a.cpu(), voxel.voxel_downsample_scatter(
+        xyz.cpu(), mask.cpu(), 0.2))
+    assert (xyz < 0).any()
 
 
 def test_wrappers_check_inputs_and_count(dev):
@@ -472,3 +662,30 @@ def test_wrappers_check_inputs_and_count(dev):
     mapstate.octant_lookup(m.keys, q, cfg.cell_size)
     assert kernels.launch_counts["octant_lookup"] == n + 1
     assert np.isfinite(kernels.build_seconds or 0.0)
+    # K9 and K10
+    slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
+    n = dict(kernels.launch_counts)
+    red = mapstate.reduce_candidates(m.pts, slots, q, 16)
+    mapstate.select_knn_reduced(red, q, 5)
+    assert kernels.launch_counts["reduce_candidates"] == \
+        n["reduce_candidates"] + 1
+    assert kernels.launch_counts["select_reduced"] == n["select_reduced"] + 1
+    assert kernels.launch_counts["knn_select"] == n["knn_select"]
+    with pytest.raises(ValueError):  # a width beyond one warp
+        kernels.reduce_candidates(m.pts, slots, q, 33)
+    with pytest.raises(ValueError):  # k beyond the width
+        kernels.select_reduced(*red, q, 17)
+    with pytest.raises(ValueError):
+        kernels.select_reduced(red.x, red.y, red.z.t(), red.valid, q, 5)
+    with pytest.raises(ValueError):
+        kernels.select_reduced(*red, q.cpu(), 5)
+    xyz = q
+    ok = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+    res = torch.tensor(0.2, device=dev)
+    with pytest.raises(ValueError):  # a table below 16 entries
+        kernels.voxel_claim(xyz, ok, res, 3)
+    with pytest.raises(ValueError):  # the resolution lives on the card
+        kernels.voxel_claim(xyz, ok, res.cpu(), 14)
+    with pytest.raises(ValueError):
+        kernels.voxel_claim(xyz, ok.to(torch.uint8), res, 14)
+    assert kernels.launch_counts["voxel_claim"] == n["voxel_claim"]

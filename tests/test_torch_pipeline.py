@@ -1,7 +1,9 @@
 """The PyTorch port's step and runner against the JAX package: one full
 step from the same transplanted state (pose 1e-4, outputs, next map), and
 a 20-scan replay through ``OdometryRunner.run_dataset`` held to the
-golden-lock pinning rule against the JAX replay of the same data."""
+golden-lock pinning rule against the JAX replay of the same data; and, the
+port alone, three scans through the runner on the CPU at the full widths
+of the reference-envelope OS1-128, VLP-16 and Livox configurations."""
 
 import dataclasses
 import inspect
@@ -19,7 +21,7 @@ from superodom_tpu.io.datasets import BoxWorld, ate_rmse, make_dataset  # noqa: 
 from superodom_tpu.runner import OdometryRunner as JRunner  # noqa: E402
 
 from superodom_tpu_torch import config as tcfg  # noqa: E402
-from superodom_tpu_torch import convert, pipeline as tp  # noqa: E402
+from superodom_tpu_torch import convert, kernels, pipeline as tp  # noqa: E402
 from superodom_tpu_torch.runner import OdometryRunner  # noqa: E402
 
 N_SCANS = 20
@@ -158,3 +160,33 @@ def test_unported_branches_raise():
                 dataclasses.replace(cfg, use_vio_undistortion=True)):
         with pytest.raises(NotImplementedError):
             tp.step(bad, state, scan, win, torch.tensor(False))
+
+
+@pytest.mark.parametrize("name,make", [("os1", tcfg.parity_config),
+                                       ("vlp16", tcfg.ship_config),
+                                       ("livox", tcfg.ship_config)])
+def test_full_width_configs_run_on_the_cpu(name, make):
+    """The reference-envelope OS1-128 configuration and the VLP-16 and
+    Livox defaults, at their full widths through the entry point (the port
+    alone; sparse scans keep it quick): finite poses, every scan
+    registered, the feature and table shapes of the configuration."""
+    cfg = make(name)
+    ds = make_dataset(np.random.default_rng(11), n_scans=3,
+                      points_per_scan=6000, radius=2.0, laps=0.02,
+                      world=BoxWorld(half_extent=np.array([8.0, 6.0, 3.0])),
+                      static_scans=1)
+    runner = OdometryRunner(cfg, device="cpu")
+    res = runner.run_dataset(ds)
+    assert res.poses_t.shape == (3, 3) and np.isfinite(res.poses_t).all()
+    assert np.isfinite(res.poses_q).all()
+    assert runner.state.surf_map.pts.shape == (
+        cfg.map.table_size, 3 * cfg.map.cell_capacity)
+    assert int(runner.state.frame_count) == 3
+    for rec in res.stats:
+        assert 1 <= rec["n_iterations"] <= cfg.registration.max_icp_iters
+        assert len(rec["iterations"]) == cfg.registration.max_icp_iters
+    assert res.stats[-1]["surf_stack"] > 300
+    assert res.stats[-1]["iterations"][0]["num_surf_from_scan"] > 100
+    # the Gauss-Newton kernel's staging fits the widest feature set
+    rows = -(-cfg.sensor.max_surface_features // kernels.GN_BLOCKS)
+    assert (rows + 15) // 16 * 16 * 33 <= kernels.GN_MAX_ROW_BYTES
