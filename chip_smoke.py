@@ -18,7 +18,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same ``first_small``, repeat runs bit-identical) on each path; K9a
    reduce_candidates and K9b select_reduced on the reference-envelope
    path's warm map (W = 16, k = 5; ``valid`` and every valid lane
-   identical).  K10
+   identical).  Path E (edges): K11a curvature_edges bit for bit on a
+   full-width replay scan (its ring all zeros, so the stencil wraps) and
+   on a ring-major sweep of a room with poles (128 rings x 1,024
+   azimuths); on path E's own warm edge map K1, K2 at k = 10, K9a at
+   W = 20, K9b at 10 of 20, K11b edge_fit (identical but for the lanes at a
+   gate margin, which are counted), and K10 on the 24,576-lane edge stream
+   (a 2^17 table); on a pole lattice in a walled room K11b (more than half
+   of 512 lines valid) and K4 with 512 edge rows beside 2,048 planes
+   (normal system within 1e-5 of |H|, GN solve within GN_TOL).  K10
    voxel_claim on a real decimated VLP-16 scan (10,923 lanes, a 2^17
    table) and an OS1-128 one (43,691 lanes, 2^19): the keep-mask
    identical, repeat runs identical.  Device time of every kernel and of
@@ -26,15 +34,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    50 replays), of an empty kernel (the launch floor), the least time the
    card could take (bytes or operations, from this run's inputs), and the
    host wall time of one whole GN solve, kernel vs plain, in turns.
-2. Three paths through ``OdometryRunner(cfg, device="cuda").run_dataset``
+2. Four paths through ``OdometryRunner(cfg, device="cuda").run_dataset``
    over the benchmark's synthetic world (seed 7), N_SCANS scans each: the
    ship path (``ship_config("os1")``, 131,072 points a scan), the
    reference-envelope path (``parity_config("os1")``: 5 ICP rounds with
-   early exit, candidate refresh through K9) and the VLP-16 default path
+   early exit, candidate refresh through K9), the VLP-16 default path
    (``ship_config("vlp16")``: 32,768 points a scan, voxel thinning
-   through K10, capacity 32, 4 rounds).  Launch counters are reset just
-   before each and must match what its step and round counts imply;
-   poses must be finite and the ATE below the reference's 10 cm bar.
+   through K10, capacity 32, 4 rounds) and path E
+   (``parity_config("os1")`` with ``use_edge_features``: full-width scans,
+   curvature edges thinned to 512, an edge map beside the surface map,
+   both refreshed).  Launch counters are reset just before each and must
+   match what its step and round counts imply; poses must be finite, the
+   ATE below the reference's 10 cm bar, and on path E every scan must
+   extract edges.
 3. The first scans of each path through the plain PyTorch path on the
    CPU: the GPU trajectory must agree with it.
 
@@ -75,6 +87,8 @@ REPLACES = {
     "reduce_candidates": "superodom_tpu/mapstate.py:444",
     "select_reduced": "superodom_tpu/mapstate.py:473",
     "voxel_claim": "superodom_tpu/ops/voxel.py:110",
+    "curvature_edges": "superodom_tpu/frontend.py:307",
+    "edge_fit": "superodom_tpu/registration.py:367",
 }
 
 
@@ -167,6 +181,129 @@ def make_ship_dataset(cfg, n_scans, seed=7):
                         distortion=True)
 
 
+def hold_lookup_select(m, cell_size, queries, k, timer, torch, tag=""):
+    """K1 octant_lookup (exact) and K2 knn_select (lanes, points and
+    validity exact, distances within TOL_K2_SQ_REL) on map ``m`` against
+    their plain versions; returns (results, the plain (slots, neighbours,
+    distances, validity))."""
+    from superodom_tpu_torch import kernels, mapstate
+
+    nq = queries.shape[0]
+    C = m.pts.shape[1] // 3
+    results = {}
+    s_k = kernels.octant_lookup(m.keys, queries, cell_size)
+    s_r = mapstate.octant_lookup_reference(m.keys, queries, cell_size)
+    torch.cuda.synchronize()
+    mism = int((s_k != s_r).sum())
+    nb, B = m.keys.shape
+    found = s_r[s_r >= 0]
+    log(f"K1 octant_lookup{tag}: {mism} of {s_r.numel()} slot ids differ; "
+        f"{found.numel()} found, {int((found % B < 32).sum())} of them in "
+        f"the first 32 lanes of their row; {int((m.keys >= 0).sum(1).max())} "
+        f"keys in the fullest row")
+    if mism:
+        raise SystemExit("K1 octant_lookup disagrees with its plain version")
+    touched = torch.unique(mapstate._bucket_of(
+        mapstate.octant_cells(queries, cell_size).reshape(-1),
+        nb)).numel()
+    results["octant_lookup"] = dict(
+        err=float((s_k - s_r).abs().max()),
+        ms=timer(lambda: kernels.octant_lookup(m.keys, queries, cell_size)),
+        plain_ms=timer(lambda: mapstate.octant_lookup_reference(
+            m.keys, queries, cell_size)),
+        # queries, the touched bucket rows, the slot ids; per query the
+        # cell arithmetic and per octant the hash and B key compares
+        bound=bound(nq * 12 + touched * B * 4 + nq * 8 * 4,
+                    nq * (12 + 8 * (15 + B))))
+
+    nk, sk, vk, lk = kernels.knn_select(m.pts, s_r, queries, k)
+    nr, sr, vr, lr = mapstate.knn_select_reference(m.pts, s_r, queries, k)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(sr)
+    sq_err = float(((sk - sr).abs() / sr.abs().clamp_min(1e-30))[fin].max())
+    ok = (torch.equal(lk, lr) and torch.equal(vk, vr) and torch.equal(nk, nr)
+          and torch.equal(torch.isfinite(sk), fin) and sq_err <= TOL_K2_SQ_REL)
+    log(f"K2 knn_select{tag} (k = {k}): lanes equal {torch.equal(lk, lr)}, "
+        f"points equal {torch.equal(nk, nr)}, validity equal "
+        f"{torch.equal(vk, vr)}, sq max rel err {sq_err:.3e}, "
+        f"{int(vr.sum())} of {vr.numel()} neighbours valid")
+    if not ok:
+        raise SystemExit("K2 knn_select disagrees with its plain version")
+    live = torch.unique(s_r[s_r >= 0]).numel()
+    results["knn_select"] = dict(
+        err=float((sk - sr)[fin].abs().max()),
+        ms=timer(lambda: kernels.knn_select(m.pts, s_r, queries, k)),
+        plain_ms=timer(lambda: mapstate.knn_select_reference(
+            m.pts, s_r, queries, k)),
+        # slot ids, queries, the live slot rows; outputs; 8 flops a
+        # candidate distance
+        bound=bound(nq * 8 * 4 + nq * 12 + live * 3 * C * 4
+                    + nq * k * (12 + 4 + 1 + 8),
+                    int((s_r >= 0).sum()) * C * 8))
+    return results, (s_r, nr, sr, vr)
+
+
+def hold_reduce_select(m, s_r, queries, moved_q, W, k, timer, torch,
+                       tag=""):
+    """K9a reduce_candidates at width ``W`` on map ``m`` (valid and every
+    coordinate of a valid lane identical; a lane that is not valid holds no
+    point of the query's cells and is not compared), then K9b
+    select_reduced of ``k`` from those lanes at ``moved_q`` (the features
+    moved as a round of GN moves them): validity, points and distances of
+    every valid lane identical."""
+    from superodom_tpu_torch import kernels, mapstate
+
+    nq = queries.shape[0]
+    C = m.pts.shape[1] // 3
+    live = torch.unique(s_r[s_r >= 0]).numel()
+    results = {}
+    red_k = mapstate.ReducedCandidates(
+        *kernels.reduce_candidates(m.pts, s_r, queries, W))
+    red_r = mapstate.reduce_candidates_reference(m.pts, s_r, queries, W)
+    torch.cuda.synchronize()
+    v = red_r.valid
+    same_valid = torch.equal(red_k.valid, v)
+    err9a = max(float((a - b)[v].abs().max()) for a, b in
+                zip(red_k[:3], red_r[:3]))
+    log(f"K9a reduce_candidates{tag} (W = {W}): validity equal {same_valid}, "
+        f"{int(v.sum())} of {v.numel()} lanes valid, "
+        f"{int((v.sum(1) < W).sum())} of {nq} rows with fewer than {W}, max "
+        f"abs err of a valid coordinate {err9a:.3e}, every lane equal "
+        f"{all(torch.equal(a, b) for a, b in zip(red_k, red_r))}")
+    if not (same_valid and err9a == 0.0 and bool(v.any())):
+        raise SystemExit("K9a reduce_candidates disagrees with its plain "
+                         "version")
+    results["reduce_candidates"] = dict(
+        err=err9a,
+        ms=timer(lambda: kernels.reduce_candidates(m.pts, s_r, queries, W)),
+        plain_ms=timer(lambda: mapstate.reduce_candidates_reference(
+            m.pts, s_r, queries, W)),
+        # slot ids, queries, the live slot rows; three planes and validity
+        bound=bound(nq * 8 * 4 + nq * 12 + live * 3 * C * 4 + nq * W * 13,
+                    int((s_r >= 0).sum()) * C * 8))
+
+    nk9, sk9, vk9 = kernels.select_reduced(*red_r, moved_q, k)
+    nr9, sr9, vr9 = mapstate.select_knn_reduced_reference(red_r, moved_q, k)
+    torch.cuda.synchronize()
+    same_valid = torch.equal(vk9, vr9)
+    err9b = max(float((nk9 - nr9)[vr9].abs().max()),
+                float((sk9 - sr9)[vr9].abs().max()))
+    log(f"K9b select_reduced{tag} ({k} of {W}): validity equal {same_valid}, "
+        f"{int(vr9.sum())} of {vr9.numel()} neighbours valid, max abs err "
+        f"of a valid point or distance {err9b:.3e}; the features moved "
+        f"{float((moved_q - queries).norm(dim=1).max()):.3e} m at most")
+    if not (same_valid and err9b == 0.0 and bool(vr9.any())):
+        raise SystemExit("K9b select_reduced disagrees with its plain version")
+    results["select_reduced"] = dict(
+        err=err9b,
+        ms=timer(lambda: kernels.select_reduced(*red_r, moved_q, k)),
+        plain_ms=timer(lambda: mapstate.select_knn_reduced_reference(
+            red_r, moved_q, k)),
+        # the reduced lanes and the queries; points, distances, validity
+        bound=bound(nq * W * 13 + nq * 12 + nq * k * 17, nq * W * 8))
+    return results
+
+
 def phase_kernels(name, cfg, ds, torch, dev):
     """Phase 1: every kernel the ``name`` path runs between thinning and
     the pose, against its plain version on the card at that path's
@@ -220,60 +357,8 @@ def phase_kernels(name, cfg, ds, torch, dev):
     C = cfg.map.cell_capacity
     log(f"phase 1 [{name}]: {nq} queries ({int(mask.sum())} live), "
         f"{8 * C} candidates a query, k = {k}")
-    results = {}
-
-    # K1 octant_lookup: exact
-    s_k = kernels.octant_lookup(m.keys, queries, cfg.map.cell_size)
-    s_r = mapstate.octant_lookup_reference(m.keys, queries, cfg.map.cell_size)
-    torch.cuda.synchronize()
-    mism = int((s_k != s_r).sum())
-    nb, B = m.keys.shape
-    found = s_r[s_r >= 0]
-    log(f"K1 octant_lookup: {mism} of {s_r.numel()} slot ids differ; "
-        f"{found.numel()} found, {int((found % B < 32).sum())} of them in "
-        f"the first 32 lanes of their row; {int((m.keys >= 0).sum(1).max())} "
-        f"keys in the fullest row")
-    if mism:
-        raise SystemExit("K1 octant_lookup disagrees with its plain version")
-    touched = torch.unique(mapstate._bucket_of(
-        mapstate.octant_cells(queries, cfg.map.cell_size).reshape(-1),
-        nb)).numel()
-    results["octant_lookup"] = dict(
-        err=float((s_k - s_r).abs().max()),
-        ms=timer(lambda: kernels.octant_lookup(m.keys, queries,
-                                                   cfg.map.cell_size)),
-        plain_ms=timer(lambda: mapstate.octant_lookup_reference(
-            m.keys, queries, cfg.map.cell_size)),
-        # queries, the touched bucket rows, the slot ids; per query the
-        # cell arithmetic and per octant the hash and B key compares
-        bound=bound(nq * 12 + touched * B * 4 + nq * 8 * 4,
-                    nq * (12 + 8 * (15 + B))))
-
-    # K2 knn_select: exact lanes and points, sq within 1e-6 relative
-    nk, sk, vk, lk = kernels.knn_select(m.pts, s_r, queries, k)
-    nr, sr, vr, lr = mapstate.knn_select_reference(m.pts, s_r, queries, k)
-    torch.cuda.synchronize()
-    fin = torch.isfinite(sr)
-    sq_err = float(((sk - sr).abs() / sr.abs().clamp_min(1e-30))[fin].max())
-    ok = (torch.equal(lk, lr) and torch.equal(vk, vr) and torch.equal(nk, nr)
-          and torch.equal(torch.isfinite(sk), fin) and sq_err <= TOL_K2_SQ_REL)
-    log(f"K2 knn_select: lanes equal {torch.equal(lk, lr)}, points equal "
-        f"{torch.equal(nk, nr)}, validity equal {torch.equal(vk, vr)}, sq "
-        f"max rel err {sq_err:.3e}, {int(vr.sum())} of {vr.numel()} "
-        f"neighbours valid")
-    if not ok:
-        raise SystemExit("K2 knn_select disagrees with its plain version")
-    live = torch.unique(s_r[s_r >= 0]).numel()
-    results["knn_select"] = dict(
-        err=float((sk - sr)[fin].abs().max()),
-        ms=timer(lambda: kernels.knn_select(m.pts, s_r, queries, k)),
-        plain_ms=timer(lambda: mapstate.knn_select_reference(
-            m.pts, s_r, queries, k)),
-        # slot ids, queries, the live slot rows; outputs; 8 flops a
-        # candidate distance
-        bound=bound(nq * 8 * 4 + nq * 12 + live * 3 * C * 4
-                    + nq * k * (12 + 4 + 1 + 8),
-                    int((s_r >= 0).sum()) * C * 8))
+    results, (s_r, nr, sr, vr) = hold_lookup_select(
+        m, cfg.map.cell_size, queries, k, timer, torch)
 
     # K3 plane_fit: normal and d identical to the bit on every row; coeff,
     # valid, code and bins too, except that they may differ in a lane that
@@ -393,57 +478,311 @@ def phase_kernels(name, cfg, ds, torch, dev):
     if W == 0:
         return results
 
-    # K9a reduce_candidates on this path's warm map: valid and every
-    # coordinate of a valid lane identical; a lane that is not valid holds
-    # no point of the query's cells and is not compared
-    red_k = mapstate.ReducedCandidates(
-        *kernels.reduce_candidates(m.pts, s_r, queries, W))
-    red_r = mapstate.reduce_candidates_reference(m.pts, s_r, queries, W)
-    torch.cuda.synchronize()
-    v = red_r.valid
-    same_valid = torch.equal(red_k.valid, v)
-    err9a = max(float((a - b)[v].abs().max()) for a, b in
-                zip(red_k[:3], red_r[:3]))
-    log(f"K9a reduce_candidates: validity equal {same_valid}, "
-        f"{int(v.sum())} of {v.numel()} lanes valid, "
-        f"{int((v.sum(1) < W).sum())} of {nq} rows with fewer than {W}, max "
-        f"abs err of a valid coordinate {err9a:.3e}, every lane equal "
-        f"{all(torch.equal(a, b) for a, b in zip(red_k, red_r))}")
-    if not (same_valid and err9a == 0.0 and bool(v.any())):
-        raise SystemExit("K9a reduce_candidates disagrees with its plain "
-                         "version")
-    results["reduce_candidates"] = dict(
-        err=err9a,
-        ms=timer(lambda: kernels.reduce_candidates(m.pts, s_r, queries, W)),
-        plain_ms=timer(lambda: mapstate.reduce_candidates_reference(
-            m.pts, s_r, queries, W)),
-        # slot ids, queries, the live slot rows; three planes and validity
-        bound=bound(nq * 8 * 4 + nq * 12 + live * 3 * C * 4 + nq * W * 13,
-                    int((s_r >= 0).sum()) * C * 8))
+    results.update(hold_reduce_select(m, s_r, queries,
+                                      ref.apply(pts).contiguous(), W, k,
+                                      timer, torch))
+    return results
 
-    # K9b select_reduced from those lanes, at the features moved as a round
-    # of GN moves them (to the plain solve's pose above): validity, points
-    # and distances of every valid lane
-    moved_q = ref.apply(pts).contiguous()
-    nk9, sk9, vk9 = kernels.select_reduced(*red_r, moved_q, k)
-    nr9, sr9, vr9 = mapstate.select_knn_reduced_reference(red_r, moved_q, k)
+
+def pole_world_case(cfg, torch, dev, n_edges, n_planes, seed=3):
+    """A lattice of vertical poles (the edge map) inside a 16 x 16 x 16 m
+    box room (the surface map), both filled by the port's insert at the
+    configuration's map shapes, and ``n_edges`` pole points and
+    ``n_planes`` wall points seen from a known pose, at a start pose
+    perturbed from it: (edge map, surface map, edge body points, wall body
+    points, start pose)."""
+    import numpy as np
+
+    from superodom_tpu_torch import mapstate
+    from superodom_tpu_torch.geometry import Pose, quat_mul, so3_exp
+    from superodom_tpu_torch.io.datasets import pole_lattice
+
+    rng = np.random.default_rng(seed)
+    pole = torch.from_numpy(pole_lattice(rng)).to(dev)
+    walls = rng.uniform(-8, 8, (6, 3000, 3))
+    for i in range(6):
+        walls[i, :, i // 2] = 8.0 if i % 2 else -8.0
+    walls = torch.from_numpy(walls.reshape(-1, 3).astype(np.float32)).to(dev)
+    maps = []
+    for pts, res in ((pole, cfg.sensor.default_line_res),
+                     (walls, cfg.sensor.default_plane_res)):
+        m = mapstate.empty_map(cfg.map, device=dev)
+        for chunk in torch.split(pts, 1000):
+            m = mapstate.insert(m, cfg.map, chunk.contiguous(),
+                                torch.ones(len(chunk), dtype=torch.bool,
+                                           device=dev),
+                                torch.tensor(res, device=dev))
+        maps.append(m)
+    true = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.04], device=dev)),
+                torch.tensor([0.15, -0.1, 0.05], device=dev))
+    e_body = true.inverse().apply(pole[torch.from_numpy(
+        rng.integers(0, len(pole), n_edges)).to(dev)]).contiguous()
+    p_body = true.inverse().apply(walls[torch.from_numpy(
+        rng.integers(0, len(walls), n_planes)).to(dev)]).contiguous()
+    pose0 = Pose(quat_mul(so3_exp(torch.tensor([0.003, -0.002, 0.01],
+                                               device=dev)), true.q),
+                 true.t + torch.tensor([0.03, -0.02, 0.01], device=dev))
+    return maps[0], maps[1], e_body, p_body, pose0
+
+
+def hold_edge_fit(neigh, sq, nvalid, mask, line_res, reg, timer, torch,
+                  tag):
+    """K11b against its plain version: every output identical, except in a
+    lane that edge_gate_margin_lanes flags (a decision within 1e-5 of a
+    gate), and the line says how many lanes those are."""
+    from superodom_tpu_torch import kernels, registration
+
+    args = (neigh.contiguous(), sq.contiguous(), nvalid.contiguous(),
+            mask.contiguous(), line_res, reg.min_edge_neighbors,
+            reg.edge_max_dist_inlier)
+    out_k = kernels.edge_fit(*args)
+    out_r = registration.edge_fit_reference(*args)
     torch.cuda.synchronize()
-    same_valid = torch.equal(vk9, vr9)
-    err9b = max(float((nk9 - nr9)[vr9].abs().max()),
-                float((sk9 - sr9)[vr9].abs().max()))
-    log(f"K9b select_reduced: validity equal {same_valid}, "
-        f"{int(vr9.sum())} of {vr9.numel()} neighbours valid, max abs err "
-        f"of a valid point or distance {err9b:.3e}; the features moved "
-        f"{float((moved_q - queries).norm(dim=1).max()):.3e} m at most")
-    if not (same_valid and err9b == 0.0 and bool(vr9.any())):
-        raise SystemExit("K9b select_reduced disagrees with its plain version")
-    results["select_reduced"] = dict(
-        err=err9b,
-        ms=timer(lambda: kernels.select_reduced(*red_r, moved_q, k)),
-        plain_ms=timer(lambda: mapstate.select_knn_reduced_reference(
-            red_r, moved_q, k)),
-        # the reduced lanes and the queries; points, distances, validity
-        bound=bound(nq * W * 13 + nq * 12 + nq * k * 17, nq * W * 8))
+    near = registration.edge_gate_margin_lanes(*args[:3], line_res,
+                                               *args[5:])
+    differ = lanes_that_differ(out_k, out_r, torch)
+    far = ~near
+    err = max(float((out_k[i] - out_r[i])[far].abs().max()) if far.any()
+              else 0.0 for i in range(3))
+    nq = sq.shape[0]
+    log(f"K11b edge_fit ({tag}): {int(out_r[3].sum())} of {nq} lines valid, "
+        f"codes {torch.bincount(out_r[4], minlength=7).tolist()}, "
+        f"{int(near.sum())} lanes within 1e-5 of a gate, "
+        f"{int(differ.sum())} lanes differ in any output "
+        f"({int((differ & far).sum())} of them away from a gate); max abs "
+        f"err of a, b, coeff away from a gate {err:.3e}")
+    if bool((differ & far).any()) or err != 0.0:
+        raise SystemExit("K11b edge_fit disagrees with its plain version")
+    k = sq.shape[1]
+    return out_r, dict(
+        err=err, ms=timer(lambda: kernels.edge_fit(*args)),
+        plain_ms=timer(lambda: registration.edge_fit_reference(*args)),
+        # neighbourhoods, mask, resolution; a, b, coeff, valid, code;
+        # ~1,500 operations a feature (81 cross products of the consensus,
+        # the PCA, the eigensolver, the gates)
+        bound=bound(nq * k * 17 + nq + 4 + nq * 33, nq * 1500))
+
+
+def phase_edges(cfg, ds, torch, dev):
+    """Phase 1 of path E: K11a, K11b and K4 with edge rows against their
+    plain versions, and K1, K2, K9a, K9b and K10 at the shapes the edge
+    half of the path gives them."""
+    from superodom_tpu_torch import frontend, kernels, mapstate, registration
+    from superodom_tpu_torch.config import RuntimeParams
+    from superodom_tpu_torch.geometry import Pose, quat_mul, so3_exp
+    from superodom_tpu_torch.io.datasets import ring_sweep
+    from superodom_tpu_torch.ops import voxel
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    def timer(fn):
+        return device_ms(fn, torch)
+
+    sensor, reg = cfg.sensor, cfg.registration
+    line_res = torch.full((), sensor.default_line_res, device=dev)
+    plane_res = torch.full((), sensor.default_plane_res, device=dev)
+    shaper = OdometryRunner(cfg, device=dev)
+    results = {}
+
+    def scan_of(i):
+        s = ds.scans[i]
+        sc = shaper.make_scan(s.t_start, s.xyz_body, s.t_rel)
+        return sc.xyz.contiguous(), sc.ring.contiguous(), sc.mask.contiguous()
+
+    # K11a: on a full-width replay scan (its ring all zeros, as the runner
+    # sends it: the stencil wraps) and on a ring-major sweep of a room with
+    # poles (128 rings x 1,024 azimuths), where the edges are real
+    cargs = (5, cfg.edge_curvature_threshold, sensor.min_range)
+    sw_xyz, sw_ring = ring_sweep(128, 1024)
+    inputs = {"replay scan, zero ring": scan_of(len(ds.scans) // 2),
+              "ring-major sweep": (
+                  torch.from_numpy(sw_xyz).to(dev),
+                  torch.from_numpy(sw_ring).to(dev),
+                  torch.ones(len(sw_xyz), dtype=torch.bool, device=dev))}
+    for label, inp in inputs.items():
+        e_k = kernels.curvature_edges(*inp, *cargs)
+        e_r = frontend.curvature_edge_extraction_reference(*inp, *cargs)
+        torch.cuda.synchronize()
+        differ = int((e_k != e_r).sum())
+        log(f"K11a curvature_edges ({label}): {inp[0].shape[0]} lanes, "
+            f"{int(inp[2].sum())} live, {int(e_r.sum())} edges; {differ} "
+            f"lanes differ from the plain version")
+        if differ or not bool(e_r.any()):
+            raise SystemExit("K11a curvature_edges disagrees with its plain "
+                             "version")
+    inp = inputs["replay scan, zero ring"]
+    n = inp[0].shape[0]
+    results["curvature_edges"] = dict(
+        err=0.0, ms=timer(lambda: kernels.curvature_edges(*inp, *cargs)),
+        plain_ms=timer(lambda: frontend.curvature_edge_extraction_reference(
+            *inp, *cargs)),
+        # points, ring, mask; the edge mask; ~80 operations a lane (ten
+        # neighbour differences and selects, two norms, a division)
+        bound=bound(n * (12 + 4 + 1 + 1), n * 80))
+
+    # path E's warm edge map: the edge stream of 40 replay scans (K11a,
+    # compaction, K10 at line_res) inserted at the true poses
+    def edge_stream(i):
+        xyz, ring, mask = scan_of(i)
+        em = frontend.curvature_edge_extraction(
+            xyz, ring, mask, curvature_threshold=cfg.edge_curvature_threshold,
+            min_range=sensor.min_range)
+        wide = frontend.select_features(xyz, em, sensor.compact_width // 2)
+        pts, keep = frontend.thin_and_select(
+            xyz, em, line_res, sensor.max_edge_features,
+            sensor.compact_width // 2)
+        return wide, pts.contiguous(), keep.contiguous()
+
+    def gt_pose(i):
+        return Pose(torch.tensor(ds.gt_poses_q[i], device=dev),
+                    torch.tensor(ds.gt_poses_t[i], device=dev))
+
+    n_map = min(40, len(ds.scans) - 1)
+    m = mapstate.empty_map(cfg.map, device=dev)
+    for i in range(n_map):
+        _, pts, keep = edge_stream(i)
+        m = mapstate.insert(m, cfg.map, gt_pose(i).apply(pts), keep, line_res)
+    (wide_xyz, wide_mask), pts, keep = edge_stream(n_map)
+    log(f"phase 1 [edges]: edge map of "
+        f"{int(torch.sum(torch.where(m.keys >= 0, m.cnt, 0)))} points in "
+        f"{int((m.keys >= 0).sum())} cells from {n_map} scans; "
+        f"{int(keep.sum())} edge features of {pts.shape[0]}")
+
+    # K10 on the edge stream: compact_width // 2 lanes, the table sized by
+    # that width
+    wide_xyz, wide_mask = wide_xyz.contiguous(), wide_mask.contiguous()
+    nw = wide_xyz.shape[0]
+    bits = voxel._claim_table_bits(nw, 0)
+    keep_k = kernels.voxel_claim(wide_xyz, wide_mask, line_res, bits)
+    keep_r = voxel.voxel_downsample_scatter_reference(wide_xyz, wide_mask,
+                                                      line_res, bits)
+    torch.cuda.synchronize()
+    differ = int((keep_k != keep_r).sum())
+    log(f"K10 voxel_claim (edge stream): {nw} lanes, {int(wide_mask.sum())} "
+        f"edges in, table 2^{bits}, {int(keep_r.sum())} survive at "
+        f"{sensor.default_line_res} m; {differ} lanes differ")
+    if differ or not bool(keep_r.any()):
+        raise SystemExit("K10 voxel_claim disagrees with its plain version")
+    results["voxel_claim"] = dict(
+        err=float(differ),
+        ms=timer(lambda: kernels.voxel_claim(wide_xyz, wide_mask, line_res,
+                                             bits)),
+        plain_ms=timer(lambda: voxel.voxel_downsample_scatter_reference(
+            wide_xyz, wide_mask, line_res, bits)),
+        bound=bound(nw * 12 + nw + 4 + nw, nw * 46))
+
+    # K1, K2 (k = 10), K9a (W = 20), K9b (10 of 20) and K11b on the warm
+    # edge map, at the edge features of the next scan at a perturbed pose
+    gt = gt_pose(n_map)
+    pose = Pose(quat_mul(so3_exp(torch.tensor([0.004, -0.003, 0.01],
+                                              device=dev)), gt.q),
+                gt.t + torch.tensor([0.03, -0.02, 0.01], device=dev))
+    queries = pose.apply(pts).contiguous()
+    k, W = reg.edge_knn, max(reg.refresh_width, 2 * reg.edge_knn)
+    sel, (s_r, nr, sr, vr) = hold_lookup_select(
+        m, cfg.map.cell_size, queries, k, timer, torch, " [edge map]")
+    results.update(sel)
+    results.update(hold_reduce_select(
+        m, s_r, queries, Pose(gt.q, gt.t + 0.01).apply(pts).contiguous(), W,
+        k, timer, torch, " [edge map]"))
+    hold_edge_fit(nr, sr, vr, keep, line_res, reg, timer, torch,
+                  "path E's edge map")
+
+    # K11b and K4 on a pole lattice (lines) in a walled room (planes):
+    # 512 line and 2,048 plane correspondences at path E's shapes
+    em, sm, e_body, p_body, pose0 = pole_world_case(
+        cfg, torch, dev, sensor.max_edge_features,
+        sensor.max_surface_features)
+    w_e = pose0.apply(e_body).contiguous()
+    w_p = pose0.apply(p_body).contiguous()
+    e_mask = torch.ones(len(e_body), dtype=torch.bool, device=dev)
+    _, (_, en, es, ev) = hold_lookup_select(
+        em, cfg.map.cell_size, w_e, k, timer, torch, " [pole lattice]")
+    fit, results["edge_fit"] = hold_edge_fit(en, es, ev, e_mask, line_res,
+                                             reg, timer, torch,
+                                             "pole lattice")
+    if not float(fit[3].float().mean()) > 0.5:
+        raise SystemExit("K11b edge_fit: half or fewer of the pole lattice's "
+                         "lines are valid")
+    slots = mapstate.octant_lookup_reference(sm.keys, w_p, cfg.map.cell_size)
+    pn, ps, pv, _ = mapstate.knn_select_reference(sm.pts, slots, w_p,
+                                                  reg.plane_knn)
+    q, t = pose0.q.contiguous(), pose0.t.contiguous()
+    pfit = registration.plane_fit_reference(
+        pn.contiguous(), ps.contiguous(), pv.contiguous(),
+        torch.ones(len(p_body), dtype=torch.bool, device=dev), w_p, q,
+        plane_res)
+    planes = registration.PlaneCorrs(p_body, *pfit)
+    lines = registration.EdgeCorrs(e_body, *fit)
+    rows = tuple(x.contiguous() for x in (e_body, *fit[:4]))
+    a_sq, a_sq_e = (3.0 * plane_res).contiguous(), (3.0 * line_res).contiguous()
+    args4 = (p_body, *(x.contiguous() for x in pfit[:4]), q, t, a_sq, rows,
+             a_sq_e)
+    Hk, gk, _ = kernels.normal_system(*args4)
+    Hr, gr, _ = registration.normal_system_reference(*args4)
+    Hk2, gk2, _ = kernels.normal_system(*args4)
+    Hp, _, _ = registration.normal_system_reference(*args4[:8])
+    torch.cuda.synchronize()
+    scale = float(Hr.abs().max())
+    err4 = max(float((Hk - Hr).abs().max()), float((gk - gr).abs().max()))
+    share = float((Hr - Hp).abs().max()) / scale
+    repeat = torch.equal(Hk, Hk2) and torch.equal(gk, gk2)
+    log(f"K4 normal_system with edge rows: {int(pfit[3].sum())} valid "
+        f"planes, {int(fit[3].sum())} valid lines (the lines move max |H| "
+        f"by {share:.3f} of it); |H|max {scale:.4e}, max abs err "
+        f"{err4:.3e} ({err4 / scale:.3e} relative), repeat bit-identical "
+        f"{repeat}")
+    if not (err4 <= TOL_K4_REL * scale and repeat and share > 0.01):
+        raise SystemExit("K4 normal_system with edge rows disagrees with its "
+                         "plain version")
+    nq, ne = len(p_body), len(e_body)
+    results["normal_system"] = dict(
+        err=err4, ms=timer(lambda: kernels.normal_system(*args4)),
+        plain_ms=timer(lambda: registration.normal_system_reference(*args4)),
+        # plane rows, edge rows, pose, supports; H, g, cost; ~124
+        # operations a plane row, ~300 an edge row
+        bound=bound(nq * 33 + ne * 41 + 36 + 43 * 4, nq * 124 + ne * 300))
+
+    rt = RuntimeParams(line_res, plane_res)
+    n_it = reg.max_gn_iters
+    hold_on = torch.tensor(True, device=dev)
+    prior = registration.PosePrior(
+        pose=pose0, information=torch.tensor([40.0, 50.0, 60.0, 10.0, 10.0,
+                                              0.0], device=dev),
+        enabled=torch.tensor(False, device=dev))
+    kw = dict(prior=prior, use_edges=True,
+              axis_hold_min=reg.axis_hold_min_matches,
+              axis_hold_frac=reg.axis_hold_frac, hold_enabled=hold_on)
+    solve_args = (pose0, planes, lines, rt, n_it)
+    pk, sk1 = registration.gauss_newton_solve(*solve_args, **kw)
+    pk2, sk2 = registration.gauss_newton_solve(*solve_args, **kw)
+    ref, sr1 = registration.gauss_newton_solve_reference(*solve_args, **kw)
+    torch.cuda.synchronize()
+    dt = float((pk.t - ref.t).abs().max())
+    dq = float((pk.q - ref.q).abs().max())
+    rep = torch.equal(pk.q, pk2.q) and torch.equal(pk.t, pk2.t)
+    same_small = bool(sk1) == bool(sr1) == bool(sk2)
+    log(f"K4 gn_solve with edge rows ({nq} planes, {ne} lines, hold armed): "
+        f"max |dt| {dt:.3e} m, max |dq| {dq:.3e}, first_small kernel "
+        f"{bool(sk1)} plain {bool(sr1)}, repeat bit-identical {rep}; the "
+        f"solve moved the pose {float((ref.t - pose0.t).abs().max()):.3e} m")
+    if not (dt <= GN_TOL and dq <= GN_TOL and same_small and rep):
+        raise SystemExit("K4 gn_solve with edge rows disagrees with the plain "
+                         "solve")
+    gn = (p_body, *(x.contiguous() for x in pfit[:4]),
+          pfit[5].contiguous(), q, t, a_sq, n_it, 1e-4,
+          tuple(x.contiguous() for x in (prior.pose.q, prior.pose.t,
+                                         prior.information, prior.enabled)),
+          reg.axis_hold_min_matches, reg.axis_hold_frac, hold_on, rows,
+          a_sq_e)
+    results["gn_solve"] = dict(
+        err=max(dt, dq), ms=timer(lambda: kernels.gn_solve(*gn)),
+        plain_ms=timer(lambda: registration.gauss_newton_solve_reference(
+            *solve_args, **kw)),
+        # rows once plus the vote column, pose and prior; the pose; per
+        # iteration ~124 operations a plane row, ~300 an edge row and ~600
+        # for the 6x6 solve
+        bound=bound(nq * 37 + ne * 41 + 32 + 53 + 29 + 4,
+                    n_it * (nq * 124 + ne * 300 + 600)))
     return results
 
 
@@ -514,23 +853,29 @@ def phase_voxel_claim(cases, torch, dev):
 
 def expected_launches(cfg, stats):
     """What one replay must launch, from its configuration and the ICP
-    rounds its scans report."""
+    rounds its scans report.  With edge features every lookup, selection
+    and reduction runs twice (the surface map's and the edge map's)."""
     n = len(stats)
     rounds = sum(s["n_iterations"] for s in stats)
     refresh = cfg.registration.refresh_width > 0
+    edges = cfg.use_edge_features
+    maps = 2 if edges else 1
     return {
-        "octant_lookup": n,
+        "octant_lookup": maps * n,
         # with candidate refresh only round 1 selects at full width
-        "knn_select": n if refresh else rounds,
+        "knn_select": maps * (n if refresh else rounds),
         "plane_fit": rounds,
         "gn_solve": rounds,
         "normal_system": n,
         # one reduction a scan that goes on past round 1
-        "reduce_candidates": (sum(s["n_iterations"] > 1 for s in stats)
-                              if refresh else 0),
-        "select_reduced": rounds - n if refresh else 0,
-        # one counted launch a scan (its fill, claim and compare kernels)
-        "voxel_claim": n if cfg.sensor.scan_thin_mode == "voxel" else 0,
+        "reduce_candidates": maps * (sum(s["n_iterations"] > 1 for s in stats)
+                                     if refresh else 0),
+        "select_reduced": maps * (rounds - n) if refresh else 0,
+        # one counted launch a scan (its fill, claim and compare kernels):
+        # the surface thinning's in voxel mode, the edge stream's always
+        "voxel_claim": n * ((cfg.sensor.scan_thin_mode == "voxel") + edges),
+        "curvature_edges": n if edges else 0,
+        "edge_fit": rounds if edges else 0,
     }
 
 
@@ -558,6 +903,9 @@ def phase_main(name, cfg, ds, torch, dev, out_dir, card):
         raise SystemExit(f"kernel launch counts do not match the {name} path")
     if not (np.isfinite(res.poses_t).all() and np.isfinite(res.poses_q).all()):
         raise SystemExit(f"non-finite pose on the {name} path")
+    if cfg.use_edge_features and not all(s["edge_stack"] > 0
+                                         for s in res.stats):
+        raise SystemExit(f"a scan of the {name} path extracted no edge")
     ate = ate_rmse(res.poses_t, np.asarray(ds.gt_poses_t))
     times = np.asarray([s["time_elapsed_ms"] for s in res.stats])
     summary = {
@@ -572,6 +920,14 @@ def phase_main(name, cfg, ds, torch, dev, out_dir, card):
         "final_t": res.poses_t[-1].tolist(),
         "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
     }
+    if cfg.use_edge_features:
+        summary["edge_stack_min"] = min(s["edge_stack"] for s in res.stats)
+        summary["edge_map_last"] = res.stats[-1]["edge_map"]
+        # MATCH_SUCCESS lines of each scan's final extraction, summed
+        summary["edge_successes"] = sum(s["line_rejection_hist"][0]
+                                        for s in res.stats)
+        summary["line_rejection_hist_sum"] = np.sum(
+            [s["line_rejection_hist"] for s in res.stats], axis=0).tolist()
     log(f"phase 2 [{name}] ({card}): " + json.dumps(summary))
     if not ate < ATE_BAR_M:
         raise SystemExit(f"{name} path: ATE {ate:.4f} m is not below "
@@ -627,6 +983,8 @@ def main(argv=None):
     smi = nvidia_smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
+    import dataclasses
+
     from superodom_tpu_torch import kernels
     from superodom_tpu_torch.config import parity_config, ship_config
 
@@ -654,6 +1012,10 @@ def main(argv=None):
         "parity": (parity_config("os1"), ds, ("reduce_candidates",
                                               "select_reduced")),
         "vlp16": (cfg_vlp, ds_vlp, ("voxel_claim",)),
+        # path E: the reference-envelope ICP with curvature edges on
+        "edges": (dataclasses.replace(parity_config("os1"),
+                                      use_edge_features=True), ds,
+                  ("curvature_edges", "edge_fit")),
     }
     path_of = {k: name for name, p in paths.items() for k in p[2]}
     if set(path_of) != set(kernels.KERNELS):
@@ -662,7 +1024,8 @@ def main(argv=None):
     # phase 1: on every path's own map and features
     floor_ms = device_ms(lambda: kernels.launch_floor(dev), torch)
     log(f"launch floor (empty kernel, same harness): {floor_ms * 1e3:.2f} us")
-    kres = {name: phase_kernels(name, c, d, torch, dev)
+    kres = {name: (phase_edges(c, d, torch, dev) if c.use_edge_features
+                   else phase_kernels(name, c, d, torch, dev))
             for name, (c, d, _) in paths.items()}
     claim = phase_voxel_claim(
         (("VLP-16", cfg_vlp, ds_vlp), ("OS1-128", cfg, ds)), torch, dev)
@@ -712,7 +1075,8 @@ def main(argv=None):
               "launch_floor_ms": floor_ms,
               "voxel_claim_os1_128": measured(claim["OS1-128"]),
               "gn_solve_host_us": {p: kres[p]["gn_solve"]["host_us"]
-                                   for p in paths}}
+                                   for p in paths
+                                   if "host_us" in kres[p]["gn_solve"]}}
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"kernels": entries}))

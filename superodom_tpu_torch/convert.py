@@ -20,6 +20,7 @@ from superodom_tpu_torch.inertial import Preintegrated, SmootherState
 from superodom_tpu_torch.mapstate import ReducedCandidates, VoxelHashMap
 from superodom_tpu_torch.pipeline import OdomState, StepOutput
 from superodom_tpu_torch.registration import (
+    EdgeCorrs,
     IcpStats,
     PlaneCorrs,
     PosePrior,
@@ -29,7 +30,7 @@ from superodom_tpu_torch.registration import (
 _TYPES = {cls.__name__: cls for cls in (
     OdomState, StepOutput, Pose, RuntimeParams, VoxelHashMap, SmootherState,
     Preintegrated, ImuWindow, Scan, IcpStats, RegistrationError, PlaneCorrs,
-    PosePrior, ReducedCandidates)}
+    PosePrior, ReducedCandidates, EdgeCorrs)}
 
 
 def _is_namedtuple(x) -> bool:

@@ -33,6 +33,11 @@ static __device__ __forceinline__ void so_quat_rotate(const float q[4],
   out[2] = v[2] + 2.0f * (w * c2 + d2);
 }
 
+// torch.clamp_min: NaN stays NaN (fmaxf would drop it)
+static __device__ __forceinline__ float so_clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+
 // a x b
 static __device__ __forceinline__ void so_cross(const float a[3],
                                                 const float b[3],

@@ -2,14 +2,18 @@
 // one ICP round on SE(3), all of its iterations in ONE launch.
 //
 // Replaces: superodom_tpu/registration.py gauss_newton_solve (:530-650)
-// with its _accumulate_normal_system (:463-527, plane part) and
+// with its _accumulate_normal_system (:463-527, planes and edges) and
 // _tukey_weight (:455-460).  Plain version:
 // registration.gauss_newton_solve_reference (and normal_system_reference
 // for the n_iters = 0 mode).
 //
 // Each iteration, for the fixed correspondences of the round:
-//   1. per row m: wp = R p + t, r = n.wp + d, J = [n, wp x n],
+//   1. per plane row m: wp = R p + t, r = n.wp + d, J = [n, wp x n],
 //      w = valid * coeff * Tukey(r^2; a_sq); sum w J J^T, w J r, w r^2;
+//      per edge row e (line through a and b, d = a - b):
+//      we = R p + t, r_e = (we - a) x (we - b) / |d| (3 residuals),
+//      J_e = skew(-d/|d|) [I, -skew(we)], w = valid * coeff *
+//      Tukey(|r_e|^2; a_sq_e); sum w J_e^T J_e, w J_e^T r_e, w |r_e|^2;
 //   2. the pose prior's diagonal and residual (if a prior is given);
 //   3. Hd = H + damping * I * (1 + diag H);
 //   4. delta = -Hd^-1 g by the column Cholesky of ops/smallsolve.py
@@ -18,18 +22,22 @@
 //      q is removed;
 //   6. the left-multiplicative retraction exp(delta) * pose, then
 //      quat_normalize; |delta| < 1e-6 of the first iteration is reported.
-// The hold mask is computed once, in iteration 0: the per-axis votes
-// (obs_bins[:, 2] - 6) and the valid count are four more sums of the same
-// reduction, and the threshold is registration.py:325-336's.
+// The hold mask is computed once, in iteration 0, at the round's start
+// pose: the per-axis votes (obs_bins[:, 2] - 6 of each valid plane; each
+// valid edge votes for every body axis with 1 - (d/|d| . axis)^2 > 0.5)
+// and the valid count (planes and edges) are four more sums of the same
+// reduction, and the threshold is registration.axis_hold_mask's.
 // With n_iters = 0 the kernel instead returns (H, g, cost) at the given
 // pose: 36 + 6 + 1 floats, H in full (the final-H call of icp_register).
 //
-// What bounds it on an H100: not bytes (~68 KB at M = 2,048 rows) and not
-// flops (~100 a row an iteration), but latency — the launch, and per
+// What bounds it on an H100: not bytes (~68 KB at M = 2,048 plane rows, ~21
+// KB more at 512 edge rows) and not flops (~100 a plane row and ~250 an
+// edge row an iteration), but latency — the launch, and per
 // iteration a reduction across the card followed by a serial 6x6 solve.
 // Design: one thread-block cluster of 8 blocks x 256 threads (it measured
 // faster on the H100 than one block of 1,024; PERF.md).  Each block stages
-// its fixed contiguous slice of the rows into shared memory ONCE with bulk
+// its fixed contiguous slice of the plane rows and of the edge rows into
+// shared memory ONCE with bulk
 // asynchronous copies (cp.async.bulk, completion on an mbarrier); every
 // iteration then reads shared memory only.  Per-block partials come from
 // warp shuffles, combined across warps in a fixed order; after a cluster
@@ -47,6 +55,7 @@ namespace cg = cooperative_groups;
 
 #define GN_ACC 32        // 21 H (upper triangle) + 6 g + cost + 3 votes + valid
 #define GN_ROW_BYTES 33  // p_body 12 + normal 12 + d 4 + coeff 4 + valid 1
+#define GN_EDGE_ROW_BYTES 41  // p_body 12 + a 12 + b 12 + coeff 4 + valid 1
 #define GN_MAX_DYN_SMEM (216 * 1024)  // of the 227 KB a block may use
 #define GN_BLOCKS 8      // the blocks of the one cluster
 #define GN_THREADS 256   // threads a block
@@ -59,7 +68,15 @@ struct GnArgs {
   const unsigned char* valid;
   const int* obs_bins;  // [nm, 3]; read only when hold_min > 0
   int nm;
-  int rows;  // rows staged per block (a multiple of 16)
+  int rows;  // plane rows staged per block (a multiple of 16)
+  const float* e_p;  // edge rows [ne, 3]; null when ne = 0
+  const float* e_a;
+  const float* e_b;
+  const float* e_coeff;
+  const unsigned char* e_valid;
+  int ne;
+  int erows;  // edge rows staged per block (a multiple of 16)
+  const float* a_sq_e;  // the edges' Tukey support; read when ne > 0
   const float* q0;
   const float* t0;
   const float* a_sq;
@@ -140,11 +157,6 @@ static __device__ __forceinline__ void so_quat_mul(const float a[4],
   out[3] = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
 }
 
-// torch.clamp_min: NaN stays NaN
-static __device__ __forceinline__ float clamp_min(float x, float lo) {
-  return x < lo ? lo : x;
-}
-
 // One GN update of (q, t) from the reduced sums: prior, damping, Cholesky
 // solve, finite guard, axis hold, retraction.  Returns |delta| < 1e-6.
 static __device__ bool gn_update(const float* tot, const GnArgs& a,
@@ -198,7 +210,7 @@ static __device__ bool gn_update(const float* tot, const GnArgs& a,
         col[i] = col[i] - s;
       }
     }
-    const float dj = sqrtf(clamp_min(col[j], 1e-12f));
+    const float dj = sqrtf(so_clamp_min(col[j], 1e-12f));
 #pragma unroll
     for (int i = 0; i < 6; ++i)
       L[i][j] = i > j ? col[i] / dj : (i == j ? dj : 0.0f);
@@ -278,7 +290,7 @@ static __device__ bool gn_update(const float* tot, const GnArgs& a,
   so_quat_mul(dq, q, qn);
   const float nrm =
       sqrtf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3]);
-  const float den = clamp_min(nrm, 1e-8f);
+  const float den = so_clamp_min(nrm, 1e-8f);
   const float sgn = qn[0] / den < 0.0f ? -1.0f : 1.0f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) q[i] = (qn[i] / den) * sgn;
@@ -309,32 +321,48 @@ __global__ void __cluster_dims__(GN_BLOCKS, 1, 1)
   const int rank = blockIdx.x;  // the grid is one cluster
   const int r0 = rank * a.rows;
   const int n = max(0, min(a.rows, a.nm - r0));
+  const int e0 = rank * a.erows;
+  const int ne = max(0, min(a.erows, a.ne - e0));
 
-  // ---- stage this block's rows once: bulk copies + a byte tail each
+  // ---- stage this block's rows once: bulk copies + a byte tail each; the
+  // edge rows follow the plane rows (both counts are multiples of 16, so
+  // every array starts on a 16-byte line)
   float* sp = reinterpret_cast<float*>(smem);
   float* sn = sp + 3 * a.rows;
   float* sd = sn + 3 * a.rows;
   float* sc = sd + a.rows;
   unsigned char* sv = reinterpret_cast<unsigned char*>(sc + a.rows);
-  void* dst[5] = {sp, sn, sd, sc, sv};
-  const void* src[5] = {a.p_body + 3 * r0, a.normal + 3 * r0, a.d + r0,
-                        a.coeff + r0, a.valid + r0};
-  const unsigned bytes[5] = {12u * n, 12u * n, 4u * n, 4u * n, 1u * n};
+  float* ep = reinterpret_cast<float*>(smem + (size_t)a.rows * GN_ROW_BYTES);
+  float* ea = ep + 3 * a.erows;
+  float* eb = ea + 3 * a.erows;
+  float* ec = eb + 3 * a.erows;
+  unsigned char* ev = reinterpret_cast<unsigned char*>(ec + a.erows);
+  void* dst[10] = {sp, sn, sd, sc, sv, ep, ea, eb, ec, ev};
+  const bool edges = a.ne > 0;
+  const void* src[10] = {
+      a.p_body + 3 * r0, a.normal + 3 * r0, a.d + r0, a.coeff + r0,
+      a.valid + r0,
+      edges ? a.e_p + 3 * e0 : nullptr, edges ? a.e_a + 3 * e0 : nullptr,
+      edges ? a.e_b + 3 * e0 : nullptr, edges ? a.e_coeff + e0 : nullptr,
+      edges ? a.e_valid + e0 : nullptr};
+  const unsigned bytes[10] = {12u * n,  12u * n,  4u * n,  4u * n,
+                              1u * n,   12u * ne, 12u * ne, 12u * ne,
+                              4u * ne,  1u * ne};
   if (tid == 0) mbar_init(&bar);
   __syncthreads();
   if (tid == 0) {
     unsigned tx = 0;
 #pragma unroll
-    for (int i = 0; i < 5; ++i) tx += bulk_head(src[i], bytes[i]);
+    for (int i = 0; i < 10; ++i) tx += bulk_head(src[i], bytes[i]);
     mbar_expect_tx(&bar, tx);
 #pragma unroll
-    for (int i = 0; i < 5; ++i) {
+    for (int i = 0; i < 10; ++i) {
       const unsigned head = bulk_head(src[i], bytes[i]);
       if (head) bulk_copy(dst[i], src[i], head, &bar);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 5; ++i) {
+  for (int i = 0; i < 10; ++i) {
     const unsigned char* s = static_cast<const unsigned char*>(src[i]);
     unsigned char* dd = static_cast<unsigned char*>(dst[i]);
     for (unsigned b = bulk_head(src[i], bytes[i]) + tid; b < bytes[i];
@@ -346,7 +374,16 @@ __global__ void __cluster_dims__(GN_BLOCKS, 1, 1)
 
   float q[4] = {a.q0[0], a.q0[1], a.q0[2], a.q0[3]};
   float t[3] = {a.t0[0], a.t0[1], a.t0[2]};
-  const float a_sq = clamp_min(a.a_sq[0], 1e-12f);
+  const float a_sq = so_clamp_min(a.a_sq[0], 1e-12f);
+  const float a_sq_e = edges ? so_clamp_min(a.a_sq_e[0], 1e-12f) : 1.0f;
+  // the body axes at the start pose, for the edges' hold votes
+  float ax0[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float e[3] = {i == 0 ? 1.0f : 0.0f, i == 1 ? 1.0f : 0.0f,
+                        i == 2 ? 1.0f : 0.0f};
+    so_quat_rotate(q, e, ax0[i]);
+  }
   bool hold[3] = {false, false, false};  // thread 0 of rank 0 only
   bool first_small = false;
   const int passes = a.n_iters > 0 ? a.n_iters : 1;
@@ -384,6 +421,64 @@ __global__ void __cluster_dims__(GN_BLOCKS, 1, 1)
         acc[28] += vote == 0 ? 1.0f : 0.0f;
         acc[29] += vote == 1 ? 1.0f : 0.0f;
         acc[30] += vote == 2 ? 1.0f : 0.0f;
+        acc[31] += 1.0f;
+      }
+    }
+    for (int m = tid; m < ne; m += NT) {
+      const float p[3] = {ep[3 * m], ep[3 * m + 1], ep[3 * m + 2]};
+      const float pa[3] = {ea[3 * m], ea[3 * m + 1], ea[3 * m + 2]};
+      const float pb[3] = {eb[3 * m], eb[3 * m + 1], eb[3 * m + 2]};
+      float we[3];
+      so_quat_rotate(q, p, we);
+      we[0] += t[0];
+      we[1] += t[1];
+      we[2] += t[2];
+      const float dab[3] = {pa[0] - pb[0], pa[1] - pb[1], pa[2] - pb[2]};
+      const float dn = so_clamp_min(sqrtf(so_dot3(dab, dab)), 1e-9f);
+      const float wa[3] = {we[0] - pa[0], we[1] - pa[1], we[2] - pa[2]};
+      const float wb[3] = {we[0] - pb[0], we[1] - pb[1], we[2] - pb[2]};
+      float r[3];
+      so_cross(wa, wb, r);
+      r[0] /= dn;
+      r[1] /= dn;
+      r[2] /= dn;
+      // J_e = L [I, -skew(we)], L = skew(u), u = -d/|d|
+      const float u[3] = {-dab[0] / dn, -dab[1] / dn, -dab[2] / dn};
+      const float L[3][3] = {
+          {0.0f, -u[2], u[1]}, {u[2], 0.0f, -u[0]}, {-u[1], u[0], 0.0f}};
+      const float S[3][3] = {  // -skew(we)
+          {0.0f, we[2], -we[1]}, {-we[2], 0.0f, we[0]}, {we[1], -we[0], 0.0f}};
+      float J[3][6];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          J[i][c] = L[i][c];
+          J[i][3 + c] = L[i][0] * S[0][c] + L[i][1] * S[1][c] + L[i][2] * S[2][c];
+        }
+      const float sq = so_dot3(r, r);
+      const float ratio = sq / a_sq_e;
+      const float tk = ratio < 1.0f ? (1.0f - ratio) * (1.0f - ratio) : 0.0f;
+      const float w = (ev[m] ? 1.0f : 0.0f) * ec[m] * tk;
+      int v = 0;
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int j = i; j < 6; ++j)
+          acc[v++] += w * (J[0][i] * J[0][j] + J[1][i] * J[1][j] +
+                           J[2][i] * J[2][j]);
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+        acc[21 + i] += w * (J[0][i] * r[0] + J[1][i] * r[1] + J[2][i] * r[2]);
+      acc[27] += w * sq;
+      if (it == 0 && a.hold_min > 0 && a.n_iters > 0 && ev[m]) {
+        const float dl = so_clamp_min(sqrtf(so_dot3(dab, dab)), 1e-12f);
+        const float dv[3] = {dab[0] / dl, dab[1] / dl, dab[2] / dl};
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float c = so_dot3(dv, ax0[i]);
+          acc[28 + i] += 1.0f - c * c > 0.5f ? 1.0f : 0.0f;
+        }
         acc[31] += 1.0f;
       }
     }
@@ -456,7 +551,8 @@ __global__ void __cluster_dims__(GN_BLOCKS, 1, 1)
 }
 
 // n_iters = 0 writes H[36], g[6], cost to out; otherwise q[4], t[3] to out
-// and the first iteration's |delta| < 1e-6 to first_small.
+// and the first iteration's |delta| < 1e-6 to first_small.  ne = 0: no
+// edge rows (their pointers may be null).
 extern "C" int so_gn_solve(
     const float* p_body, const float* normal, const float* d,
     const float* coeff, const unsigned char* valid, const int* obs_bins,
@@ -464,7 +560,9 @@ extern "C" int so_gn_solve(
     const float* prior_q, const float* prior_t, const float* prior_info,
     const unsigned char* prior_enabled, const unsigned char* hold_enabled,
     int hold_min, float hold_frac, float damping, int n_iters, float* out,
-    unsigned char* first_small, void* stream) {
+    unsigned char* first_small, const float* e_p, const float* e_a,
+    const float* e_b, const float* e_coeff, const unsigned char* e_valid,
+    int ne, const float* a_sq_e, void* stream) {
   GnArgs a;
   a.p_body = p_body;
   a.normal = normal;
@@ -474,6 +572,14 @@ extern "C" int so_gn_solve(
   a.obs_bins = obs_bins;
   a.nm = nm;
   a.rows = ((nm + GN_BLOCKS - 1) / GN_BLOCKS + 15) / 16 * 16;
+  a.e_p = e_p;
+  a.e_a = e_a;
+  a.e_b = e_b;
+  a.e_coeff = e_coeff;
+  a.e_valid = e_valid;
+  a.ne = ne;
+  a.erows = ((ne + GN_BLOCKS - 1) / GN_BLOCKS + 15) / 16 * 16;
+  a.a_sq_e = a_sq_e;
   a.q0 = q0;
   a.t0 = t0;
   a.a_sq = a_sq;
@@ -488,7 +594,8 @@ extern "C" int so_gn_solve(
   a.n_iters = n_iters;
   a.out = out;
   a.first_small = first_small;
-  const size_t dyn = (size_t)a.rows * GN_ROW_BYTES;
+  const size_t dyn =
+      (size_t)a.rows * GN_ROW_BYTES + (size_t)a.erows * GN_EDGE_ROW_BYTES;
   if (dyn > GN_MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
   if (dyn > 48 * 1024) {
     // the attribute belongs to the current device: set it on every launch

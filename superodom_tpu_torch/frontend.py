@@ -1,7 +1,7 @@
-"""Scan frontend: feature gates, scan thinning in its four modes (voxel
-claim, voxel centroid, r^2-stratified, none), even-rate compaction and IMU
-undistortion (counterpart of ``superodom_tpu.frontend``; edge extraction is
-not ported yet).
+"""Scan frontend: feature gates, curvature edges (K11a), scan thinning in
+its four modes (voxel claim, voxel centroid, r^2-stratified, none),
+even-rate compaction and IMU undistortion (counterpart of
+``superodom_tpu.frontend``).
 
 Every array keeps its static width with a validity mask: no ``nonzero()``
 and no boolean indexing, so the step never waits on the host.
@@ -13,8 +13,10 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from superodom_tpu_torch import kernels
 from superodom_tpu_torch.geometry import (
     Pose,
+    dot3,
     matrix_to_quat,
     quat_conj,
     quat_mul,
@@ -134,6 +136,47 @@ def uniform_feature_extraction(xyz, mask, stride: int, min_range: float,
     prev = torch.roll(xyz, 1, dims=0)
     return stride_m & uniform_feature_gates(xyz, prev, mask, min_range,
                                             max_range)
+
+
+def curvature_edge_extraction_reference(xyz, ring, mask,
+                                        half_window: int = 5,
+                                        curvature_threshold: float = 0.2,
+                                        min_range: float = 0.5):
+    """Plain version of K11a: LOAM-style edges, the local curvature along
+    each scan line, c_i = |sum_{0<|j|<=w} (p_{i+j} - p_i)| / (2w |p_i|),
+    over rolled (wrapping) lanes gated to the same ring and live
+    neighbours; a lane is an edge when all 2w neighbours pass that gate,
+    c_i exceeds the threshold and |p_i| > min_range.  Returns bool[N]."""
+    rng_norm = torch.sqrt(dot3(xyz, xyz))
+    acc = torch.zeros_like(xyz)
+    neigh_ok = torch.ones_like(mask)
+    for off in range(-half_window, half_window + 1):
+        if off == 0:
+            continue
+        same = (torch.roll(ring, -off, 0) == ring) & torch.roll(mask, -off, 0)
+        acc = acc + torch.where(same[:, None], torch.roll(xyz, -off, 0) - xyz,
+                                0.0)
+        neigh_ok = neigh_ok & same
+    curv = torch.sqrt(dot3(acc, acc)) / (
+        2.0 * half_window * torch.clamp_min(rng_norm, 1e-6))
+    return mask & neigh_ok & (curv > curvature_threshold) & (
+        rng_norm > min_range)
+
+
+def curvature_edge_extraction(xyz, ring, mask, half_window: int = 5,
+                              curvature_threshold: float = 0.2,
+                              min_range: float = 0.5):
+    """K11a: see :func:`curvature_edge_extraction_reference` for the
+    contract."""
+    if xyz.is_cuda:
+        return kernels.curvature_edges(
+            xyz.contiguous(), ring.to(torch.int32).contiguous(),
+            mask.contiguous(), half_window, curvature_threshold, min_range)
+    if xyz.device.type == "cpu":
+        return curvature_edge_extraction_reference(
+            xyz, ring, mask, half_window, curvature_threshold, min_range)
+    raise ValueError(f"curvature_edge_extraction: unsupported device "
+                     f"{xyz.device}")
 
 
 def range_stratified_mask(xyz: torch.Tensor, mask: torch.Tensor,

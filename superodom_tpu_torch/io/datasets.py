@@ -221,3 +221,56 @@ def ate_rmse(est_t: np.ndarray, gt_t: np.ndarray) -> float:
     """Absolute trajectory error after origin alignment (both trajectories
     start at the same pose here, so no Umeyama fit is needed)."""
     return float(np.sqrt(np.mean(np.sum((est_t - gt_t) ** 2, axis=-1))))
+
+
+# vertical poles (x, y centres) inside ring_sweep's room
+SWEEP_POLES = ((3.0, 2.0), (-4.0, 1.5), (2.5, -3.0), (-2.0, -2.5))
+
+
+def ring_sweep(rings: int, azimuths: int, half_extent=(8.0, 6.0, 3.0),
+               poles=SWEEP_POLES, pole_radius: float = 0.15,
+               noise: float = 0.003, seed: int = 0):
+    """One ring-major sweep from the origin of a box room (``half_extent``)
+    holding vertical poles: ``rings`` beams from -15 to +15 degrees
+    elevation, each ``azimuths`` returns around the full circle, the lanes
+    of ring r at r * azimuths ... (r + 1) * azimuths - 1, as a spinning
+    sensor delivers them.  Pole silhouettes and wall corners are real
+    curvature edges.  Returns (xyz f32[N,3], ring i32[N])."""
+    rng = np.random.default_rng(seed)
+    el = np.deg2rad(np.linspace(-15.0, 15.0, rings))[:, None]
+    az = np.linspace(-np.pi, np.pi, azimuths, endpoint=False)[None, :]
+    d = np.stack(np.broadcast_arrays(np.cos(el) * np.cos(az),
+                                     np.cos(el) * np.sin(az),
+                                     np.sin(el) + 0.0 * az),
+                 -1).reshape(-1, 3)
+    half = np.asarray(half_extent, np.float64)
+    with np.errstate(divide="ignore"):
+        t = np.min(np.where(d != 0, half / np.abs(d), np.inf), axis=1)
+    a = d[:, 0] ** 2 + d[:, 1] ** 2
+    for cx, cy in poles:  # nearest hit of |t d_xy - c| = pole_radius
+        b = -2.0 * (d[:, 0] * cx + d[:, 1] * cy)
+        disc = b * b - 4.0 * a * (cx * cx + cy * cy - pole_radius ** 2)
+        hit = (disc >= 0) & (a > 1e-9)
+        tc = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0.0)))
+                      / (2.0 * np.maximum(a, 1e-9)), np.inf)
+        t = np.where((tc > 0) & (tc < t), tc, t)
+    xyz = d * t[:, None] + rng.normal(scale=noise, size=d.shape)
+    ring = np.repeat(np.arange(rings, dtype=np.int32), azimuths)
+    return xyz.astype(np.float32), ring
+
+
+def pole_lattice(rng: np.random.Generator, spacing: float = 3.0,
+                 extent: int = 6, per_pole: int = 120, height: float = 3.0,
+                 noise: float = 0.004):
+    """Points on vertical poles standing on a square lattice (every
+    ``spacing`` metres from -extent to +extent, shifted by (0.4, 0.3) m off
+    the map's cell corners), ``per_pole`` points each at heights uniform in
+    [-height, height]: a world of straight lines.  f32[P,3]."""
+    pts = []
+    for cx in np.arange(-extent, extent + 1e-9, spacing):
+        for cy in np.arange(-extent, extent + 1e-9, spacing):
+            z = rng.uniform(-height, height, size=(per_pole, 1))
+            xy = np.tile([[cx + 0.4, cy + 0.3]], (per_pole, 1))
+            pts.append(np.concatenate([xy, z], axis=1))
+    pts = np.concatenate(pts)
+    return (pts + rng.normal(scale=noise, size=pts.shape)).astype(np.float32)

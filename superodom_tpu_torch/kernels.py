@@ -14,7 +14,8 @@ stream, raises if the launch was refused, and adds one to its entry of
 only; the dispatching wrappers (``mapstate.octant_lookup``,
 ``mapstate.knn_select``, ``mapstate.reduce_candidates``,
 ``mapstate.select_knn_reduced``, ``ops.voxel.voxel_downsample_scatter``,
-``registration.plane_fit``, ``registration.normal_system``,
+``frontend.curvature_edge_extraction``, ``registration.plane_fit``,
+``registration.edge_fit``, ``registration.normal_system``,
 ``registration.gauss_newton_solve``) send CPU tensors to the plain
 versions.
 """
@@ -36,21 +37,24 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("octant_lookup", "knn_select", "plane_fit", "normal_system",
-           "select_reduced", "voxel_claim", "launch_floor")
+           "select_reduced", "voxel_claim", "curvature_edges", "edge_fit",
+           "launch_floor")
+HEADERS = ("common.cuh", "eigh3.cuh")
 # the counted entry points; gn_solve and normal_system are the two modes of
 # csrc/normal_system.cu, reduce_candidates is csrc/knn_select.cu with the
 # planar output
 KERNELS = ("octant_lookup", "knn_select", "plane_fit", "gn_solve",
            "normal_system", "reduce_candidates", "select_reduced",
-           "voxel_claim")
+           "voxel_claim", "curvature_edges", "edge_fit")
 SOURCE_OF = {"gn_solve": "normal_system", "reduce_candidates": "knn_select"}
 # --threads 0: the sources compile side by side, one thread a core
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "--threads", "0"]
 # gn_solve runs on one cluster of GN_BLOCKS blocks; each block stages
-# ceil(M / GN_BLOCKS) rows (rounded up to 16) of 33 bytes in shared memory,
-# at most GN_MAX_ROW_BYTES (csrc/normal_system.cu)
+# ceil(M / GN_BLOCKS) plane rows of 33 bytes and ceil(Me / GN_BLOCKS) edge
+# rows of 41 bytes (each count rounded up to 16) in shared memory, at most
+# GN_MAX_ROW_BYTES (csrc/normal_system.cu)
 GN_BLOCKS = 8
 GN_MAX_ROW_BYTES = 216 * 1024
 
@@ -72,7 +76,8 @@ def _sources():
 
 def _library_path() -> str:
     h = hashlib.sha256()
-    for path in sorted(_sources()) + [os.path.join(CSRC, "common.cuh")]:
+    for path in sorted(_sources()) + [os.path.join(CSRC, h)
+                                      for h in HEADERS]:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -128,17 +133,20 @@ def load() -> ctypes.CDLL:
                                  vp, vp, vp, vp, vp, vp, vp]
     lib.so_gn_solve.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, vp,
                                 vp, vp, vp, vp, vp, ci, cf, cf, ci,
-                                vp, vp, vp]
+                                vp, vp, vp, vp, vp, vp, vp, ci, vp, vp]
     lib.so_reduce_candidates.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp,
                                          vp, vp]
     lib.so_select_reduced.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci, vp, vp,
                                       vp, vp]
     lib.so_voxel_claim.argtypes = [vp, vp, ci, vp, ci, vp, vp, vp]
+    lib.so_curvature_edges.argtypes = [vp, vp, vp, ci, ci, cf, cf, cf, vp, vp]
+    lib.so_edge_fit.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf, vp, vp,
+                                vp, vp, vp, vp]
     lib.so_launch_floor.argtypes = [vp]
     for fn in (lib.so_octant_lookup, lib.so_knn_select, lib.so_plane_fit,
                lib.so_gn_solve, lib.so_reduce_candidates,
                lib.so_select_reduced, lib.so_voxel_claim,
-               lib.so_launch_floor):
+               lib.so_curvature_edges, lib.so_edge_fit, lib.so_launch_floor):
         fn.restype = ci
     _lib = lib
     return lib
@@ -288,6 +296,55 @@ def voxel_claim(xyz: torch.Tensor, mask: torch.Tensor, res: torch.Tensor,
     return keep
 
 
+def curvature_edges(xyz: torch.Tensor, ring: torch.Tensor, mask: torch.Tensor,
+                    half_window: int, threshold: float,
+                    min_range: float) -> torch.Tensor:
+    """K11a on the card: the edge mask bool[N] of the curvature stencil
+    (see csrc/curvature_edges.cu)."""
+    dev = xyz.device
+    n = xyz.shape[0]
+    _check("xyz", xyz, torch.float32, (n, 3))
+    _check("ring", ring, torch.int32, (n,), dev)
+    _check("mask", mask, torch.bool, (n,), dev)
+    if not 1 <= half_window <= 16:
+        raise ValueError(f"curvature_edges: half_window {half_window} "
+                         f"outside 1..16")
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    rc = load().so_curvature_edges(
+        _p(xyz), _p(ring), _p(mask), n, int(half_window),
+        float(2.0 * half_window), float(threshold), float(min_range),
+        _p(out), _stream(dev))
+    _launched("curvature_edges", rc)
+    return out
+
+
+def edge_fit(neigh: torch.Tensor, sq: torch.Tensor, nvalid: torch.Tensor,
+             mask: torch.Tensor, line_res: torch.Tensor, min_neighbors: int,
+             max_dist_inlier: float):
+    """K11b on the card: (a f32[M,3], b f32[M,3], coeff f32[M], valid
+    bool[M], code i32[M]) (see csrc/edge_fit.cu)."""
+    dev = neigh.device
+    nq, k = sq.shape
+    _check("neigh", neigh, torch.float32, (nq, k, 3))
+    _check("sq", sq, torch.float32, (nq, k), dev)
+    _check("nvalid", nvalid, torch.bool, (nq, k), dev)
+    _check("mask", mask, torch.bool, (nq,), dev)
+    _check("line_res", line_res, torch.float32, (), dev)
+    if not 2 <= k <= 16:
+        raise ValueError(f"edge_fit: k={k} outside the kernel's 2..16")
+    a, b = (torch.empty((nq, 3), dtype=torch.float32, device=dev)
+            for _ in range(2))
+    coeff = torch.empty((nq,), dtype=torch.float32, device=dev)
+    valid = torch.empty((nq,), dtype=torch.bool, device=dev)
+    code = torch.empty((nq,), dtype=torch.int32, device=dev)
+    rc = load().so_edge_fit(_p(neigh), _p(sq), _p(nvalid), _p(mask),
+                            _p(line_res), nq, k, int(min_neighbors),
+                            float(max_dist_inlier ** 2), _p(a), _p(b),
+                            _p(coeff), _p(valid), _p(code), _stream(dev))
+    _launched("edge_fit", rc)
+    return a, b, coeff, valid, code
+
+
 def plane_fit(neigh: torch.Tensor, sq: torch.Tensor, nvalid: torch.Tensor,
               mask: torch.Tensor, w_pt: torch.Tensor, q: torch.Tensor,
               plane_res: torch.Tensor):
@@ -320,12 +377,24 @@ def plane_fit(neigh: torch.Tensor, sq: torch.Tensor, nvalid: torch.Tensor,
 
 def _gn_launch(rows, q, t, a_sq, n_iters, out, first_small, *, obs_bins=None,
                prior=None, hold_min=0, hold_frac=0.0, hold_enabled=None,
-               damping=0.0):
+               damping=0.0, edges=None, a_sq_e=None):
     """Check the inputs of csrc/normal_system.cu and launch it; returns the
-    C function's code.  ``rows`` = (p_body, normal, d, coeff, valid)."""
+    C function's code.  ``rows`` = (p_body, normal, d, coeff, valid);
+    ``edges`` = None or (p_body, a, b, coeff, valid) with ``a_sq_e`` their
+    Tukey support."""
     p_body, normal, d, coeff, valid = rows
     dev = p_body.device
     nm = p_body.shape[0]
+    ne = 0
+    if edges is not None:
+        e_p, e_a, e_b, e_c, e_v = edges
+        ne = e_p.shape[0]
+        for name, x in (("edge p_body", e_p), ("edge a", e_a),
+                        ("edge b", e_b)):
+            _check(name, x, torch.float32, (ne, 3), dev)
+        _check("edge coeff", e_c, torch.float32, (ne,), dev)
+        _check("edge valid", e_v, torch.bool, (ne,), dev)
+        _check("a_sq_e", a_sq_e, torch.float32, (), dev)
     _check("p_body", p_body, torch.float32, (nm, 3))
     _check("normal", normal, torch.float32, (nm, 3), dev)
     _check("d", d, torch.float32, (nm,), dev)
@@ -346,26 +415,37 @@ def _gn_launch(rows, q, t, a_sq, n_iters, out, first_small, *, obs_bins=None,
             _check(name, x, dtype, shape, dev)
     if hold_enabled is not None:
         _check("hold_enabled", hold_enabled, torch.bool, (), dev)
-    per_block = -(-nm // GN_BLOCKS)
-    if -(-per_block // 16) * 16 * 33 > GN_MAX_ROW_BYTES:
-        raise ValueError(f"gn_solve: {nm} rows do not fit the shared memory "
-                         f"of {GN_BLOCKS} blocks")
+    if gn_staged_bytes(nm, ne) > GN_MAX_ROW_BYTES:
+        raise ValueError(f"gn_solve: {nm} plane and {ne} edge rows do not "
+                         f"fit the shared memory of {GN_BLOCKS} blocks")
     pq, pt, pi, pe = prior if prior is not None else (None,) * 4
+    e_p, e_a, e_b, e_c, e_v = edges if ne else (None,) * 5
     return load().so_gn_solve(
         _p(p_body), _p(normal), _p(d), _p(coeff), _p(valid), _p(obs_bins),
         nm, _p(q), _p(t), _p(a_sq), _p(pq), _p(pt), _p(pi), _p(pe),
         _p(hold_enabled), int(hold_min), float(hold_frac), float(damping),
-        int(n_iters), _p(out), _p(first_small), _stream(dev))
+        int(n_iters), _p(out), _p(first_small), _p(e_p), _p(e_a), _p(e_b),
+        _p(e_c), _p(e_v), ne, _p(a_sq_e if ne else None), _stream(dev))
+
+
+def gn_staged_bytes(n_planes: int, n_edges: int) -> int:
+    """Shared memory one block of csrc/normal_system.cu stages."""
+    def rows(n):
+        return -(-(-(-n // GN_BLOCKS)) // 16) * 16
+    return rows(n_planes) * 33 + rows(n_edges) * 41
 
 
 def normal_system(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
                   coeff: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
-                  t: torch.Tensor, a_sq: torch.Tensor):
+                  t: torch.Tensor, a_sq: torch.Tensor, edges=None,
+                  a_sq_e=None):
     """K4 on the card, n_iters = 0 mode: (H f32[6,6], g f32[6], cost f32[])
-    at the pose (q, t) (see csrc/normal_system.cu)."""
+    at the pose (q, t), of the plane rows and the ``edges`` rows (None or
+    (p_body, a, b, coeff, valid), Tukey support ``a_sq_e``) (see
+    csrc/normal_system.cu)."""
     out = torch.empty((43,), dtype=torch.float32, device=p_body.device)
     rc = _gn_launch((p_body, normal, d, coeff, valid), q, t, a_sq, 0, out,
-                    None)
+                    None, edges=edges, a_sq_e=a_sq_e)
     _launched("normal_system", rc)
     return out[:36].view(6, 6), out[36:42], out[42]
 
@@ -374,11 +454,14 @@ def gn_solve(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
              coeff: torch.Tensor, valid: torch.Tensor, obs_bins: torch.Tensor,
              q: torch.Tensor, t: torch.Tensor, a_sq: torch.Tensor,
              n_iters: int, damping: float = 1e-4, prior=None,
-             hold_min: int = 0, hold_frac: float = 0.005, hold_enabled=None):
+             hold_min: int = 0, hold_frac: float = 0.005, hold_enabled=None,
+             edges=None, a_sq_e=None):
     """K4 on the card: ``n_iters`` damped Gauss-Newton iterations in one
     launch.  ``prior`` is None or (q f32[4], t f32[3], information f32[6],
-    enabled bool[]); ``hold_min`` > 0 arms the axis hold.  Returns
-    (q f32[4], t f32[3], first_small bool[]) (see csrc/normal_system.cu)."""
+    enabled bool[]); ``hold_min`` > 0 arms the axis hold; ``edges`` is None
+    or the edge rows (p_body, a, b, coeff, valid) with Tukey support
+    ``a_sq_e``.  Returns (q f32[4], t f32[3], first_small bool[]) (see
+    csrc/normal_system.cu)."""
     if n_iters < 1:
         raise ValueError("gn_solve: n_iters must be >= 1 (n_iters = 0 is "
                          "normal_system)")
@@ -388,7 +471,8 @@ def gn_solve(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
     rc = _gn_launch((p_body, normal, d, coeff, valid), q, t, a_sq, n_iters,
                     out, small, obs_bins=obs_bins, prior=prior,
                     hold_min=hold_min, hold_frac=hold_frac,
-                    hold_enabled=hold_enabled, damping=damping)
+                    hold_enabled=hold_enabled, damping=damping,
+                    edges=edges, a_sq_e=a_sq_e)
     _launched("gn_solve", rc)
     return out[:4], out[4:], small
 

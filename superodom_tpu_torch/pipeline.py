@@ -2,15 +2,17 @@
 (state', output)`` (counterpart of ``superodom_tpu.pipeline``).
 
 One scan runs, in order: feature gates, scan thinning and even-rate
-compaction, IMU undistortion with the constant-velocity and
+compaction, with ``use_edge_features`` curvature edges (K11a) and their
+voxel thinning, IMU undistortion with the constant-velocity and
 translation de-skews, prediction-source selection, scan-to-map ICP, motion
-gates, map insert and eviction, and the inertial smoother.  Decisions that
+gates, map insert and eviction (the edge map's too), and the inertial
+smoother.  Decisions that
 JAX makes with ``jnp.where`` stay device-side selections here, so a step
 waits on the host only for the ICP early-exit flag and, where a map
 cadence is not 1, for the frame count.
 
 The step is pure: it never modifies ``state``.  The static branches that
-are not ported yet (edge features, VIO undistortion, LIO prediction) raise
+are not ported yet (VIO undistortion, LIO prediction) raise
 NotImplementedError.
 """
 
@@ -25,6 +27,7 @@ from superodom_tpu_torch.config import MapConfig, PipelineConfig, RuntimeParams
 from superodom_tpu_torch.frontend import (
     ImuWindow,
     Scan,
+    curvature_edge_extraction,
     decimated_width,
     thin_and_select,
     undistort_points,
@@ -291,8 +294,6 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
          ) -> Tuple[OdomState, StepOutput]:
     """Process one scan end to end (laserMapping::process with the feature
     extraction ahead of it and the inertial smoother after it)."""
-    if cfg.use_edge_features:
-        raise NotImplementedError("edge features are not ported yet")
     if cfg.use_vio_undistortion:
         raise NotImplementedError("VIO undistortion is not ported yet")
     if cfg.enable_lio_prediction:
@@ -310,6 +311,10 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
     # ---------------- frontend: extract features, then undistort ----------
     stage("frontend")
     if scan.xyz.shape[0] < sensor.max_points:  # host-decimated layout
+        if cfg.use_edge_features:
+            raise ValueError(
+                "edge extraction needs the full ring-major cloud; pass "
+                "full-width scans when use_edge_features=True")
         w = decimated_width(sensor.max_points, sensor.filter_point_size)
         if scan.xyz.shape[0] != w:
             raise ValueError(
@@ -361,10 +366,35 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
         tr = torch.where(surf_mask[:, None],
                          surf_trel[:, None] * v_b[None, :], 0.0)
         surf_pts = torch.where(use_trans, surf_u + tr, surf_pts)
-    edge_pts = torch.zeros((sensor.max_edge_features, 3), dtype=dtype,
-                           device=dev)
-    edge_mask = torch.zeros((sensor.max_edge_features,), dtype=torch.bool,
-                            device=dev)
+    if cfg.use_edge_features:
+        # curvature edges over every raw lane, voxel-thinned at line_res
+        # after an even-rate compaction to compact_width // 2 lanes
+        em_full = curvature_edge_extraction(
+            scan.xyz, scan.ring, scan.mask,
+            curvature_threshold=cfg.edge_curvature_threshold,
+            min_range=sensor.min_range)
+        edge_raw, edge_mask, edge_trel = thin_and_select(
+            scan.xyz, em_full, rt.line_res, sensor.max_edge_features,
+            sensor.compact_width // 2, scan.t_rel)
+        edge_u, _, _ = undistort_points(
+            edge_raw, edge_trel, edge_mask, scan.t_start, imu, R_il, t_il)
+        edge_pts = torch.where(imu_available, edge_u, edge_raw)
+        if cfg.use_cv_undistortion:
+            se = (edge_trel / nominal)[:, None]
+            cv_e = quat_rotate(so3_exp(se * rot_vec[None, :]), edge_raw) \
+                + se * rel.t[None, :]
+            cv_e = torch.where(edge_mask[:, None], cv_e, edge_raw)
+            edge_pts = torch.where(use_cv, cv_e, edge_pts)
+        if cfg.use_translation_deskew:
+            tr_e = torch.where(edge_mask[:, None],
+                               edge_trel[:, None] * v_b[None, :], 0.0)
+            edge_pts = torch.where(use_trans, edge_u + tr_e, edge_pts)
+    else:
+        # slim-release parity: empty edge clouds (featureExtraction.cpp:429)
+        edge_pts = torch.zeros((sensor.max_edge_features, 3), dtype=dtype,
+                               device=dev)
+        edge_mask = torch.zeros((sensor.max_edge_features,),
+                                dtype=torch.bool, device=dev)
 
     # ---------------- prediction ------------------------------------------
     stage("prediction")
@@ -391,9 +421,14 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
         state.frame_count <= cfg.startup_frames)
     reg_pose, icp_stats = icp_register(
         state.edge_map, state.surf_map, cfg.map, reg, pred_pose, edge_pts,
-        edge_mask, surf_pts, surf_mask, rt, prior, use_edges=False,
-        hold_enabled=hold_enabled)
-    enough_matches = icp_stats.plane_rejection_hist[0] >= reg.min_plane_matches
+        edge_mask, surf_pts, surf_mask, rt, prior,
+        use_edges=cfg.use_edge_features, hold_enabled=hold_enabled)
+    # accepted correspondences: the planes' successes, and the lines' with
+    # edges on
+    n_matches = icp_stats.plane_rejection_hist[0]
+    if cfg.use_edge_features:
+        n_matches = n_matches + icp_stats.line_rejection_hist[0]
+    enough_matches = n_matches >= reg.min_plane_matches
     run_icp = state.initialized & enough & enough_matches
     pose = _where_pose(run_icp, reg_pose, pred_pose)
     finite = torch.all(torch.isfinite(pose.t)) & torch.all(
@@ -435,12 +470,17 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
         do_insert = (cfg.map.insert_cadence == 1
                      or frame % cfg.map.insert_cadence == 0 or frame < 8)
         do_evict = frame % cfg.map.evict_cadence == 0
-    surf_map = state.surf_map
+    surf_map, edge_map = state.surf_map, state.edge_map
     if do_insert:
         surf_map = insert(surf_map, cfg.map, pose.apply(surf_pts),
                           surf_mask & do_update_map, rt.plane_res)
+        if cfg.use_edge_features:
+            edge_map = insert(edge_map, cfg.map, pose.apply(edge_pts),
+                              edge_mask & do_update_map, rt.line_res)
     if do_evict:
         surf_map = evict_far(surf_map, cfg.map, pose.t)
+        if cfg.use_edge_features:
+            edge_map = evict_far(edge_map, cfg.map, pose.t)
 
     # ---------------- inertial smoother -----------------------------------
     stage("smoother")
@@ -470,7 +510,7 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
         frame_count=state.frame_count + 1,
         last_time=t_start,
         rt=rt,
-        edge_map=state.edge_map,
+        edge_map=edge_map,
         surf_map=surf_map,
         smoother=smoother,
         degenerate=icp_stats.degenerate & run_icp,

@@ -1,12 +1,13 @@
 """Where a step's time goes on the GPU, by stage.
 
     python -m superodom_tpu_torch.profile [--profile os1_128] [--parity]
-                                          [--scans 40] [--warm 20]
-                                          [--trace FILE]
+                                          [--edges] [--scans 40]
+                                          [--warm 20] [--trace FILE]
 
 Replays the replay benchmark's dataset (seed 7, the chosen sensor's full
 scan width; its ship configuration, or with ``--parity`` its
-reference-envelope one) through ``OdometryRunner`` on cuda: ``--warm`` scans unprofiled,
+reference-envelope one; ``--edges`` turns curvature edges on, so that
+``--parity --edges`` is path E) through ``OdometryRunner`` on cuda: ``--warm`` scans unprofiled,
 then the rest under ``torch.profiler``.  Prints one JSON line with, per
 stage range of :func:`pipeline.step` ("step.frontend", ...), the host
 wall time inside it (ms per scan), the top device kernels, and the
@@ -17,6 +18,7 @@ device's busy share (kernel time over the profiled wall time).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -31,6 +33,9 @@ def main(argv=None):
     ap.add_argument("--profile", default="os1_128", choices=PROFILES)
     ap.add_argument("--parity", action="store_true",
                     help="the reference-envelope configuration")
+    ap.add_argument("--edges", action="store_true",
+                    help="curvature edge features on (the replay's rings "
+                         "are all zeros, as the runner sends them)")
     ap.add_argument("--scans", type=int, default=40)
     ap.add_argument("--warm", type=int, default=20)
     ap.add_argument("--trace", help="write the Chrome trace here")
@@ -43,6 +48,8 @@ def main(argv=None):
     from superodom_tpu_torch.runner import OdometryRunner
 
     cfg = config_for(args.profile, args.parity)
+    if args.edges:
+        cfg = dataclasses.replace(cfg, use_edge_features=True)
     ds = make_dataset(np.random.default_rng(7), n_scans=args.scans,
                       points_per_scan=cfg.sensor.max_points,
                       world=BoxWorld(half_extent=np.array([40.0, 30.0, 8.0])),
@@ -96,6 +103,7 @@ def main(argv=None):
         "card": torch.cuda.get_device_name(0),
         "profile": args.profile,
         "parity": args.parity,
+        "edges": args.edges,
         "scans_profiled": n,
         "wall_ms_per_scan": wall * 1e3 / n,
         "device_busy_share": busy,

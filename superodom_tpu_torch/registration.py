@@ -1,15 +1,16 @@
-"""Scan-to-map registration, plane path (counterpart of
-``superodom_tpu.registration``).
+"""Scan-to-map registration (counterpart of ``superodom_tpu.registration``).
 
 Correspondences: the octant slots of every feature are looked up once at
 the predicted pose (K1, :func:`mapstate.octant_lookup`); each ICP round
 re-selects the k nearest map points at the current pose (K2,
 :func:`mapstate.knn_select`) and fits planes to them (K3,
-:func:`plane_fit`).  The round's whole damped Gauss-Newton solve — robust
-normal system, pose-prior diagonal, 6x6 Cholesky solve, axis hold and
-SE(3) retraction, every iteration — is one launch of K4
-(:func:`gauss_newton_solve`); its ``n_iters = 0`` mode gives the final
-normal system (:func:`normal_system`).  ``plane_fit_reference``,
+:func:`plane_fit`) and, with edges on (``use_edges``), lines to the edge
+map's (K11b, :func:`edge_fit`).  The round's whole damped Gauss-Newton
+solve — robust normal system of the planes and lines, pose-prior
+diagonal, 6x6 Cholesky solve, axis hold and SE(3) retraction, every
+iteration — is one launch of K4 (:func:`gauss_newton_solve`); its
+``n_iters = 0`` mode gives the final normal system
+(:func:`normal_system`).  ``plane_fit_reference``, ``edge_fit_reference``,
 ``gauss_newton_solve_reference`` and ``normal_system_reference`` are the
 plain versions the CPU takes.
 
@@ -17,10 +18,8 @@ Candidate refresh (``RegistrationConfig.refresh_width`` = W > 0): after
 round 1 the W nearest candidates of every feature at the once-corrected
 pose are materialised once (K9a, :func:`mapstate.reduce_candidates`), and
 the later rounds select their neighbours from those W lanes (K9b,
-:func:`mapstate.select_knn_reduced`) instead of the 8*C gathered ones.
-
-The edge path (use_edges) is not ported yet and raises
-NotImplementedError.
+:func:`mapstate.select_knn_reduced`) instead of the 8*C gathered ones; the
+edges' half reduces to max(W, 2 * edge_knn) lanes.
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from superodom_tpu_torch.geometry import (
     quat_conj,
     quat_mul,
     quat_rotate,
+    skew,
 )
 from superodom_tpu_torch.mapstate import (
     ReducedCandidates,
@@ -73,6 +73,17 @@ class PlaneCorrs(NamedTuple):
     valid: torch.Tensor  # bool[M]
     code: torch.Tensor  # i32[M] MatchingResult
     obs_bins: torch.Tensor  # i32[M,3] observability histogram contributions
+
+
+class EdgeCorrs(NamedTuple):
+    """Point-to-line correspondences (fixed width = n edge features)."""
+
+    p_body: torch.Tensor  # f32[M,3]
+    a: torch.Tensor  # f32[M,3] line endpoint A (world)
+    b: torch.Tensor  # f32[M,3] line endpoint B (world)
+    coeff: torch.Tensor  # f32[M] fit-quality weight
+    valid: torch.Tensor  # bool[M]
+    code: torch.Tensor  # i32[M] MatchingResult
 
 
 class PosePrior(NamedTuple):
@@ -280,6 +291,153 @@ def plane_correspondences_from_reduced(red: ReducedCandidates,
 
 
 # ---------------------------------------------------------------------------
+# K11b: edge (line) fit
+# ---------------------------------------------------------------------------
+
+
+def _edge_consensus(neigh, nvalid, max_dist_inlier):
+    """The line-inlier consensus of ``_edge_fit``: for each candidate line
+    through the nearest neighbour and neighbour j+1, the inliers among
+    neighbours 1..k-1 (strictly within ``max_dist_inlier``, or j itself;
+    both lanes valid); the first line with the most inliers wins.  Returns
+    (sel_full bool[M,k]: the nearest neighbour if valid and the winner's
+    inliers; dist_sq f32[M,k-1,k-1], pair[M,k-1,k-1]: both lanes valid)."""
+    p1 = neigh[:, 0, :]
+    rel = neigh[:, 1:, :] - p1[:, None, :]
+    rest_valid = nvalid[:, 1:]
+    dirs = rel / torch.clamp_min(torch.sqrt(_dot(rel, rel)), 1e-12)[..., None]
+    c = _cross(rel[:, None, :, :], dirs[:, :, None, :])  # [M, j, c, 3]
+    dist_sq = _dot(c, c)
+    pair = rest_valid[:, None, :] & rest_valid[:, :, None]
+    eye = torch.eye(rel.shape[1], dtype=torch.bool, device=neigh.device)
+    is_inlier = ((dist_sq < max_dist_inlier ** 2) | eye[None]) & pair
+    counts = torch.sum(is_inlier.to(torch.int32), dim=-1)
+    best_j = torch.argmax(counts, dim=-1)  # the first maximum
+    sel = torch.gather(is_inlier, 1, best_j[:, None, None].expand(
+        -1, 1, is_inlier.shape[2]))[:, 0, :]
+    return torch.cat([nvalid[:, :1], sel], dim=-1), dist_sq, pair
+
+
+def _edge_line_fit(neigh, sel_full):
+    """Mean, eigenvalues and line direction (largest eigenvector) of the
+    selected neighbours, and each neighbour's squared distance to the
+    line."""
+    mean, evals, evecs = _weighted_pca(neigh, sel_full.to(neigh.dtype))
+    line_dir = evecs[:, :, 2]
+    relm = neigh - mean[:, None, :]
+    along = _dot(relm, line_dir[:, None, :])
+    perp_sq = _dot(relm, relm) - along * along
+    return mean, evals, line_dir, perp_sq
+
+
+def edge_fit_reference(neigh, sq, nvalid, mask, line_res,
+                       min_neighbors: int, max_dist_inlier: float):
+    """Plain version of K11b (``_edge_fit`` + ``_weighted_pca`` + ``eigh3``):
+    the line-inlier consensus, the PCA line fit and the reference's gates.
+    Returns (a f32[M,3], b f32[M,3], coeff f32[M] (0 where not valid),
+    valid bool[M], code i32[M]).  Neighbour lanes that are not valid (the
+    BIG sentinel, or a point of table row 0) are dropped by selects, not by
+    zero products (inf * 0 is NaN)."""
+    m = sq.shape[0]
+    sel_full, _, _ = _edge_consensus(neigh, nvalid, max_dist_inlier)
+    n_sel = _seq_sum(sel_full.to(torch.int32))
+    enough = n_sel >= min_neighbors
+    max_sq = 3.0 * line_res
+    far_gate = torch.amax(torch.where(sel_full, sq, -torch.inf),
+                          dim=-1) <= max_sq
+    mean, evals, line_dir, perp_sq = _edge_line_fit(neigh, sel_full)
+    pca_ok = evals[:, 2] >= min_neighbors * evals[:, 1]
+    mse_ok = torch.all(torch.where(sel_full, perp_sq <= max_sq, True), dim=-1)
+    mean_sq = _seq_sum(torch.where(sel_full, perp_sq, 0.0)) \
+        / torch.clamp_min(n_sel.to(neigh.dtype), 1.0)
+    coeff = 1.0 - torch.sqrt(torch.clamp(mean_sq / max_sq, 0.0, 1.0))
+    valid = mask & enough & far_gate & pca_ok & mse_ok
+
+    code = torch.full((m,), MATCH_SUCCESS, dtype=torch.int32,
+                      device=neigh.device)
+    for ok, c in ((mse_ok, MATCH_MSE_TOO_LARGE),
+                  (pca_ok, MATCH_BAD_PCA_STRUCTURE),
+                  (far_gate, MATCH_NEIGHBORS_TOO_FAR),
+                  (enough, MATCH_NOT_ENOUGH_NEIGHBORS)):
+        code = torch.where(ok, code, c)
+    code = torch.where(mask, code, MATCH_UNKNOWN).to(torch.int32)
+    return (mean + 0.1 * line_dir, mean - 0.1 * line_dir,
+            torch.where(valid, coeff, 0.0), valid, code)
+
+
+def edge_gate_margin_lanes(neigh, sq, nvalid, line_res, min_neighbors: int,
+                           max_dist_inlier: float, eps=1e-5):
+    """Lanes whose edge-fit decision lies within ``eps`` (relative) of a
+    gate threshold, where two correct versions of K11b may round to
+    different codes: an inlier distance at ``max_dist_inlier``^2, the far
+    gate, the PCA ratio and the MSE gate.  Used when a kernel or the JAX
+    package is compared with the plain version."""
+    sel_full, dist_sq, pair = _edge_consensus(neigh, nvalid, max_dist_inlier)
+    thresh = max_dist_inlier ** 2
+    near = ((dist_sq - thresh).abs() <= eps * thresh) & pair
+    near = near.flatten(1).any(dim=1)
+    max_sq = 3.0 * line_res
+    far = torch.amax(torch.where(sel_full, sq, -torch.inf), dim=-1)
+    near |= (far - max_sq).abs() <= eps * max_sq
+    _, evals, _, perp_sq = _edge_line_fit(neigh, sel_full)
+    top = evals[:, 2].abs().clamp_min(1e-30)
+    near |= (evals[:, 2] - min_neighbors * evals[:, 1]).abs() <= eps * top
+    worst = torch.where(sel_full, perp_sq, -torch.inf).amax(dim=-1)
+    near |= (worst - max_sq).abs() <= eps * max_sq
+    return near
+
+
+def edge_fit(neigh, sq, nvalid, mask, line_res, min_neighbors: int,
+             max_dist_inlier: float):
+    """K11b: see :func:`edge_fit_reference` for the contract."""
+    if neigh.is_cuda:
+        return kernels.edge_fit(neigh, sq, nvalid, mask, line_res,
+                                min_neighbors, max_dist_inlier)
+    if neigh.device.type == "cpu":
+        return edge_fit_reference(neigh, sq, nvalid, mask, line_res,
+                                  min_neighbors, max_dist_inlier)
+    raise ValueError(f"edge_fit: unsupported device {neigh.device}")
+
+
+def _edge_fit(neigh, sq, nvalid, reg: RegistrationConfig, p_body, mask,
+              line_res) -> EdgeCorrs:
+    """Line-inlier consensus + PCA line fit + gates over selected
+    neighbourhoods (ComputeLineDistanceParameters +
+    nearestKSearchSpecificEdgePoint, LidarSlam.cpp:402-493,
+    LocalMap.h:377-474)."""
+    a, b, coeff, valid, code = edge_fit(
+        neigh.contiguous(), sq.contiguous(), nvalid.contiguous(),
+        mask.contiguous(), line_res, reg.min_edge_neighbors,
+        reg.edge_max_dist_inlier)
+    return EdgeCorrs(p_body=p_body, a=a, b=b, coeff=coeff, valid=valid,
+                     code=code)
+
+
+def edge_correspondences_from_candidates(pts, slots, reg: RegistrationConfig,
+                                         pose: Pose, p_body, mask, line_res,
+                                         w_pt=None) -> EdgeCorrs:
+    """Edge correspondences selected at full width from the octant slots
+    ``slots`` of the edge map's point table ``pts`` (K2 at k = edge_knn);
+    ``w_pt`` = the features at ``pose`` where the caller has them."""
+    if w_pt is None:
+        w_pt = pose.apply(p_body).contiguous()
+    neigh, sq, nvalid, _ = knn_select(pts, slots, w_pt, reg.edge_knn)
+    return _edge_fit(neigh, sq, nvalid, reg, p_body, mask, line_res)
+
+
+def edge_correspondences_from_reduced(red: ReducedCandidates,
+                                      reg: RegistrationConfig, pose: Pose,
+                                      p_body, mask, line_res,
+                                      w_pt=None) -> EdgeCorrs:
+    """Edge correspondences selected from a once-materialised top-W
+    candidate subset (the ICP refresh rounds)."""
+    if w_pt is None:
+        w_pt = pose.apply(p_body).contiguous()
+    neigh, sq, nvalid = select_knn_reduced(red, w_pt, reg.edge_knn)
+    return _edge_fit(neigh, sq, nvalid, reg, p_body, mask, line_res)
+
+
+# ---------------------------------------------------------------------------
 # K4: robust normal system
 # ---------------------------------------------------------------------------
 
@@ -290,51 +448,79 @@ def _tukey_weight(sq_res, a_sq):
     return torch.where(ratio < 1.0, (1.0 - ratio) ** 2, 0.0)
 
 
-def normal_system_reference(p_body, normal, d, coeff, valid, q, t, a_sq):
+def normal_system_reference(p_body, normal, d, coeff, valid, q, t, a_sq,
+                            edges=None, a_sq_e=None):
     """Plain version of K4: (H f32[6,6], g f32[6], cost f32[]) of the
     point-to-plane residuals n.(Rp+t)+d with Jacobian [n, (Rp+t) x n] and
-    weight valid * coeff * Tukey(r^2; a_sq)."""
+    weight valid * coeff * Tukey(r^2; a_sq), plus, with ``edges`` = (p_body,
+    a, b, coeff, valid), the point-to-line residuals (we-a) x (we-b) / |a-b|
+    (we = Rp+t) with Jacobian skew(-(a-b)/|a-b|) [I, -skew(we)] and weight
+    valid * coeff * Tukey(|r|^2; a_sq_e)."""
     wp = quat_rotate(q, p_body) + t
     r = _dot(normal, wp) + d
     J = torch.cat([normal, _cross(wp, normal)], dim=-1)
     w = valid.to(p_body.dtype) * coeff * _tukey_weight(r * r, a_sq)
     H = torch.einsum("m,mi,mj->ij", w, J, J)
     g = torch.einsum("m,mi,m->i", w, J, r)
-    return H, g, torch.sum(w * r * r)
+    cost = torch.sum(w * r * r)
+    if edges is not None:
+        e_p, e_a, e_b, e_c, e_v = edges
+        we = quat_rotate(q, e_p) + t
+        d_ab = e_a - e_b
+        d_norm = torch.clamp_min(torch.sqrt(_dot(d_ab, d_ab)), 1e-9)[:, None]
+        r_e = _cross(we - e_a, we - e_b) / d_norm
+        L = skew(-d_ab / d_norm)
+        eye = torch.eye(3, dtype=we.dtype, device=we.device)
+        Jw = torch.cat([eye.expand(L.shape), -skew(we)], dim=-1)
+        J_e = torch.einsum("mij,mjk->mik", L, Jw)
+        sq_e = _dot(r_e, r_e)
+        w_e = e_v.to(we.dtype) * e_c * _tukey_weight(sq_e, a_sq_e)
+        H = H + torch.einsum("m,mri,mrj->ij", w_e, J_e, J_e)
+        g = g + torch.einsum("m,mri,mr->i", w_e, J_e, r_e)
+        cost = cost + torch.sum(w_e * sq_e)
+    return H, g, cost
 
 
-def normal_system(p_body, normal, d, coeff, valid, q, t, a_sq):
+def normal_system(p_body, normal, d, coeff, valid, q, t, a_sq, edges=None,
+                  a_sq_e=None):
     """K4 (n_iters = 0 mode): see :func:`normal_system_reference` for the
     contract."""
     if p_body.is_cuda:
         return kernels.normal_system(p_body, normal, d, coeff, valid, q, t,
-                                     a_sq)
+                                     a_sq, edges, a_sq_e)
     if p_body.device.type == "cpu":
         return normal_system_reference(p_body, normal, d, coeff, valid, q, t,
-                                       a_sq)
+                                       a_sq, edges, a_sq_e)
     raise ValueError(f"normal_system: unsupported device {p_body.device}")
 
 
-def _tukey_support(rt: RuntimeParams, a_mult, like: torch.Tensor):
-    """a^2 of the Tukey loss: 3 * plane_res * a_mult, a 0-d tensor."""
-    return torch.as_tensor(3.0 * rt.plane_res * a_mult, dtype=like.dtype,
+def _tukey_support(res, a_mult, like: torch.Tensor):
+    """a^2 of the Tukey loss: 3 * res * a_mult (res = plane_res for planes,
+    line_res for edges), a 0-d tensor."""
+    return torch.as_tensor(3.0 * res * a_mult, dtype=like.dtype,
                            device=like.device)
+
+
+def _edge_rows(edges: EdgeCorrs):
+    return tuple(x.contiguous() for x in (edges.p_body, edges.a, edges.b,
+                                          edges.coeff, edges.valid))
 
 
 def _accumulate_normal_system(pose: Pose, planes: PlaneCorrs, edges,
                               rt: RuntimeParams, prior: Optional[PosePrior],
                               use_edges: bool = False, a_mult=1.0,
                               system=normal_system):
-    """H (6x6), g (6,) and cost of all correspondences at the current pose,
-    plus the absolute pose prior's diagonal.  ``system`` computes the
-    correspondences' part: the dispatching K4, or its plain version."""
-    if use_edges:
-        raise NotImplementedError("the edge path is not ported yet")
+    """H (6x6), g (6,) and cost of all correspondences at the current pose
+    (the lines' too with ``use_edges``), plus the absolute pose prior's
+    diagonal.  ``system`` computes the correspondences' part: the
+    dispatching K4, or its plain version."""
     H, g, cost = system(
         planes.p_body.contiguous(), planes.normal.contiguous(),
         planes.d.contiguous(), planes.coeff.contiguous(),
         planes.valid.contiguous(), pose.q.contiguous(), pose.t.contiguous(),
-        _tukey_support(rt, a_mult, pose.t))
+        _tukey_support(rt.plane_res, a_mult, pose.t),
+        _edge_rows(edges) if use_edges else None,
+        _tukey_support(rt.line_res, a_mult, pose.t) if use_edges else None)
     if prior is not None:
         r_t = pose.t - prior.pose.t
         dq = quat_mul(quat_conj(prior.pose.q), pose.q)
@@ -347,16 +533,30 @@ def _accumulate_normal_system(pose: Pose, planes: PlaneCorrs, edges,
 
 def axis_hold_mask(planes: PlaneCorrs, axis_hold_min: int,
                    axis_hold_frac: float, prior: Optional[PosePrior] = None,
-                   hold_enabled=None) -> torch.Tensor:
-    """bool[3]: the body translation axes whose dominant-normal vote count
-    (``obs_bins[:, 2] - 6`` over valid correspondences) falls below
+                   hold_enabled=None, edges: Optional[EdgeCorrs] = None,
+                   q=None) -> torch.Tensor:
+    """bool[3]: the body translation axes whose vote count falls below
     min(axis_hold_min, max(1, axis_hold_frac * n_valid)); disarmed by
-    ``hold_enabled`` False or an enabled prior."""
+    ``hold_enabled`` False or an enabled prior.  A valid plane votes for its
+    dominant-normal axis (``obs_bins[:, 2] - 6``); with ``edges``, a valid
+    line votes for every body axis of ``q`` (the round's start pose) at
+    more than 45 degrees to it (1 - (d.axis)^2 > 0.5), and counts in
+    n_valid."""
     dtype, dev = planes.p_body.dtype, planes.p_body.device
     votes = planes.obs_bins[:, 2] - 6  # top translation axis per corr
     cnt = torch.sum((votes[:, None] == torch.arange(3, device=dev)[None])
                     & planes.valid[:, None], dim=0).to(dtype)
     n_valid = torch.sum(planes.valid).to(dtype)
+    if edges is not None:
+        dvec = edges.a - edges.b
+        dvec = dvec / torch.clamp_min(torch.sqrt(_dot(dvec, dvec)),
+                                      1e-12)[:, None]
+        axes = _body_axes(q)
+        sin2 = 1.0 - torch.stack([_dot(dvec, axes[i]) for i in range(3)],
+                                 dim=-1) ** 2
+        cnt = cnt + torch.sum((sin2 > 0.5) & edges.valid[:, None],
+                              dim=0).to(dtype)
+        n_valid = n_valid + torch.sum(edges.valid).to(dtype)
     thresh = torch.clamp_max(torch.clamp_min(axis_hold_frac * n_valid, 1.0),
                              float(axis_hold_min))
     hold = cnt < thresh  # bool[3], body axes
@@ -376,21 +576,23 @@ def gauss_newton_solve(pose: Pose, planes: PlaneCorrs, edges,
     """Fixed-count damped Gauss-Newton on SE(3) with IRLS robust weights
     and the per-axis match-count hold (see the JAX package's docstring).
     Returns (pose, converged_in_one).  On CUDA tensors all ``n_iters``
-    iterations run in one launch of K4 (``kernels.gn_solve``); on the CPU
-    the plain :func:`gauss_newton_solve_reference`."""
-    if use_edges:
-        raise NotImplementedError("the edge path is not ported yet")
+    iterations run in one launch of K4 (``kernels.gn_solve``), the lines'
+    rows (``use_edges``) beside the planes'; on the CPU the plain
+    :func:`gauss_newton_solve_reference`."""
     if pose.t.is_cuda:
         q, t, first_small = kernels.gn_solve(
             planes.p_body.contiguous(), planes.normal.contiguous(),
             planes.d.contiguous(), planes.coeff.contiguous(),
             planes.valid.contiguous(), planes.obs_bins.contiguous(),
             pose.q.contiguous(), pose.t.contiguous(),
-            _tukey_support(rt, a_mult, pose.t), n_iters, damping,
+            _tukey_support(rt.plane_res, a_mult, pose.t), n_iters, damping,
             None if prior is None else tuple(
                 x.contiguous() for x in (prior.pose.q, prior.pose.t,
                                          prior.information, prior.enabled)),
-            axis_hold_min, axis_hold_frac, hold_enabled)
+            axis_hold_min, axis_hold_frac, hold_enabled,
+            _edge_rows(edges) if use_edges else None,
+            _tukey_support(rt.line_res, a_mult, pose.t) if use_edges
+            else None)
         return Pose(q, t), first_small
     if pose.t.device.type == "cpu":
         return gauss_newton_solve_reference(
@@ -409,14 +611,13 @@ def gauss_newton_solve_reference(pose: Pose, planes: PlaneCorrs, edges,
                                  hold_enabled=None):
     """Plain version of K4's solve: the GN loop in PyTorch ops over
     :func:`normal_system_reference` (never the kernel, on any device)."""
-    if use_edges:
-        raise NotImplementedError("the edge path is not ported yet")
     dtype, dev = pose.t.dtype, pose.t.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     hold = None
     if axis_hold_min > 0:
         hold = axis_hold_mask(planes, axis_hold_min, axis_hold_frac, prior,
-                              hold_enabled)
+                              hold_enabled, edges if use_edges else None,
+                              pose.q)
 
     p = pose
     first_small = None
@@ -514,9 +715,11 @@ class _Carry(NamedTuple):
     converged: torch.Tensor  # bool
     it: torch.Tensor  # i32 live rounds so far
     planes: Optional[PlaneCorrs]
+    lines: Optional[EdgeCorrs]
     t_norms: torch.Tensor
     r_norms: torch.Tensor
     surf_ns: torch.Tensor
+    edge_ns: torch.Tensor
 
 
 def icp_register(
@@ -538,40 +741,52 @@ def icp_register(
     LidarSlam.cpp:107-152): outer rounds of correspondence extraction +
     robust GN, a convergence mask freezing a finished solve.
 
-    The octant slots are looked up ONCE at the predicted pose and every
-    round re-selects from them.  Round 1 always runs, at full width.  With
+    The octant slots are looked up ONCE at the predicted pose (in the
+    surface map, and with ``use_edges`` in the edge map) and every round
+    re-selects from them.  Round 1 always runs, at full width.  With
     ``icp_early_exit`` each further round runs only while the solve has
     not converged — one host read of the converged flag per round, the
     eager counterpart of the JAX ``while_loop``; without it every round
     runs with the converged solve frozen (the JAX ``scan``).  With
     ``refresh_width`` > 0 the candidates are reduced once at the round-1
-    pose, just after the read that lets round 2 run (a scan that converged
-    in round 1 skips the reduction, as the JAX ``cond`` does), and rounds
-    2.. select from the reduced set."""
-    if use_edges:
-        raise NotImplementedError("the edge path is not ported yet")
+    pose (the edges' to max(W, 2 * edge_knn) lanes), just after the read
+    that lets round 2 run (a scan that converged in round 1 skips the
+    reduction, as the JAX ``cond`` does), and rounds 2.. select from the
+    reduced sets."""
     max_it = reg.max_icp_iters
     dtype, dev = surf_pts.dtype, surf_pts.device
     surf_pts = surf_pts.contiguous()
+    edge_pts = edge_pts.contiguous()
 
     w_pt0 = pose0.apply(surf_pts).contiguous()
     slots = octant_lookup(surf_map.keys, w_pt0, map_cfg.cell_size)
+    if use_edges:
+        e_pt0 = pose0.apply(edge_pts).contiguous()
+        e_slots = octant_lookup(edge_map.keys, e_pt0, map_cfg.cell_size)
 
-    def correspondences(pose: Pose, w_pt) -> PlaneCorrs:
-        """Full-width extraction; ``w_pt`` = the features at ``pose``."""
+    def correspondences(pose: Pose, w_pt, e_pt):
+        """Full-width extraction; ``w_pt`` / ``e_pt`` = the features at
+        ``pose``."""
         neigh, sq, nvalid, _ = knn_select(surf_map.pts, slots, w_pt,
                                           reg.plane_knn)
-        return _plane_fit(neigh, sq, nvalid, reg, pose, surf_pts, surf_mask,
-                          rt.plane_res, w_pt)
+        planes = _plane_fit(neigh, sq, nvalid, reg, pose, surf_pts, surf_mask,
+                            rt.plane_res, w_pt)
+        lines = edge_correspondences_from_candidates(
+            edge_map.pts, e_slots, reg, pose, edge_pts, edge_mask,
+            rt.line_res, e_pt) if use_edges else None
+        return planes, lines
 
     rounds = torch.arange(max_it, device=dev)
 
-    def icp_round(c: _Carry, planes: PlaneCorrs) -> _Carry:
+    def n_valid(corrs):
+        return torch.sum(corrs.valid.to(torch.int32)).to(torch.int32)
+
+    def icp_round(c: _Carry, planes: PlaneCorrs, lines) -> _Carry:
         """One round from ``c`` on the correspondences extracted at
         ``c.pose``."""
         new_pose, one_step = gauss_newton_solve(
-            c.pose, planes, None, rt, reg.max_gn_iters, prior,
-            use_edges=False, a_mult=anneal_mult(reg, c.it, dtype),
+            c.pose, planes, lines, rt, reg.max_gn_iters, prior,
+            use_edges=use_edges, a_mult=anneal_mult(reg, c.it, dtype),
             axis_hold_min=reg.axis_hold_min_matches,
             axis_hold_frac=reg.axis_hold_frac, hold_enabled=hold_enabled)
         new_pose = Pose(*(torch.where(c.converged, o, n)
@@ -581,42 +796,51 @@ def icp_register(
         rel_r = 2.0 * torch.atan2(torch.linalg.norm(dq[1:4]), torch.abs(dq[0]))
         live = ~c.converged
         at = (rounds == torch.clamp_max(c.it, max_it - 1)) & live
-        n_valid = torch.sum(planes.valid.to(torch.int32)).to(torch.int32)
         now_converged = c.converged | one_step | (
             (rel_t < reg.trans_converge_tol) & (rel_r < reg.rot_converge_tol))
         return _Carry(
             pose=new_pose, converged=now_converged,
-            it=c.it + live.to(torch.int32), planes=planes,
+            it=c.it + live.to(torch.int32), planes=planes, lines=lines,
             t_norms=torch.where(at, rel_t, c.t_norms),
             r_norms=torch.where(at, rel_r, c.r_norms),
-            surf_ns=torch.where(at, n_valid, c.surf_ns))
+            surf_ns=torch.where(at, n_valid(planes), c.surf_ns),
+            edge_ns=torch.where(at, n_valid(lines), c.edge_ns)
+            if use_edges else c.edge_ns)
 
+    zeros_i = torch.zeros((max_it,), dtype=torch.int32, device=dev)
     c = icp_round(_Carry(
         pose=pose0, converged=torch.zeros((), dtype=torch.bool, device=dev),
         it=torch.zeros((), dtype=torch.int32, device=dev), planes=None,
-        t_norms=torch.zeros((max_it,), dtype=dtype, device=dev),
+        lines=None, t_norms=torch.zeros((max_it,), dtype=dtype, device=dev),
         r_norms=torch.zeros((max_it,), dtype=dtype, device=dev),
-        surf_ns=torch.zeros((max_it,), dtype=torch.int32, device=dev)),
-        correspondences(pose0, w_pt0))
-    red = None  # the reduced candidates, made when round 2 is to run
+        surf_ns=zeros_i, edge_ns=zeros_i),
+        *correspondences(pose0, w_pt0, e_pt0 if use_edges else None))
+    red = red_e = None  # the reduced candidates, made when round 2 is to run
+    ew = max(reg.refresh_width, 2 * reg.edge_knn)
     for _ in range(max_it - 1):
         if reg.icp_early_exit and bool(c.converged):
             break
         w_pt = c.pose.apply(surf_pts).contiguous()
+        e_pt = c.pose.apply(edge_pts).contiguous() if use_edges else None
         if reg.refresh_width > 0:
             if red is None:
                 red = reduce_candidates(surf_map.pts, slots, w_pt,
                                         reg.refresh_width)
+                if use_edges:
+                    red_e = reduce_candidates(edge_map.pts, e_slots, e_pt, ew)
             planes = plane_correspondences_from_reduced(
                 red, reg, c.pose, surf_pts, surf_mask, rt.plane_res, w_pt)
+            lines = edge_correspondences_from_reduced(
+                red_e, reg, c.pose, edge_pts, edge_mask, rt.line_res,
+                e_pt) if use_edges else None
         else:
-            planes = correspondences(c.pose, w_pt)
-        c = icp_round(c, planes)
-    pose, planes, n_it = c.pose, c.planes, c.it
+            planes, lines = correspondences(c.pose, w_pt, e_pt)
+        c = icp_round(c, planes, lines)
+    pose, planes, lines, n_it = c.pose, c.planes, c.lines, c.it
 
     # one H at the final pose, at the last executed round's Tukey support
     H, _, _ = _accumulate_normal_system(
-        pose, planes, None, rt, prior, False,
+        pose, planes, lines, rt, prior, use_edges,
         anneal_mult(reg, torch.clamp_min(n_it - 1, 0), dtype))
     H_data = H
     if prior is not None:
@@ -627,13 +851,13 @@ def icp_register(
     obs_hist = _histogram(
         torch.where(planes.valid[:, None], planes.obs_bins, -1).reshape(-1),
         N_OBS_BINS)
-    line_codes = torch.full((edge_pts.shape[0],), MATCH_UNKNOWN,
-                            dtype=torch.int32, device=dev)
+    line_codes = lines.code if use_edges else torch.full(
+        (edge_pts.shape[0],), MATCH_UNKNOWN, dtype=torch.int32, device=dev)
     stats = IcpStats(
         iter_trans_norm=c.t_norms,
         iter_rot_norm=c.r_norms,
         iter_surf_num=c.surf_ns,
-        iter_edge_num=torch.zeros((max_it,), dtype=torch.int32, device=dev),
+        iter_edge_num=c.edge_ns,
         n_iterations=torch.sum((rounds < n_it).to(torch.int32)).to(
             torch.int32),
         plane_rejection_hist=_histogram(planes.code, N_REJECTION_CAUSES),

@@ -4,7 +4,8 @@ trajectories and per-scan statistics (counterpart of the per-scan half of
 
 IMU samples go through the native buffer (conditioning into the laser
 frame, static init, orientation chain); each scan is decimated on the host
-and shipped to the device as one Scan.  Chunked replay is not ported yet.
+(or, with edge features on, kept at full width with its rings) and
+shipped to the device as one Scan.  Chunked replay is not ported yet.
 """
 
 from __future__ import annotations
@@ -105,12 +106,15 @@ class OdometryRunner:
         )), ok
 
     # ---------------- scan processing --------------------------------------
-    def make_scan(self, t_start: float, xyz: np.ndarray,
-                  t_rel: np.ndarray) -> Scan:
+    def make_scan(self, t_start: float, xyz: np.ndarray, t_rel: np.ndarray,
+                  ring: Optional[np.ndarray] = None) -> Scan:
         """Pack a raw cloud into the Scan layout on the device.  With
-        ``filter_point_size > 1`` the stride selection and the duplicate
-        gate run here on the host, and only the ~N/stride candidate lanes
-        are uploaded."""
+        ``filter_point_size > 1`` and edge features off, the stride
+        selection and the duplicate gate run here on the host, and only the
+        ~N/stride candidate lanes are uploaded.  With edge features on the
+        full ring-major cloud ships (the curvature stencil needs the raw
+        neighbours), ``ring`` padded with zeros (all zeros when not
+        given)."""
         n_max = self.cfg.sensor.max_points
         stride = self.cfg.sensor.filter_point_size
         n = min(len(xyz), n_max)
@@ -119,7 +123,7 @@ class OdometryRunner:
         xyz_arr[:n] = xyz[:n]
         t_arr[:n] = t_rel[:n]
         mask = np.arange(n_max) < n
-        if stride > 1:
+        if stride > 1 and not self.cfg.use_edge_features:
             w = decimated_width(n_max, stride)
             cand = xyz_arr[1::stride][:w]
             prev = xyz_arr[0::stride][:w]
@@ -129,9 +133,12 @@ class OdometryRunner:
                         t_start=np.asarray(t_start, np.float32),
                         ring=np.zeros((w,), np.int32))
         else:
+            ring_arr = np.zeros((n_max,), np.int32)
+            if ring is not None:
+                ring_arr[:n] = ring[:n]
             scan = Scan(xyz=xyz_arr, t_rel=t_arr, mask=mask,
                         t_start=np.asarray(t_start, np.float32),
-                        ring=np.zeros((n_max,), np.int32))
+                        ring=ring_arr)
         return self._to_device(scan)
 
     def process_scan(self, t_start, xyz, t_rel) -> StepOutput:

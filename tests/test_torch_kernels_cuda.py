@@ -8,9 +8,14 @@ invalid, NaN and inf rows; the Gauss-Newton kernel at row counts that do not fil
 with the axis hold biting, an enabled prior, a non-finite system, and
 repeat runs; the candidate reduction and the selection from it over cell
 capacities, widths, k, query counts, rows with nothing valid and tied
-distances; the voxel claim over lane counts, table sizes, a resolution that
-changes on the device and repeat runs; replays of the three paths repeated
-over poisoned freed memory; and the wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
+distances; the voxel claim over lane counts, table sizes, a resolution
+that changes on the device and repeat runs; the curvature edges over
+wrapped lanes, ring boundaries, padded tails and NaN rows; the line fit
+over query counts, ties in the inlier count, rows with no or one valid
+neighbour and sentinel neighbours; the Gauss-Newton kernel with 0, 1 and
+512 edge rows beside 2,048 planes and the hold on edge votes alone;
+replays of the four paths repeated over poisoned freed memory; and the
+wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
 test skips.
 
 Run on the GPU machine (no JAX there, so without the JAX conftest):
@@ -23,11 +28,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from superodom_tpu_torch import kernels, mapstate, registration  # noqa: E402
+import dataclasses  # noqa: E402
+
+from superodom_tpu_torch import frontend, kernels, mapstate  # noqa: E402
+from superodom_tpu_torch import registration  # noqa: E402
 from superodom_tpu_torch.config import MapConfig, RuntimeParams  # noqa: E402
 from superodom_tpu_torch.config import parity_config, ship_config  # noqa: E402
 from superodom_tpu_torch.geometry import Pose, quat_mul, so3_exp  # noqa: E402
-from superodom_tpu_torch.io.datasets import BoxWorld, make_dataset  # noqa: E402
+from superodom_tpu_torch.io.datasets import (  # noqa: E402
+    BoxWorld,
+    make_dataset,
+    pole_lattice,
+    ring_sweep,
+)
 from superodom_tpu_torch.ops import voxel  # noqa: E402
 from superodom_tpu_torch.runner import OdometryRunner  # noqa: E402
 
@@ -363,11 +376,11 @@ def _prior(pose0, enabled):
         enabled=torch.tensor(enabled, device=dev))
 
 
-def _solve_both(pose0, planes, rt, **kw):
+def _solve_both(pose0, planes, rt, lines=None, **kw):
     """The kernel's solve (twice) and the plain solve on the same card."""
-    args = (pose0, planes, None, rt, 4)
-    kw = dict(dict(hold_enabled=torch.tensor(True, device=pose0.t.device)),
-              **kw)
+    args = (pose0, planes, lines, rt, 4)
+    kw = dict(dict(hold_enabled=torch.tensor(True, device=pose0.t.device),
+                   use_edges=lines is not None), **kw)
     n = kernels.launch_counts["gn_solve"]
     pk, sk = registration.gauss_newton_solve(*args, **kw)
     pk2, sk2 = registration.gauss_newton_solve(*args, **kw)
@@ -449,18 +462,28 @@ def test_replay_repeats_bit_for_bit(dev):
     assert launched["gn_solve"] == 2 * sum(s["n_iterations"] for s in stats)
 
 
-@pytest.mark.parametrize("path", ["parity", "vlp16"])
+@pytest.mark.parametrize("path", ["parity", "vlp16", "edges"])
 def test_further_paths_replay_bit_for_bit(dev, path):
     """The same for the reference-envelope path (candidate refresh: the
     reduction's winners and the claim table are scratch that must be
-    written before it is read) and the VLP-16 default path (integer
-    atomics: any arrival order gives the same table)."""
-    cfg = parity_config("os1") if path == "parity" else ship_config("vlp16")
+    written before it is read), the VLP-16 default path (integer
+    atomics: any arrival order gives the same table) and path E (the
+    reference-envelope path with curvature edges: full-width scans, the
+    edge map, the claim table of the edge stream)."""
+    cfg = {"parity": parity_config("os1"), "vlp16": ship_config("vlp16"),
+           "edges": dataclasses.replace(parity_config("os1"),
+                                        use_edge_features=True)}[path]
     _, stats, launched = _replay_twice(dev, cfg)
     rounds = sum(s["n_iterations"] for s in stats)
     n = len(stats)
     assert launched["gn_solve"] == 2 * rounds
-    if path == "parity":
+    if path == "edges":
+        assert launched["knn_select"] == launched["octant_lookup"] == 4 * n
+        assert launched["select_reduced"] == 4 * (rounds - n) > 0
+        assert launched["edge_fit"] == 2 * rounds
+        assert launched["curvature_edges"] == launched["voxel_claim"] == 2 * n
+        assert all(s["edge_stack"] > 0 for s in stats)
+    elif path == "parity":
         assert launched["knn_select"] == 2 * n
         assert launched["select_reduced"] == 2 * (rounds - n) > 0
         assert launched["reduce_candidates"] == 2 * sum(
@@ -689,3 +712,294 @@ def test_wrappers_check_inputs_and_count(dev):
     with pytest.raises(ValueError):
         kernels.voxel_claim(xyz, ok.to(torch.uint8), res, 14)
     assert kernels.launch_counts["voxel_claim"] == n["voxel_claim"]
+
+
+# ---------------------------------------------------------------- edges
+
+
+def _assert_curvature_bitwise(xyz, ring, mask, thr=0.2, min_range=0.5):
+    out_k = kernels.curvature_edges(xyz, ring, mask, 5, thr, min_range)
+    out_r = frontend.curvature_edge_extraction_reference(
+        xyz, ring, mask, 5, thr, min_range)
+    torch.cuda.synchronize()
+    assert out_k.dtype == torch.bool and torch.equal(out_k, out_r), (
+        f"{int((out_k != out_r).sum())} of {out_r.numel()} lanes differ")
+    return out_r
+
+
+@pytest.mark.parametrize("case", ["ring_major", "zero_ring", "padded_nan",
+                                  "tiny"])
+def test_curvature_edges_bitwise(dev, case):
+    """The OS1-128 sweep shape (128 rings x 1,024 azimuths) with its rings
+    and with the replay's zero ring (the wrap is live: lanes 0-4 and
+    N-5..N-1 see each other); a padded tail with NaN and inf rows; and
+    clouds narrower than the stencil (every neighbour wraps, some more
+    than once)."""
+    xyz, ring = ring_sweep(128, 1024)
+    xyz = torch.from_numpy(xyz).to(dev)
+    ring = torch.from_numpy(ring).to(dev)
+    mask = torch.ones(xyz.shape[0], dtype=torch.bool, device=dev)
+    if case == "ring_major":
+        out = _assert_curvature_bitwise(xyz, ring, mask)
+        edges_every = _assert_curvature_bitwise(xyz, ring, mask, thr=-1.0)
+        assert not edges_every[:5].any() and edges_every[5:1019].all()
+        assert out.sum() > 500
+    elif case == "zero_ring":
+        zero = torch.zeros_like(ring)
+        edges_every = _assert_curvature_bitwise(xyz, zero, mask, thr=-1.0)
+        assert edges_every[:5].all() and edges_every[-5:].all()
+        _assert_curvature_bitwise(xyz, zero, mask)
+    elif case == "padded_nan":
+        xyz, mask = xyz.clone(), mask.clone()
+        xyz[-777:] = 0.0
+        mask[-777:] = False
+        xyz[1000, 1] = float("nan")
+        xyz[2000] = float("inf")
+        xyz[3000, 2] = float("-inf")
+        out = _assert_curvature_bitwise(xyz, ring, mask)
+        assert not out[[1000, 2000, 3000]].any() and not out[-782:].any()
+        assert not out[995:1006].any() and out.sum() > 500
+    else:
+        for n in (1, 2, 7, 11, 12, 300):
+            x, r, m = (t[:n].contiguous() for t in (xyz, ring, mask))
+            _assert_curvature_bitwise(x, r, m, thr=-1.0)
+            _assert_curvature_bitwise(x, torch.zeros_like(r), m)
+        empty = _assert_curvature_bitwise(xyz[:0], ring[:0], mask[:0])
+        assert empty.shape == (0,)
+
+
+def _edge_case(dev, ne=512, npl=2048, seed=3, k=10):
+    """Path E's shapes (capacity 16, 2 m cells) on a pole lattice (the
+    edge map) inside a box room (the surface map), both filled by the
+    port's insert: ``ne`` line correspondences (plain K1, K2 at ``k``,
+    plain K11b) and ``npl`` plane ones (plain K1-K3) at a pose perturbed
+    from the true one.  Returns (pose0, planes, lines, rt, (neigh, sq,
+    nvalid, mask) of the lines)."""
+    rng = np.random.default_rng(seed)
+    cfg = MapConfig(cell_capacity=16)
+    pole = torch.from_numpy(pole_lattice(rng)).to(dev)
+    walls = rng.uniform(-8, 8, (6, 3000, 3))
+    for i in range(6):
+        walls[i, :, i // 2] = 8.0 if i % 2 else -8.0
+    walls = torch.from_numpy(walls.reshape(-1, 3).astype(np.float32)).to(dev)
+    rt = RuntimeParams(torch.tensor(0.1, device=dev),
+                       torch.tensor(0.2, device=dev))
+    maps = []
+    for pts, res in ((pole, 0.03), (walls, 0.2)):
+        m = mapstate.empty_map(cfg, device=dev)
+        for chunk in torch.split(pts, 1000):
+            m = mapstate.insert(m, cfg, chunk.contiguous(),
+                                torch.ones(len(chunk), dtype=torch.bool,
+                                           device=dev),
+                                torch.tensor(res, device=dev))
+        maps.append(m)
+    true = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.04], device=dev)),
+                torch.tensor([0.15, -0.1, 0.05], device=dev))
+    pick_e = torch.from_numpy(rng.integers(0, len(pole), ne)).to(dev)
+    pick_p = torch.from_numpy(rng.integers(0, len(walls), npl)).to(dev)
+    e_body = true.inverse().apply(pole[pick_e]).contiguous()
+    p_body = true.inverse().apply(walls[pick_p]).contiguous()
+    pose0 = Pose(quat_mul(so3_exp(torch.tensor([0.003, -0.002, 0.01],
+                                               device=dev)), true.q),
+                 true.t + torch.tensor([0.03, -0.02, 0.01], device=dev))
+    out = []
+    for m, body, kk in ((maps[0], e_body, k), (maps[1], p_body, 5)):
+        w = pose0.apply(body).contiguous()
+        slots = mapstate.octant_lookup_reference(m.keys, w, cfg.cell_size)
+        neigh, sq, nvalid, _ = mapstate.knn_select_reference(m.pts, slots, w,
+                                                             kk)
+        out.append((w, neigh.contiguous(), sq.contiguous(),
+                    nvalid.contiguous()))
+    (_, neigh, sq, nvalid), (w_p, pn, ps, pv) = out
+    e_mask = torch.arange(ne, device=dev) % 13 != 0
+    reg = registration.RegistrationConfig()
+    fit = registration.edge_fit_reference(
+        neigh, sq, nvalid, e_mask, rt.line_res, reg.min_edge_neighbors,
+        reg.edge_max_dist_inlier)
+    lines = registration.EdgeCorrs(e_body, *fit)
+    pfit = registration.plane_fit_reference(
+        pn, ps, pv, torch.ones(npl, dtype=torch.bool, device=dev), w_p,
+        pose0.q.contiguous(), rt.plane_res)
+    planes = registration.PlaneCorrs(p_body, *pfit)
+    return pose0, planes, lines, rt, (neigh, sq, nvalid, e_mask)
+
+
+def _assert_edge_fit_bitwise(neigh, sq, nvalid, mask, line_res):
+    """Every output of K11b equals the plain version's to the bit (NaN
+    equal to NaN), except in a row that edge_gate_margin_lanes flags.
+    Returns (the plain outputs, rows that differ)."""
+    reg = registration.RegistrationConfig()
+    args = (neigh, sq, nvalid, mask, line_res, reg.min_edge_neighbors,
+            reg.edge_max_dist_inlier)
+    n = kernels.launch_counts["edge_fit"]
+    out_k = registration.edge_fit(*args)
+    assert kernels.launch_counts["edge_fit"] == n + 1
+    out_r = registration.edge_fit_reference(*args)
+    torch.cuda.synchronize()
+    near = registration.edge_gate_margin_lanes(*args[:3], line_res,
+                                               *args[5:])
+    differ = torch.zeros_like(near)
+    for a, b in zip(out_k, out_r):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        ne = (a != b) & ~((a != a) & (b != b))
+        differ |= ne if ne.dim() == 1 else ne.any(dim=1)
+    n_far = int((differ & ~near).sum())
+    print(f"edge_fit: {int(differ.sum())} of {near.numel()} rows differ, "
+          f"{int(near.sum())} rows at a gate margin")
+    assert n_far == 0, f"{n_far} rows away from every gate differ"
+    return out_r, int(differ.sum())
+
+
+@pytest.mark.parametrize("k", [10, 5])
+@pytest.mark.parametrize("nq", [0, 1, 63, 65, 512, 2049])
+def test_edge_fit_bitwise(dev, nq, k):
+    """k = 10 is the instance with k known when compiled, 5 the generic
+    one; the row counts end inside, on and past a block of 64."""
+    *_, (neigh, sq, nvalid, mask) = _edge_case(dev, ne=max(nq, 1), npl=64,
+                                               k=k)
+    rows = [x[:nq].contiguous() for x in (neigh, sq, nvalid, mask)]
+    out_r, _ = _assert_edge_fit_bitwise(*rows, torch.tensor(0.1, device=dev))
+    if nq >= 512:  # most lines fit; some are refused
+        assert out_r[3].float().mean() > 0.5 and (out_r[4] != 0).sum() > 10
+
+
+def test_edge_fit_degenerate_rows(dev):
+    """Rows with no and with one valid neighbour, sentinel neighbours (the
+    BIG value of an empty lane, a point of table row 0), NaN and inf
+    neighbours, masked rows; and a tie in the inlier count, which goes to
+    the first line."""
+    *_, (neigh, sq, nvalid, mask) = _edge_case(dev, ne=256, npl=64)
+    neigh, sq, nvalid, mask = (x.clone() for x in (neigh, sq, nvalid, mask))
+    nvalid[3] = False
+    nvalid[4, 1:] = False
+    neigh[5, 6:] = mapstate.BIG
+    sq[5, 6:] = float("inf")
+    nvalid[5, 6:] = False
+    neigh[6, 7:] = neigh[0, 0]
+    nvalid[6, 7:] = False
+    neigh[7, 2, 1] = float("nan")
+    neigh[8, 9, 0] = float("inf")
+    mask[9] = False
+    # row 10: four neighbours along x, four along y, then one within the
+    # inlier distance of both lines (a tie of 5 inliers each); row 11: the
+    # same with y first
+    base = neigh[10, 0].clone()
+    step = torch.arange(1, 5, device=dev, dtype=torch.float32)[:, None] * 0.25
+    ex = torch.tensor([[1.0, 0.0, 0.0]], device=dev)
+    ey = torch.tensor([[0.0, 1.0, 0.0]], device=dev)
+    for row, first, second in ((10, ex, ey), (11, ey, ex)):
+        pts = torch.cat([base[None], base + step * first, base + step * second,
+                         base[None] + torch.tensor([[0.1, 0.1, 0.1]],
+                                                   device=dev)])
+        neigh[row] = pts
+        sq[row] = ((pts - base) ** 2).sum(-1)
+        nvalid[row] = True
+        mask[row] = True
+    out_r, _ = _assert_edge_fit_bitwise(neigh, sq, nvalid, mask,
+                                        torch.tensor(0.1, device=dev))
+    a, b, coeff, valid, code = out_r
+    assert int(code[3]) == int(code[4]) == \
+        registration.MATCH_NOT_ENOUGH_NEIGHBORS
+    assert int(code[9]) == registration.MATCH_UNKNOWN and not valid[9]
+    for row, axis in ((10, 0), (11, 1)):  # the first line of the tie wins
+        d = (a[row] - b[row]) / (a[row] - b[row]).norm()
+        assert float(d[axis].abs()) > 0.99, (row, d)
+    assert valid.float().mean() > 0.4
+
+
+def _gn_edges_both(pose0, planes, lines, rt, **kw):
+    pk, pr = _solve_both(pose0, planes, rt, lines, **kw)
+    args = (planes.p_body, planes.normal, planes.d, planes.coeff,
+            planes.valid, pose0.q.contiguous(), pose0.t.contiguous(),
+            3.0 * rt.plane_res, tuple(x.contiguous() for x in (
+                lines.p_body, lines.a, lines.b, lines.coeff, lines.valid)),
+            3.0 * rt.line_res)
+    H_k, g_k, c_k = kernels.normal_system(*args)
+    H_r, g_r, c_r = registration.normal_system_reference(*args)
+    scale = float(H_r.abs().max())
+    assert float((H_k - H_r).abs().max()) <= 1e-5 * scale
+    assert float((g_k - g_r).abs().max()) <= 1e-5 * scale
+    assert abs(float(c_k - c_r)) <= 1e-5 * float(c_r.abs()) + 1e-12
+    assert torch.equal(H_k, kernels.normal_system(*args)[0])
+    return pk, pr, H_r
+
+
+@pytest.mark.parametrize("ne", [0, 1, 512])
+def test_gn_solve_with_edge_rows_matches_plain(dev, ne):
+    """0, 1 and 512 edge rows beside path E's 2,048 planes: the solve
+    (main-path hold and prior) within GN_TOL of the plain GN loop, repeat
+    runs bit-identical, the n_iters = 0 mode's H within 1e-5 of its
+    scale."""
+    pose0, planes, lines, rt, _ = _edge_case(dev, ne=max(ne, 1))
+    lines = registration.EdgeCorrs(*(x[:ne] for x in lines))
+    pk, pr, H = _gn_edges_both(pose0, planes, lines, rt,
+                               prior=_prior(pose0, False), axis_hold_min=10)
+    assert float((pk.t - pose0.t).abs().max()) > 1e-3  # it moved
+    if ne == 512:
+        assert lines.valid.float().mean() > 0.5
+        H_planes, _, _ = registration.normal_system_reference(
+            planes.p_body, planes.normal, planes.d, planes.coeff,
+            planes.valid, pose0.q, pose0.t, 3.0 * rt.plane_res)
+        assert float((H - H_planes).abs().max()) > 0.01 * float(H.abs().max())
+
+
+def test_gn_solve_hold_on_edge_votes_only(dev):
+    """No valid plane: the hold's votes come from the vertical lines alone,
+    which vote x and y and never z, so z is held; with an enabled prior
+    nothing is."""
+    pose0, planes, lines, rt, _ = _edge_case(dev, ne=512, npl=256)
+    dead = planes._replace(valid=torch.zeros_like(planes.valid),
+                           coeff=torch.zeros_like(planes.coeff),
+                           obs_bins=torch.full_like(planes.obs_bins, -1))
+    held = registration.axis_hold_mask(dead, 10, 0.005, None, None, lines,
+                                       pose0.q)
+    assert held.tolist() == [False, False, True]
+    pk, pr, _ = _gn_edges_both(pose0, dead, lines, rt, axis_hold_min=10)
+    assert float((pk.t - pose0.t).abs()[:2].max()) > 1e-3
+    _gn_edges_both(pose0, dead, lines, rt, axis_hold_min=10,
+                   prior=_prior(pose0, True))
+
+
+def test_edge_wrappers_check_inputs_and_count(dev):
+    pose0, planes, lines, rt, (neigh, sq, nvalid, mask) = _edge_case(
+        dev, ne=64, npl=64)
+    n = dict(kernels.launch_counts)
+    xyz = planes.p_body
+    ring = torch.zeros(xyz.shape[0], dtype=torch.int32, device=dev)
+    ok = torch.ones(xyz.shape[0], dtype=torch.bool, device=dev)
+    frontend.curvature_edge_extraction(xyz, ring, ok)
+    assert kernels.launch_counts["curvature_edges"] == n["curvature_edges"] + 1
+    with pytest.raises(ValueError):  # the halo holds at most 16
+        kernels.curvature_edges(xyz, ring, ok, 17, 0.2, 0.5)
+    with pytest.raises(ValueError):
+        kernels.curvature_edges(xyz, ring.long(), ok, 5, 0.2, 0.5)
+    with pytest.raises(ValueError):
+        kernels.curvature_edges(xyz.t(), ring, ok, 5, 0.2, 0.5)
+    res = torch.tensor(0.1, device=dev)
+    with pytest.raises(ValueError):  # k beyond the kernel's 16
+        kernels.edge_fit(torch.zeros((4, 17, 3), device=dev),
+                         torch.zeros((4, 17), device=dev),
+                         torch.zeros((4, 17), dtype=torch.bool, device=dev),
+                         mask[:4].contiguous(), res, 4, 0.2)
+    with pytest.raises(ValueError):  # the resolution lives on the card
+        kernels.edge_fit(neigh, sq, nvalid, mask, res.cpu(), 4, 0.2)
+    with pytest.raises(ValueError):
+        kernels.edge_fit(neigh, sq, nvalid.to(torch.uint8), mask, res, 4, 0.2)
+    rows = tuple(x.contiguous() for x in (lines.p_body, lines.a, lines.b,
+                                          lines.coeff, lines.valid))
+    args = (planes.p_body, planes.normal, planes.d, planes.coeff,
+            planes.valid, pose0.q.contiguous(), pose0.t.contiguous(),
+            3.0 * rt.plane_res)
+    with pytest.raises(ValueError):  # the edges' support lives on the card
+        kernels.normal_system(*args, rows, (3.0 * rt.line_res).cpu())
+    with pytest.raises(ValueError):
+        kernels.normal_system(*args, (rows[0][:3].contiguous(),) + rows[1:],
+                              3.0 * rt.line_res)
+    big = torch.zeros((60000, 3), device=dev)
+    bigv = torch.zeros(60000, dtype=torch.bool, device=dev)
+    bigs = torch.zeros(60000, device=dev)
+    with pytest.raises(ValueError):  # planes and edges share the memory
+        kernels.normal_system(*args, (big, big, big, bigs, bigv),
+                              3.0 * rt.line_res)
+    assert kernels.launch_counts["edge_fit"] == n["edge_fit"]
+    assert kernels.launch_counts["normal_system"] == n["normal_system"]

@@ -192,16 +192,14 @@ def test_map_cadences_match_jax(cadence):
 
 @pytest.mark.parametrize("kind", ["parity", "vlp16", "cadence_3"])
 def test_formerly_refused_configs_step(kind):
-    """Candidate refresh, voxel thinning and map cadences run; edges (here),
-    VIO and LIO prediction (tests/test_torch_pipeline.py) still raise
-    NotImplementedError."""
+    """Candidate refresh, voxel thinning, map cadences and, on each of
+    them, edge features run (VIO and LIO prediction still raise
+    NotImplementedError: tests/test_torch_pipeline.py)."""
     cfg = _tiny(tcfg, kind)
-    scan = OdometryRunner(cfg, device="cpu").make_scan(
-        0.0, np.zeros((10, 3), np.float32), np.zeros(10, np.float32))
     win = tp.empty_imu_window(cfg.imu.max_imu_per_scan)
-    after, _ = tp.step(cfg, tp.init_state(cfg), scan, win,
-                       torch.tensor(False))
-    assert int(after.frame_count) == 1
-    with pytest.raises(NotImplementedError):
-        tp.step(dataclasses.replace(cfg, use_edge_features=True),
-                tp.init_state(cfg), scan, win, torch.tensor(False))
+    for c in (cfg, dataclasses.replace(cfg, use_edge_features=True)):
+        scan = OdometryRunner(c, device="cpu").make_scan(
+            0.0, np.zeros((10, 3), np.float32), np.zeros(10, np.float32))
+        after, _ = tp.step(c, tp.init_state(c), scan, win,
+                           torch.tensor(False))
+        assert int(after.frame_count) == 1

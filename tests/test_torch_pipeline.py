@@ -150,13 +150,14 @@ def test_runner_runs_on_the_card_by_default():
 
 
 def test_unported_branches_raise():
+    """VIO undistortion and LIO prediction are not ported yet (edge
+    features are: tests/test_torch_edges.py)."""
     cfg = _tiny(tcfg, early_exit=True)
     state = tp.init_state(cfg)
     scan = OdometryRunner(cfg, device="cpu").make_scan(
         0.0, np.zeros((10, 3), np.float32), np.zeros(10, np.float32))
     win = tp.empty_imu_window(cfg.imu.max_imu_per_scan)
-    for bad in (dataclasses.replace(cfg, use_edge_features=True),
-                dataclasses.replace(cfg, enable_lio_prediction=True),
+    for bad in (dataclasses.replace(cfg, enable_lio_prediction=True),
                 dataclasses.replace(cfg, use_vio_undistortion=True)):
         with pytest.raises(NotImplementedError):
             tp.step(bad, state, scan, win, torch.tensor(False))
@@ -187,6 +188,8 @@ def test_full_width_configs_run_on_the_cpu(name, make):
         assert len(rec["iterations"]) == cfg.registration.max_icp_iters
     assert res.stats[-1]["surf_stack"] > 300
     assert res.stats[-1]["iterations"][0]["num_surf_from_scan"] > 100
-    # the Gauss-Newton kernel's staging fits the widest feature set
-    rows = -(-cfg.sensor.max_surface_features // kernels.GN_BLOCKS)
-    assert (rows + 15) // 16 * 16 * 33 <= kernels.GN_MAX_ROW_BYTES
+    # the Gauss-Newton kernel's staging fits the widest feature set, with
+    # the edge rows beside the planes
+    assert kernels.gn_staged_bytes(
+        cfg.sensor.max_surface_features,
+        cfg.sensor.max_edge_features) <= kernels.GN_MAX_ROW_BYTES
