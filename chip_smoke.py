@@ -49,6 +49,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    extract edges.
 3. The first scans of each path through the plain PyTorch path on the
    CPU: the GPU trajectory must agree with it.
+4. The chunked replay (``run_dataset_chunked``: all IMU ingested first,
+   every input on the card before the timer, one discarded warm-up step
+   of scan 0) over the same datasets: the ship path at chunk = n (the
+   replay benchmark's throughput replay), at chunk 16 with
+   ``time_chunks`` (its latency percentiles) and at chunk 16 with
+   streamed inputs and the IMU-rate stream; path P at chunk = n and at
+   chunk 16; the Livox default path (``ship_config("livox")``, 24,576
+   points a scan, 4,096 plane rows in K4) at chunk = n.  Each replay's
+   launches must equal ``expected_launches`` plus scan 0's once (the
+   warm-up), its poses be finite with the ATE below the bar, and the
+   replays of a path agree to the bit; the stream's times strictly
+   increase at more than 35 samples a second with no step over 0.15 m;
+   the ship path's first scans, replayed chunked on the CPU, agree with
+   the card's.
 
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, then the last
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -73,6 +87,9 @@ ATE_BAR_M = 0.1
 CPU_AGREE_M = 1e-3
 CPU_SCANS = 12
 HOST_REPS = 100  # host-timed GN solves of each kind
+CHUNK = 16  # the replay benchmark's latency chunk
+HR_MIN_RATE = 35.0  # IMU-rate stream samples a second of its span
+HR_MAX_STEP_M = 0.15
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -956,6 +973,94 @@ def phase_cpu_agree(name, cfg, ds, res_gpu, torch):
                          f"the CPU path")
 
 
+def phase_chunked(name, cfg, ds, torch, dev, out_dir, card, runs):
+    """Phase 4: one path's chunked replays (``runs``: label -> keyword
+    arguments of ``run_dataset_chunked``; the first is the reference of
+    the others' poses)."""
+    import numpy as np
+
+    from superodom_tpu_torch import kernels
+    from superodom_tpu_torch.io.datasets import ate_rmse
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    out, first = {}, None
+    for label, kw in runs.items():
+        runner = OdometryRunner(cfg, device=dev)
+        kernels.reset_counts()
+        res = runner.run_dataset_chunked(ds, **kw)
+        counts = dict(kernels.launch_counts)
+        # the warm-up step is scan 0 again: the same state, the same inputs
+        expect = expected_launches(cfg, res.stats + res.stats[:1])
+        tag = f"phase 4 [{name}, {label}]"
+        log(f"{tag}: launches {counts}, expected {expect}")
+        if counts != expect:
+            raise SystemExit(f"{tag}: kernel launch counts do not match")
+        poses = np.concatenate([res.poses_t, res.poses_q], axis=1)
+        if len(poses) != len(ds.scans) or not np.isfinite(poses).all():
+            raise SystemExit(f"{tag}: missing or non-finite poses")
+        if first is None:
+            first = poses
+        elif not np.array_equal(poses, first):
+            raise SystemExit(f"{tag}: poses differ from "
+                             f"{next(iter(runs))}'s")
+        ate = ate_rmse(res.poses_t, np.asarray(ds.gt_poses_t))
+        times = np.asarray([s["time_elapsed_ms"] for s in res.stats])
+        summary = {"scans": len(ds.scans), **kw,
+                   "icp_rounds": sum(s["n_iterations"] for s in res.stats),
+                   "scans_per_sec": res.scans_per_sec,
+                   "p50_step_ms": float(np.percentile(times, 50)),
+                   "p90_step_ms": float(np.percentile(times, 90)),
+                   "max_step_ms": float(times.max()), "ate_m": ate}
+        if kw.get("high_rate"):
+            t, p = res.high_rate_t, res.high_rate_p
+            span = float(t[-1] - t[0])
+            steps = np.linalg.norm(np.diff(p, axis=0), axis=1)
+            summary.update(high_rate_samples=len(t), high_rate_span_s=span,
+                           high_rate_max_step_m=float(steps.max()))
+            if not (np.all(np.diff(t) > 0) and len(t) > span * HR_MIN_RATE
+                    and np.isfinite(p).all()
+                    and np.isfinite(res.high_rate_v).all()
+                    and steps.max() < HR_MAX_STEP_M):
+                raise SystemExit(f"{tag}: the IMU-rate stream fails its "
+                                 f"checks: {summary}")
+        log(f"{tag} ({card}): " + json.dumps(summary))
+        if not ate < ATE_BAR_M:
+            raise SystemExit(f"{tag}: ATE {ate:.4f} m is not below "
+                             f"{ATE_BAR_M} m")
+        if label == next(iter(runs)):
+            with open(os.path.join(out_dir, f"stats_{name}_chunked.jsonl"),
+                      "w") as f:
+                for rec in res.stats:
+                    f.write(json.dumps(rec) + "\n")
+        out[label] = dict(summary, launches=counts, result=res)
+    return out
+
+
+def phase_chunked_cpu_agree(cfg, ds, res_gpu):
+    """Phase 4: the ship path's first scans replayed chunked on the CPU
+    (the same truncated dataset, the full IMU stream) against the card's
+    chunked replay."""
+    import numpy as np
+
+    from superodom_tpu_torch.io.datasets import SimDataset
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    n = min(CPU_SCANS, len(ds.scans))
+    small = SimDataset(scans=ds.scans[:n], imu=ds.imu,
+                       gt_poses_q=ds.gt_poses_q[:n],
+                       gt_poses_t=ds.gt_poses_t[:n], times=ds.times[:n])
+    res_cpu = OdometryRunner(cfg, device="cpu").run_dataset_chunked(
+        small, chunk=n)
+    dt = float(np.abs(res_cpu.poses_t - res_gpu.poses_t[:n]).max())
+    dq = float(np.abs(res_cpu.poses_q - res_gpu.poses_q[:n]).max())
+    log(f"phase 4 [ship]: first {n} scans chunked, GPU vs CPU plain path: "
+        f"max |dt| {dt:.3e} m, max |dq| {dq:.3e}")
+    if not (dt <= CPU_AGREE_M and dq <= CPU_AGREE_M):
+        raise SystemExit("ship path: the chunked GPU trajectory disagrees "
+                         "with the CPU path")
+    return {"scans": n, "max_dt_m": dt, "max_dq": dq}
+
+
 def measured(r):
     """The kernels line's measured fields of one phase-1 result."""
     return {"max_abs_err": r["err"], "ms": r["ms"],
@@ -1054,6 +1159,40 @@ def main(argv=None):
     for name, (c, d, _) in paths.items():
         phase_cpu_agree(name, c, d, runs[name][0], torch)
 
+    # phase 4: the chunked replay
+    n = len(ds.scans)
+    cfg_livox = ship_config("livox")
+    t0 = time.perf_counter()
+    ds_livox = make_ship_dataset(cfg_livox, N_SCANS)
+    log(f"dataset Livox: {N_SCANS} scans of {cfg_livox.sensor.max_points} "
+        f"points in {time.perf_counter() - t0:.1f} s")
+    chunked = {
+        "ship": phase_chunked("ship", cfg, ds, torch, dev, args.out, smi, {
+            "chunk=n": dict(chunk=n),
+            "chunk=16": dict(chunk=CHUNK, time_chunks=True),
+            "chunk=16 streamed": dict(chunk=CHUNK, preload=False,
+                                      high_rate=True)}),
+        "parity": phase_chunked("parity", paths["parity"][0], ds, torch,
+                                dev, args.out, smi, {
+                                    "chunk=n": dict(chunk=n),
+                                    "chunk=16": dict(chunk=CHUNK,
+                                                     time_chunks=True)}),
+        "livox": phase_chunked("livox", cfg_livox, ds_livox, torch, dev,
+                               args.out, smi, {"chunk=n": dict(chunk=n)}),
+    }
+    chunked_cpu = phase_chunked_cpu_agree(
+        cfg, ds, chunked["ship"]["chunk=n"]["result"])
+    for name, per in chunked.items():
+        ref = runs[name][2] if name in runs else None
+        log(f"phase 4 [{name}] ({smi}): chunked " + "; ".join(
+            f"{label} {r['scans_per_sec']:.3f} scans/s, p50 / p90 "
+            f"{r['p50_step_ms']:.2f} / {r['p90_step_ms']:.2f} ms, ATE "
+            f"{r['ate_m']:.6f} m" for label, r in per.items())
+            + (f" | per scan (phase 2) {ref['scans_per_sec']:.3f} scans/s, "
+               f"p50 / p90 {ref['p50_step_ms']:.2f} / "
+               f"{ref['p90_step_ms']:.2f} ms, ATE {ref['ate_m']:.6f} m"
+               if ref else ""))
+
     # every number but ``launches`` and ``bound_ms`` is of the path under
     # ``path``; ``by_path`` has the same fields for every path that runs
     # the kernel
@@ -1076,7 +1215,12 @@ def main(argv=None):
               "voxel_claim_os1_128": measured(claim["OS1-128"]),
               "gn_solve_host_us": {p: kres[p]["gn_solve"]["host_us"]
                                    for p in paths
-                                   if "host_us" in kres[p]["gn_solve"]}}
+                                   if "host_us" in kres[p]["gn_solve"]},
+              "chunked": {name: {label: {k: v for k, v in r.items()
+                                         if k != "result"}
+                                 for label, r in per.items()}
+                          for name, per in chunked.items()},
+              "chunked_cpu_agree": chunked_cpu}
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"kernels": entries}))

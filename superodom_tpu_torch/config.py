@@ -292,5 +292,7 @@ def parity_config(name: str = "os1") -> PipelineConfig:
 
 
 def config_for(profile: str, parity: bool = False) -> PipelineConfig:
-    """What the entry points' ``--profile`` / ``--parity`` pair selects."""
+    """The replay benchmark's configuration of a sensor: the ship one, or
+    with ``parity`` the reference-envelope one (the profiler's
+    ``--profile`` / ``--parity``, the CLI's ``--ship`` / ``--parity``)."""
     return (parity_config if parity else ship_config)(profile)

@@ -18,7 +18,12 @@ from superodom_tpu_torch.frontend import ImuWindow, Scan
 from superodom_tpu_torch.geometry import Pose
 from superodom_tpu_torch.inertial import Preintegrated, SmootherState
 from superodom_tpu_torch.mapstate import ReducedCandidates, VoxelHashMap
-from superodom_tpu_torch.pipeline import OdomState, StepOutput
+from superodom_tpu_torch.pipeline import (
+    HighRateOut,
+    OdomState,
+    StepOutput,
+    tree_map,
+)
 from superodom_tpu_torch.registration import (
     EdgeCorrs,
     IcpStats,
@@ -30,7 +35,7 @@ from superodom_tpu_torch.registration import (
 _TYPES = {cls.__name__: cls for cls in (
     OdomState, StepOutput, Pose, RuntimeParams, VoxelHashMap, SmootherState,
     Preintegrated, ImuWindow, Scan, IcpStats, RegistrationError, PlaneCorrs,
-    PosePrior, ReducedCandidates, EdgeCorrs)}
+    PosePrior, ReducedCandidates, EdgeCorrs, HighRateOut)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -49,12 +54,10 @@ def from_numpy(tree, device=None):
 
 
 def to_numpy(tree):
-    """A tree of this package -> the same tree with numpy leaves."""
-    if _is_namedtuple(tree):
-        return type(tree)(*(to_numpy(v) for v in tree))
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
-    return np.asarray(tree)
+    """A tree of this package (NamedTuples and plain tuples of tensors) ->
+    the same tree with numpy leaves."""
+    return tree_map(lambda a: a.detach().cpu().numpy()
+                    if isinstance(a, torch.Tensor) else np.asarray(a), tree)
 
 
 def _typed(name):

@@ -73,21 +73,39 @@ def _sample_dts(t, mask, dtype, rate=200.0):
     return torch.where(mask, dt, 0.0)
 
 
-def _integrate_chain(t, acc, gyr, mask, ba, bg, dtype, rate=200.0):
+def _integrate_chain(t, acc, gyr, mask, ba, bg, dtype, q0=None,
+                     gravity_w=None, v0=None, p0=None, rate=200.0):
     """Strapdown integration: Q_i = dq_1 * ... * dq_i by prefix product;
     velocities and positions by prefix sums (a_i rotated by the attitude
-    BEFORE sample i).  Returns per-sample (q, v, p) and the dts."""
+    BEFORE sample i).  With ``q0`` / ``gravity_w`` / ``v0`` / ``p0`` the
+    chain starts from that state under gravity (the high-rate stream);
+    without them it is the preintegrated delta.  Returns per-sample
+    (q, v, p) and the dts."""
+    dev = t.device
     dt = _sample_dts(t, mask, dtype, rate)
     a = acc - ba
     g = gyr - bg
     Q = quat_normalize(_prefix_scan(so3_exp(g * dt[:, None]), quat_mul))
-    q_prev = torch.cat([quat_identity(dtype, t.device)[None], Q[:-1]], dim=0)
-    acc_w = torch.where(mask[:, None], quat_rotate(q_prev, a), 0.0)
+    if q0 is not None:
+        Q = quat_normalize(quat_mul(q0[None], Q))
+        q_prev = torch.cat([q0[None], Q[:-1]], dim=0)
+    else:
+        q_prev = torch.cat([quat_identity(dtype, dev)[None], Q[:-1]], dim=0)
+    acc_w = quat_rotate(q_prev, a)
+    if gravity_w is not None:
+        acc_w = acc_w + gravity_w[None]
+    acc_w = torch.where(mask[:, None], acc_w, 0.0)
     v = torch.cumsum(acc_w * dt[:, None], dim=0)
-    v_prev = torch.cat([torch.zeros((1, 3), dtype=dtype, device=t.device),
-                        v[:-1]], dim=0)
+    if v0 is not None:
+        v = v + v0[None]
+        v_prev = torch.cat([v0[None], v[:-1]], dim=0)
+    else:
+        v_prev = torch.cat([torch.zeros((1, 3), dtype=dtype, device=dev),
+                            v[:-1]], dim=0)
     p = torch.cumsum(v_prev * dt[:, None] + 0.5 * acc_w * dt[:, None] ** 2,
                      dim=0)
+    if p0 is not None:
+        p = p + p0[None]
     return Q, v, p, dt
 
 
@@ -220,6 +238,22 @@ def propagate_state(state: SmootherState, cfg: ImuConfig,
     p_pred = (state.p[-1] + state.v[-1] * dt + 0.5 * gravity_w * dt * dt
               + quat_rotate(state.q[-1], pre.dp))
     return q_pred, p_pred, v_pred
+
+
+def propagate_high_rate(state: SmootherState, cfg: ImuConfig,
+                        imu: ImuWindow):
+    """IMU-rate odometry: the window integrated forward from the latest
+    smoothed state with its biases, under gravity (repropagate_imuodometry
+    and the imuHandler's predict, imuPreintegration.cpp:339-367,565).
+    Returns per-sample (poses, velocities, mask) over the window."""
+    dtype = state.p.dtype
+    gravity_w = torch.tensor([0.0, 0.0, -cfg.gravity], dtype=dtype,
+                             device=state.p.device)
+    qs, vs, ps, _ = _integrate_chain(
+        imu.t, imu.acc, imu.gyr, imu.mask, state.ba[-1], state.bg[-1],
+        dtype, q0=state.q[-1], gravity_w=gravity_w, v0=state.v[-1],
+        p0=state.p[-1], rate=cfg.imu_rate)
+    return Pose(qs, ps), vs, imu.mask
 
 
 def _pose_prior_res(delta15, q0, p0, mq, mp, w):

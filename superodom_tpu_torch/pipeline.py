@@ -11,14 +11,15 @@ JAX makes with ``jnp.where`` stay device-side selections here, so a step
 waits on the host only for the ICP early-exit flag and, where a map
 cadence is not 1, for the frame count.
 
-The step is pure: it never modifies ``state``.  The static branches that
-are not ported yet (VIO undistortion, LIO prediction) raise
-NotImplementedError.
+The step is pure: it never modifies ``state``.  The static branch that
+is not ported yet (VIO undistortion) raises NotImplementedError.
+:func:`make_chunked_step_fn` replays a chunk of stacked scans through
+:func:`step`, with the IMU-rate stream of each scan beside its outputs.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +52,8 @@ from superodom_tpu_torch.geometry import (
 from superodom_tpu_torch.inertial import (
     SmootherState,
     preintegrate,
+    propagate_high_rate,
+    propagate_state,
     smoother_init,
     smoother_update,
 )
@@ -189,6 +192,20 @@ def update_obs_ema(obs_ema, uncertainty3, run_icp):
         obs_ema)
 
 
+def lio_obs_trusted(degenerate, obs_ema, min_observability: float,
+                    obs_inst=None):
+    """LIO-prediction trust gate: trust when the last solve was healthy,
+    or when every translation axis holds a real feature share, both in
+    the EMA and (with ``obs_inst``) in the last solve."""
+    trusted = ~degenerate
+    if min_observability > 0.0:
+        share_ok = torch.min(obs_ema) > min_observability
+        if obs_inst is not None:
+            share_ok = share_ok & (torch.min(obs_inst) > min_observability)
+        trusted = trusted | share_ok
+    return trusted
+
+
 def _where_pose(c, a: Pose, b: Pose) -> Pose:
     return Pose(torch.where(c, a.q, b.q), torch.where(c, a.t, b.t))
 
@@ -200,12 +217,15 @@ def _extract_roll_pitch(q: torch.Tensor) -> torch.Tensor:
 
 
 def _select_prediction(cfg: PipelineConfig, state: OdomState,
-                       q_imu: torch.Tensor, imu_available: torch.Tensor):
+                       q_imu: torch.Tensor, imu_available: torch.Tensor,
+                       lio_pose: Pose | None = None,
+                       lio_available: torch.Tensor | None = None):
     """Prediction-source state machine (laserMapping.cpp:264-412): first
     frame from IMU roll/pitch, IMU orientation during startup, then IMU
-    orientation (holding position) or constant velocity; VIO under
-    degeneracy when an external pose is available.  (The LIO source is
-    not ported; :func:`step` refuses configs that enable it.)"""
+    orientation (holding position) or constant velocity; with
+    ``lio_pose`` the smoother state propagated to the scan where it is
+    available and trusted (:func:`lio_obs_trusted`); VIO under
+    degeneracy when an external pose is available."""
     dtype, dev = state.pose.t.dtype, state.pose.t.device
     R_il = torch.tensor(np.asarray(cfg.extrinsics.R_imu_laser), dtype=dtype,
                         device=dev)
@@ -231,6 +251,13 @@ def _select_prediction(cfg: PipelineConfig, state: OdomState,
                               cv_pose)
     source = torch.where(imu_available, PRED_IMU_ORIENTATION,
                          PRED_CONSTANT_VELOCITY)
+    if lio_pose is not None:
+        trusted = lio_obs_trusted(state.degenerate, state.obs_ema,
+                                  cfg.lio_min_observability,
+                                  obs_inst=state.uncertainty[:3])
+        use_lio = lio_available & imu_available & trusted
+        normal_pose = _where_pose(use_lio, lio_pose, normal_pose)
+        source = torch.where(use_lio, PRED_LIO_ODOM, source)
     normal_pose = _where_pose(use_vio, state.vio_pose, normal_pose)
     source = torch.where(use_vio, PRED_VIO_ODOM, source).to(torch.int32)
 
@@ -296,8 +323,6 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
     extraction ahead of it and the inertial smoother after it)."""
     if cfg.use_vio_undistortion:
         raise NotImplementedError("VIO undistortion is not ported yet")
-    if cfg.enable_lio_prediction:
-        raise NotImplementedError("LIO prediction is not ported yet")
     dtype, dev = scan.xyz.dtype, scan.xyz.device
     sensor = cfg.sensor
     reg = cfg.registration
@@ -399,10 +424,20 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
     # ---------------- prediction ------------------------------------------
     stage("prediction")
     lidar2imu = Pose(matrix_to_quat(R_il), t_il)
+    # the previous interval, preintegrated once: the LIO source and the
+    # smoother share it
     pre = preintegrate(state.prev_imu, state.smoother.ba[-1],
                        state.smoother.bg[-1], rate=cfg.imu.imu_rate)
-    pred_pose, source, use_vio = _select_prediction(cfg, state, q_imu_pred,
-                                                    imu_available)
+    lio_pose = lio_available = None
+    if cfg.enable_lio_prediction:
+        q_lio, p_lio, _ = propagate_state(state.smoother, cfg.imu, pre)
+        lio_pose = Pose(q_lio, p_lio).compose(lidar2imu.inverse())
+        # trusted once the window has history and the interval carries
+        # IMU samples
+        lio_available = (state.smoother.valid[0] & ~state.smoother.failed
+                         & (pre.dt > 1e-3) & torch.any(state.prev_imu.mask))
+    pred_pose, source, use_vio = _select_prediction(
+        cfg, state, q_imu_pred, imu_available, lio_pose, lio_available)
 
     # ---------------- scan-to-map registration ----------------------------
     stage("registration")
@@ -545,3 +580,53 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
     )
     stage.close()
     return new_state, out
+
+
+class HighRateOut(NamedTuple):
+    """Per-scan IMU-rate odometry of the chunked replay (the ~200 Hz
+    state_estimation stream, imuPreintegration.cpp:629,648-650): the width
+    of the scan's IMU window, ``mask`` marking live samples."""
+
+    t: torch.Tensor  # f32[m] sample times
+    q: torch.Tensor  # f32[m,4]
+    p: torch.Tensor  # f32[m,3]
+    v: torch.Tensor  # f32[m,3]
+    mask: torch.Tensor  # bool[m]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (NamedTuples and
+    plain tuples; anything else is a leaf)."""
+    first = trees[0]
+    if isinstance(first, tuple):
+        mapped = [tree_map(fn, *parts) for parts in zip(*trees)]
+        return type(first)(*mapped) if hasattr(first, "_fields") \
+            else tuple(mapped)
+    return fn(*trees)
+
+
+def make_chunked_step_fn(cfg: PipelineConfig, high_rate: bool = False
+                         ) -> Callable:
+    """Replay of a chunk of scans (JAX: ``jax.jit`` of a ``lax.scan``):
+    ``(state, scans, imus, avails) -> (state, outputs)``, where every
+    input leaf has a leading chunk dimension and ``outputs`` is the
+    StepOutput of each scan stacked on the device.  With ``high_rate`` the
+    outputs are ``(stacked StepOutput, stacked HighRateOut)``: each scan's
+    IMU window integrated forward from the state the step left.  The loop
+    adds no device-to-host read to the step's own."""
+
+    def chunk_fn(state, scans, imus, avails):
+        outs = []
+        for k in range(avails.shape[0]):
+            scan, imu = tree_map(lambda a: a[k], (scans, imus))
+            state, out = step(cfg, state, scan, imu, avails[k])
+            if high_rate:
+                poses, vels, mask = propagate_high_rate(state.smoother,
+                                                        cfg.imu, imu)
+                out = (out, HighRateOut(
+                    t=imu.t, q=poses.q, p=poses.t, v=vels,
+                    mask=mask & ~state.smoother.failed))
+            outs.append(out)
+        return state, tree_map(lambda *xs: torch.stack(xs), *outs)
+
+    return chunk_fn

@@ -5,7 +5,12 @@ trajectories and per-scan statistics (counterpart of the per-scan half of
 IMU samples go through the native buffer (conditioning into the laser
 frame, static init, orientation chain); each scan is decimated on the host
 (or, with edge features on, kept at full width with its rings) and
-shipped to the device as one Scan.  Chunked replay is not ported yet.
+shipped to the device as one Scan.  Two replays: :meth:`run_dataset`
+steps scan by scan as the IMU arrives; :meth:`run_dataset_chunked` ingests
+the whole IMU stream first, stacks every scan's inputs on the host and
+steps them in chunks, with the inputs on the device before its timer
+starts (the replay the reference benchmark measures).  Either can stream
+the IMU-rate odometry beside the poses.
 """
 
 from __future__ import annotations
@@ -22,7 +27,15 @@ from superodom_tpu_torch import kernels, native
 from superodom_tpu_torch.config import Extrinsics, PipelineConfig
 from superodom_tpu_torch.convert import to_numpy
 from superodom_tpu_torch.frontend import ImuWindow, Scan, decimated_width
-from superodom_tpu_torch.pipeline import StepOutput, init_state, step
+from superodom_tpu_torch.inertial import propagate_high_rate
+from superodom_tpu_torch.pipeline import (
+    StepOutput,
+    empty_imu_window,
+    init_state,
+    make_chunked_step_fn,
+    step,
+    tree_map,
+)
 
 
 @dataclasses.dataclass
@@ -33,6 +46,12 @@ class RunResult:
     stats: List[dict]
     wall_time_s: float
     scans_per_sec: float
+    # the IMU-rate odometry stream (every high_rate_decimation-th sample,
+    # ~50 Hz), with run_dataset(high_rate=True) or run_dataset_chunked's
+    high_rate_t: Optional[np.ndarray] = None  # [m] sample times
+    high_rate_q: Optional[np.ndarray] = None  # [m,4]
+    high_rate_p: Optional[np.ndarray] = None  # [m,3]
+    high_rate_v: Optional[np.ndarray] = None  # [m,3]
 
     def return_to_origin_error(self) -> float:
         return float(np.linalg.norm(self.poses_t[-1] - self.poses_t[0]))
@@ -63,6 +82,7 @@ class OdometryRunner:
         )
         self.imu_init = None  # (acc_mean, gyr_bias, q0) after static init
         self._imu_t_first: Optional[float] = None
+        self._last_window: Optional[ImuWindow] = None  # on the device
 
     # ---------------- IMU ingestion ---------------------------------------
     def add_imu(self, t: float, acc: np.ndarray, gyr: np.ndarray):
@@ -79,23 +99,22 @@ class OdometryRunner:
 
     def _to_device(self, tree):
         # np.array, not np.ascontiguousarray: the latter turns 0-d into 1-d
-        return type(tree)(*(torch.from_numpy(np.array(a)).to(self.device)
-                            for a in tree))
+        return tree_map(lambda a: torch.from_numpy(np.array(a)).to(
+            self.device), tree)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _imu_window(self, t0: float, t1: float):
-        """IMU window covering [t0, t1] on the device, and whether the
+        """IMU window covering [t0, t1] with host leaves, and whether the
         buffer covers the sweep (pre-init scans run LiDAR-only)."""
         m = self.cfg.imu.max_imu_per_scan
         if not self.imu_buf.initialized or self.imu_buf.sync(t0, t1) != 1:
-            ts = np.zeros((0,))
-            acc = gyr = np.zeros((0, 3), np.float32)
-            qs = np.zeros((0, 4), np.float32)
-            ok = False
-        else:
-            ts, acc, gyr, qs = self.imu_buf.window(t0, t1, m)
-            ok = True
+            return to_numpy(empty_imu_window(m)), False
+        ts, acc, gyr, qs = self.imu_buf.window(t0, t1, m)
         pad = m - len(ts)
-        return self._to_device(ImuWindow(
+        return ImuWindow(
             t=np.pad(ts, (0, pad)).astype(np.float32),
             acc=np.pad(acc, ((0, pad), (0, 0))).astype(np.float32),
             gyr=np.pad(gyr, ((0, pad), (0, 0))).astype(np.float32),
@@ -103,12 +122,18 @@ class OdometryRunner:
                                                    np.float32), (pad, 1))]
                              ).astype(np.float32),
             mask=np.arange(m) < len(ts),
-        )), ok
+        ), True
 
     # ---------------- scan processing --------------------------------------
     def make_scan(self, t_start: float, xyz: np.ndarray, t_rel: np.ndarray,
                   ring: Optional[np.ndarray] = None) -> Scan:
-        """Pack a raw cloud into the Scan layout on the device.  With
+        """:meth:`make_host_scan` on the device."""
+        return self._to_device(self.make_host_scan(t_start, xyz, t_rel, ring))
+
+    def make_host_scan(self, t_start: float, xyz: np.ndarray,
+                       t_rel: np.ndarray,
+                       ring: Optional[np.ndarray] = None) -> Scan:
+        """Pack a raw cloud into the Scan layout, host leaves.  With
         ``filter_point_size > 1`` and edge features off, the stride
         selection and the duplicate gate run here on the host, and only the
         ~N/stride candidate lanes are uploaded.  With edge features on the
@@ -128,27 +153,45 @@ class OdometryRunner:
             cand = xyz_arr[1::stride][:w]
             prev = xyz_arr[0::stride][:w]
             dup = np.all(np.abs(cand - prev) <= 1e-7, axis=-1)
-            scan = Scan(xyz=cand, t_rel=t_arr[1::stride][:w],
+            return Scan(xyz=cand, t_rel=t_arr[1::stride][:w],
                         mask=mask[1::stride][:w] & ~dup,
                         t_start=np.asarray(t_start, np.float32),
                         ring=np.zeros((w,), np.int32))
-        else:
-            ring_arr = np.zeros((n_max,), np.int32)
-            if ring is not None:
-                ring_arr[:n] = ring[:n]
-            scan = Scan(xyz=xyz_arr, t_rel=t_arr, mask=mask,
-                        t_start=np.asarray(t_start, np.float32),
-                        ring=ring_arr)
-        return self._to_device(scan)
+        ring_arr = np.zeros((n_max,), np.int32)
+        if ring is not None:
+            ring_arr[:n] = ring[:n]
+        return Scan(xyz=xyz_arr, t_rel=t_arr, mask=mask,
+                    t_start=np.asarray(t_start, np.float32), ring=ring_arr)
 
     def process_scan(self, t_start, xyz, t_rel) -> StepOutput:
         scan = self.make_scan(t_start, xyz, t_rel)
         t_end = t_start + (float(t_rel[-1]) if len(t_rel) else 0.0)
         window, synced = self._imu_window(t_start, t_end)
+        window = self._to_device(window)
         self.state, out = step(
             self.step_cfg, self.state, scan, window,
             torch.tensor(synced, device=self.device))
+        self._last_window = window
         return out
+
+    def high_rate_states(self):
+        """IMU-rate odometry over the last scan's IMU window: the latest
+        smoothed state propagated through it with the current biases (the
+        ~200 Hz state_estimation output, imuPreintegration.cpp:544-570).
+        With ``use_imu_roll_pitch`` the orientations are the IMU's own
+        chain (prepareOdometryMessage, imuPreintegration.cpp:713-723).
+
+        Returns (times, poses_q [n,4], poses_t [n,3], velocities [n,3])
+        of the window's live samples."""
+        if self._last_window is None:
+            raise RuntimeError("no scan processed yet")
+        poses, vels, mask = propagate_high_rate(self.state.smoother,
+                                                self.cfg.imu,
+                                                self._last_window)
+        win, poses, vels, m = to_numpy((self._last_window, poses, vels,
+                                        mask))
+        qs = win.q[m] if self.cfg.use_imu_roll_pitch else poses.q[m]
+        return win.t[m], qs, poses.t[m], vels[m]
 
     @staticmethod
     def _stats_record(out: StepOutput, i: int, t: Optional[float] = None,
@@ -207,15 +250,22 @@ class OdometryRunner:
 
     # ---------------- dataset replay ---------------------------------------
     def run_dataset(self, dataset, use_imu: bool = True,
-                    log_path: Optional[str] = None) -> RunResult:
+                    log_path: Optional[str] = None,
+                    high_rate: bool = False) -> RunResult:
         """Replay a dataset scan by scan.  On CUDA the kernels are built
         before the timed loop (the counterpart of the JAX runner's compile
-        warm-up); no step runs before it."""
+        warm-up); no step runs before it.  ``high_rate=True`` also streams
+        the IMU-rate odometry: after each scan the smoothed state is
+        propagated through the scan's IMU window
+        (:meth:`high_rate_states`) and every ``high_rate_decimation``-th
+        sample is kept (~50 Hz, imuPreintegration.cpp:629,648-650)."""
         if self.device.type == "cuda":
             kernels.load()
         imu_i = 0
         imu = dataset.imu
         poses_q, poses_t, smoothed_t, stats = [], [], [], []
+        stream = _Stream(self.cfg.imu.high_rate_decimation) \
+            if high_rate else None
         t_begin = time.perf_counter()
         for i, s in enumerate(dataset.scans):
             t_end_scan = (s.t_start + float(s.t_rel[-1]) if len(s.t_rel)
@@ -232,8 +282,9 @@ class OdometryRunner:
             smoothed_t.append(out.smoothed_pose.t)
             stats.append(self._stats_record(out, i, t=float(s.t_start),
                                             time_ms=scan_ms))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            if stream is not None:
+                stream.add(*self.high_rate_states())
+        self._sync()
         wall = time.perf_counter() - t_begin
 
         if log_path:
@@ -247,4 +298,172 @@ class OdometryRunner:
             stats=stats,
             wall_time_s=wall,
             scans_per_sec=len(dataset.scans) / wall,
+            **(stream.fields() if stream is not None else {}),
         )
+
+    def stack_chunked_inputs(self, dataset, use_imu: bool = True,
+                             chunk: int = 16):
+        """The host half of the chunked replay.  The whole IMU stream is
+        ingested before any window is cut, so the buffer is initialised
+        before scan 0 (the chunked replay is another estimator than the
+        per-scan one over the first scans).  Returns the (Scan, ImuWindow,
+        avail) trees of the first ``n_chunks * chunk`` scans stacked on the
+        host as ``[n_chunks, chunk, ...]`` (None when no chunk is whole),
+        the built inputs of the remaining scans, and ``n_chunks``."""
+        imu = dataset.imu
+        if use_imu:
+            for i in range(len(imu.t)):
+                self.add_imu(imu.t[i], imu.acc[i], imu.gyr[i])
+
+        def build(s):
+            scan = self.make_host_scan(s.t_start, s.xyz_body, s.t_rel)
+            t_end = s.t_start + (float(s.t_rel[-1]) if len(s.t_rel) else 0.0)
+            win, ok = (self._imu_window(s.t_start, t_end) if use_imu
+                       else (to_numpy(empty_imu_window(
+                           self.cfg.imu.max_imu_per_scan)), False))
+            return scan, win, np.asarray(ok)
+
+        built = [build(s) for s in dataset.scans]
+        n_chunks = len(built) // chunk
+        stacked = None
+        if n_chunks:
+            stacked = tree_map(
+                lambda *xs: np.stack(xs).reshape((n_chunks, chunk)
+                                                 + np.shape(xs[0])),
+                *built[:n_chunks * chunk])
+        return stacked, built[n_chunks * chunk:], n_chunks
+
+    def _warm_up(self, inputs):
+        """One discarded step of ``inputs`` (host leaves) on the current
+        state, ahead of a timed loop.  The step is pure: the state is
+        left as it was."""
+        scan, win, ok = self._to_device(inputs)
+        step(self.step_cfg, self.state, scan, win, ok)
+        self._sync()
+
+    def run_dataset_chunked(self, dataset, use_imu: bool = True,
+                            chunk: int = 16, preload: bool = True,
+                            time_chunks: bool = False,
+                            high_rate: bool = False) -> RunResult:
+        """Replay the dataset offline in chunks of ``chunk`` scans through
+        :func:`pipeline.make_chunked_step_fn`, all IMU ingested up front
+        (:meth:`stack_chunked_inputs`).
+
+        Before the timer: the kernels are built (on CUDA) and one step of
+        scan 0 runs on the current state and is discarded.  With
+        ``preload`` every stacked input is on the device before the timer
+        starts; without it each chunk is copied from pinned host memory
+        inside the timed loop, on the step's stream (the same inputs, so
+        the same poses).  ``time_chunks`` synchronises after every chunk
+        and stamps each scan with its chunk's time / ``chunk``; otherwise
+        each is stamped with the mean over the run.  The outputs are read
+        back after the timer stops.  ``high_rate`` streams the IMU-rate
+        odometry of each scan (``pipeline.HighRateOut``), decimated and
+        deduplicated as :meth:`run_dataset` does.
+
+        The ``len(scans) % chunk`` remaining scans are replayed per scan
+        after the timed window, with their stats and stream samples;
+        ``scans_per_sec`` is ``len(dataset.scans)`` over the timed window
+        all the same.  The stats records lack the per-scan replay's
+        ``"t"``."""
+        chunk_fn = make_chunked_step_fn(self.step_cfg, high_rate)
+        stacked, rest, n_chunks = self.stack_chunked_inputs(dataset, use_imu,
+                                                            chunk)
+        if self.device.type == "cuda":
+            kernels.load()
+        self._warm_up(tree_map(lambda a: a[0, 0], stacked) if n_chunks
+                      else rest[0])
+        inputs = None
+        if n_chunks and preload:
+            inputs = self._to_device(stacked)
+        elif n_chunks:
+            inputs = tree_map(torch.from_numpy, stacked)
+            if self.device.type == "cuda":
+                inputs = tree_map(lambda a: a.pin_memory(), inputs)
+        self._sync()
+
+        t_begin = time.perf_counter()
+        pending, chunk_ms = [], []
+        for c in range(n_chunks):
+            t_chunk0 = time.perf_counter()
+            inp = tree_map(lambda a: a[c].to(self.device, non_blocking=True),
+                           inputs)
+            self.state, outs = chunk_fn(self.state, *inp)
+            if time_chunks:
+                self._sync()
+                chunk_ms.append((time.perf_counter() - t_chunk0) * 1000.0)
+            pending.append(outs)
+        self._sync()
+        wall = time.perf_counter() - t_begin
+        mean_scan_ms = wall / max(n_chunks * chunk, 1) * 1000.0
+
+        poses_q, poses_t, smoothed_t, stats = [], [], [], []
+        stream = _Stream(self.cfg.imu.high_rate_decimation) \
+            if high_rate else None
+        for c, outs in enumerate(to_numpy(tuple(pending))):
+            if stream is not None:
+                outs, hr = outs
+                for k in range(chunk):
+                    live = np.flatnonzero(hr.mask[k])
+                    qs = (stacked[1].q[c, k] if self.cfg.use_imu_roll_pitch
+                          else hr.q[k])
+                    stream.add(hr.t[k, live], qs[live], hr.p[k, live],
+                               hr.v[k, live])
+            poses_q.append(outs.pose.q)
+            poses_t.append(outs.pose.t)
+            smoothed_t.append(outs.smoothed_pose.t)
+            per_scan_ms = chunk_ms[c] / chunk if time_chunks else mean_scan_ms
+            for k in range(chunk):
+                stats.append(self._stats_record(
+                    tree_map(lambda a: a[k], outs), c * chunk + k,
+                    time_ms=per_scan_ms))
+        for b in rest:
+            t_scan0 = time.perf_counter()
+            scan, win, ok = self._to_device(b)
+            self.state, out = step(self.step_cfg, self.state, scan, win, ok)
+            self._last_window = win
+            out = to_numpy(out)
+            scan_ms = (time.perf_counter() - t_scan0) * 1000.0
+            poses_q.append(out.pose.q[None])
+            poses_t.append(out.pose.t[None])
+            smoothed_t.append(out.smoothed_pose.t[None])
+            stats.append(self._stats_record(out, len(stats),
+                                            time_ms=scan_ms))
+            if stream is not None:
+                stream.add(*self.high_rate_states())
+        return RunResult(
+            poses_q=np.concatenate(poses_q),
+            poses_t=np.concatenate(poses_t),
+            smoothed_t=np.concatenate(smoothed_t),
+            stats=stats,
+            wall_time_s=wall,
+            scans_per_sec=len(dataset.scans) / wall,
+            **(stream.fields() if stream is not None else {}),
+        )
+
+
+class _Stream:
+    """The IMU-rate stream as it is collected: every ``dec``-th live
+    sample of each window, dropping samples at or before the last one
+    kept (consecutive windows overlap at the scan boundary)."""
+
+    def __init__(self, dec: int):
+        self.dec = dec
+        self.t, self.q, self.p, self.v = [], [], [], []
+        self.last_t = -np.inf
+
+    def add(self, ts, qs, ps, vs):
+        for k in range(0, len(ts), self.dec):
+            if ts[k] <= self.last_t:
+                continue
+            self.last_t = float(ts[k])
+            self.t.append(ts[k])
+            self.q.append(qs[k])
+            self.p.append(ps[k])
+            self.v.append(vs[k])
+
+    def fields(self) -> dict:
+        return {"high_rate_t": np.asarray(self.t),
+                "high_rate_q": np.asarray(self.q),
+                "high_rate_p": np.asarray(self.p),
+                "high_rate_v": np.asarray(self.v)}

@@ -1,6 +1,7 @@
 """Host-side pieces of the PyTorch port against the JAX package: the
-configuration tree, the synthetic dataset, the native IMU buffer, the
-state converters, and the import isolation of the port (exact)."""
+configuration tree and the CLI's configurations, the synthetic dataset,
+the native IMU buffer, the state converters, and the import isolation of
+the port (exact); one chunked CLI replay on the CPU."""
 
 import ast
 import dataclasses
@@ -76,6 +77,56 @@ def test_config_for_profile(profile, short, parity):
     want = (tcfg.parity_config if parity else tcfg.ship_config)(short)
     assert _asdict(tcfg.config_for(profile, parity)) == _asdict(want)
     assert tcfg.profile_by_name(profile) is tcfg.profile_by_name(short)
+
+
+@pytest.mark.parametrize("profile", tcfg.PROFILES)
+@pytest.mark.parametrize("flag", [None, "--parity", "--ship"])
+def test_cli_configuration(profile, flag):
+    """The port's CLI builds what the JAX CLI builds for ``--profile``
+    alone (``PipelineConfig(sensor=profile_by_name(p))``), field by field;
+    ``--parity`` and ``--ship`` give the benchmark's configurations."""
+    from superodom_tpu_torch import cli
+
+    argv = ["--profile", profile, "--synthetic", "1"] + ([flag] if flag
+                                                         else [])
+    got = _asdict(cli.config_from_args(cli.parse_args(argv)))
+    if flag is None:
+        want = jcfg.PipelineConfig(sensor=jcfg.profile_by_name(profile))
+        assert got["auto_voxel_size"]
+    else:
+        want = {"--parity": tcfg.parity_config,
+                "--ship": tcfg.ship_config}[flag](profile)
+    assert got == _asdict(want)
+
+
+def test_cli_chunked_high_rate_replay(tmp_path, capsys):
+    """``--chunked --high-rate`` on the CPU, JAX's default profile (vlp_16)
+    and its configuration: 12 scans, so the IMU's 1 s static init
+    completes and the stream is written in TUM order (t x y z qx qy qz
+    qw); no stats.jsonl, as in the JAX CLI's chunked mode.  The two
+    benchmark flags exclude each other."""
+    import json
+
+    from superodom_tpu_torch import cli
+
+    assert cli.parse_args(["--synthetic", "1"]).profile == "vlp_16"
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--synthetic", "1", "--ship", "--parity"])
+    out = tmp_path / "run"
+    cli.main(["--synthetic", "12", "--chunked", "--high-rate", "--device",
+              "cpu", "--out", str(out)])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["config"] == "default"
+    assert line["scans"] == 12 and line["device"] == "cpu"
+    assert sorted(p.name for p in out.iterdir()) == [
+        "state_estimation.txt", "trajectory.txt"]
+    traj = np.loadtxt(out / "trajectory.txt")
+    assert traj.shape == (12, 7) and np.isfinite(traj).all()
+    hr = np.loadtxt(out / "state_estimation.txt")
+    assert hr.shape[1] == 8 and len(hr) > 20
+    assert np.all(np.diff(hr[:, 0]) > 0)
+    np.testing.assert_allclose(np.linalg.norm(hr[:, 4:8], axis=1), 1.0,
+                               atol=1e-5)
 
 
 def test_profile_by_name_and_runtime():

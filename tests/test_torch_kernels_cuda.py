@@ -14,8 +14,9 @@ wrapped lanes, ring boundaries, padded tails and NaN rows; the line fit
 over query counts, ties in the inlier count, rows with no or one valid
 neighbour and sentinel neighbours; the Gauss-Newton kernel with 0, 1 and
 512 edge rows beside 2,048 planes and the hold on edge votes alone;
-replays of the four paths repeated over poisoned freed memory; and the
-wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
+replays of the four paths repeated over poisoned freed memory; the
+chunked replay repeated at chunk sizes 20 and 4, preloaded and streamed,
+and one chunk against its four steps; and the wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
 test skips.
 
 Run on the GPU machine (no JAX there, so without the JAX conftest):
@@ -1003,3 +1004,72 @@ def test_edge_wrappers_check_inputs_and_count(dev):
                               3.0 * rt.line_res)
     assert kernels.launch_counts["edge_fit"] == n["edge_fit"]
     assert kernels.launch_counts["normal_system"] == n["normal_system"]
+
+
+def _ship_dataset(n_scans):
+    return make_dataset(np.random.default_rng(7), n_scans=n_scans,
+                        points_per_scan=131072,
+                        world=BoxWorld(half_extent=np.array([40.0, 30.0, 8.0])),
+                        radius=5.0, laps=0.5 * n_scans / 120.0, distortion=True)
+
+
+def test_chunked_replay_repeats_bit_for_bit(dev):
+    """The ship path's chunked replay over 20 scans: two replays at
+    chunk = 20 with the freed device memory filled with NaN in between
+    give the same poses to the bit, and so do chunks of 4 (with preloaded
+    and with streamed inputs); the kernels launch once more for the
+    warm-up step than the replay's rounds imply."""
+    cfg = ship_config("os1")
+    ds = _ship_dataset(20)
+    poses = []
+    for kw in (dict(chunk=20), dict(chunk=20), dict(chunk=4),
+               dict(chunk=4, preload=False, time_chunks=True)):
+        before = dict(kernels.launch_counts)
+        res = OdometryRunner(cfg, device=dev).run_dataset_chunked(ds, **kw)
+        launched = {k: kernels.launch_counts[k] - before[k] for k in before}
+        rounds = sum(s["n_iterations"] for s in res.stats)
+        assert launched["gn_solve"] == rounds + res.stats[0]["n_iterations"]
+        assert launched["normal_system"] == 21
+        poses.append(np.concatenate([res.poses_t, res.poses_q], axis=1))
+        junk = [torch.full(((1 << k) + 3 * j,), float("nan"), device=dev)
+                for k in range(2, 23) for j in range(4)]
+        del junk
+    assert np.isfinite(poses[0]).all() and poses[0].shape == (20, 7)
+    for p in poses[1:]:
+        np.testing.assert_array_equal(p, poses[0])
+
+
+def test_chunk_is_its_steps(dev):
+    """One ``make_chunked_step_fn`` chunk of 4 scans (with the IMU-rate
+    stream) from a warm ship-path state gives, leaf by leaf and to the
+    bit, the outputs of four ``step`` calls and their streams."""
+    from superodom_tpu_torch import inertial, pipeline
+    from superodom_tpu_torch.convert import to_numpy
+
+    cfg = ship_config("os1")
+    runner = OdometryRunner(cfg, device=dev)
+    stacked, _, n_chunks = runner.stack_chunked_inputs(_ship_dataset(16),
+                                                       chunk=8)
+    assert n_chunks == 2
+    inputs = runner._to_device(stacked)
+    chunk_fn = pipeline.make_chunked_step_fn(runner.step_cfg, high_rate=True)
+    state, _ = chunk_fn(runner.state,
+                        *pipeline.tree_map(lambda a: a[0], inputs))
+    second = pipeline.tree_map(lambda a: a[1, :4], inputs)
+    _, stacked_out = chunk_fn(state, *second)
+    for k in range(4):
+        scan, imu, avail = pipeline.tree_map(lambda a: a[k], second)
+        state, out = pipeline.step(runner.step_cfg, state, scan, imu, avail)
+        poses, vels, mask = inertial.propagate_high_rate(state.smoother,
+                                                         cfg.imu, imu)
+        mine = pipeline.tree_map(np.asarray, to_numpy(
+            (out, (imu.t, poses.q, poses.t, vels,
+                   mask & ~state.smoother.failed))))
+        theirs = to_numpy(pipeline.tree_map(lambda a: a[k], stacked_out))
+        leaves_a, leaves_b = [], []
+        pipeline.tree_map(lambda a, b: (leaves_a.append(a),
+                                        leaves_b.append(b)),
+                          mine, (theirs[0], tuple(theirs[1])))
+        assert len(leaves_a) > 30
+        for a, b in zip(leaves_a, leaves_b):
+            np.testing.assert_array_equal(a, b)

@@ -1,5 +1,6 @@
 """The PyTorch port's step and runner against the JAX package: one full
-step from the same transplanted state (pose 1e-4, outputs, next map), and
+step from the same transplanted state (pose 1e-4, outputs, next map), the
+same step with LIO prediction, and
 a 20-scan replay through ``OdometryRunner.run_dataset`` held to the
 golden-lock pinning rule against the JAX replay of the same data; and, the
 port alone, three scans through the runner on the CPU at the full widths
@@ -149,18 +150,65 @@ def test_runner_runs_on_the_card_by_default():
     assert params["device"].default == "cuda"
 
 
+def test_lio_prediction_matches_jax(jax_replay):
+    """LIO prediction (the smoother's newest state propagated through the
+    previous interval) from the same warm state as
+    test_one_step_matches_jax, whose smoother window is full: the source is
+    PRED_LIO_ODOM on both sides, and the step agrees at that test's
+    tolerances."""
+    from superodom_tpu.pipeline import make_step_fn
+
+    _, _, (before, scan, win, ok, _, _) = jax_replay
+    assert before.smoother.valid[0] and before.prev_imu.mask.any()
+    cfg_j = dataclasses.replace(_tiny(jcfg, early_exit=False),
+                                enable_lio_prediction=True)
+    cfg_t = dataclasses.replace(_tiny(tcfg, early_exit=False),
+                                enable_lio_prediction=True)
+    after_j, out_j = jax.device_get(make_step_fn(cfg_j)(before, scan, win,
+                                                        np.asarray(ok)))
+    after_t, out_t = tp.step(cfg_t, convert.odom_state_from_numpy(before),
+                             convert.scan_from_numpy(scan),
+                             convert.imu_window_from_numpy(win),
+                             torch.tensor(bool(ok)))
+    assert int(out_j.prediction_source) == tp.PRED_LIO_ODOM == 1
+    assert int(out_t.prediction_source) == tp.PRED_LIO_ODOM
+    np.testing.assert_allclose(out_t.pose.q.numpy(), out_j.pose.q, atol=1e-4)
+    np.testing.assert_allclose(out_t.pose.t.numpy(), out_j.pose.t, atol=1e-4)
+    np.testing.assert_allclose(out_t.smoothed_pose.t.numpy(),
+                               out_j.smoothed_pose.t, atol=1e-3)
+    for f in ("surf_stack_num", "surf_map_num", "motion_accepted",
+              "imu_healthy"):
+        assert np.asarray(getattr(out_t, f)) == np.asarray(getattr(out_j, f)), f
+    assert int(out_t.icp.n_iterations) == int(out_j.icp.n_iterations)
+    np.testing.assert_allclose(out_t.icp.plane_rejection_hist.numpy(),
+                               out_j.icp.plane_rejection_hist, atol=3)
+    for f in ("translation_from_last", "total_translation",
+              "total_rotation"):
+        np.testing.assert_allclose(float(getattr(out_t, f)),
+                                   float(getattr(out_j, f)), atol=1e-4,
+                                   rtol=1e-4, err_msg=f)
+    np.testing.assert_array_equal(after_t.surf_map.cnt.numpy(),
+                                  after_j.surf_map.cnt)
+    # the trust gate itself, both ways
+    for deg, ema, inst in ((True, 0.5, 0.5), (True, 0.5, 0.01),
+                           (True, 0.01, 0.5), (False, 0.0, 0.0)):
+        got = tp.lio_obs_trusted(torch.tensor(deg), torch.full((3,), ema),
+                                 0.05, obs_inst=torch.full((3,), inst))
+        assert bool(got) == (not deg or (ema > 0.05 and inst > 0.05))
+
+
 def test_unported_branches_raise():
-    """VIO undistortion and LIO prediction are not ported yet (edge
-    features are: tests/test_torch_edges.py)."""
+    """VIO undistortion is not ported yet (edge features and LIO
+    prediction are: tests/test_torch_edges.py and
+    test_lio_prediction_matches_jax)."""
     cfg = _tiny(tcfg, early_exit=True)
     state = tp.init_state(cfg)
     scan = OdometryRunner(cfg, device="cpu").make_scan(
         0.0, np.zeros((10, 3), np.float32), np.zeros(10, np.float32))
     win = tp.empty_imu_window(cfg.imu.max_imu_per_scan)
-    for bad in (dataclasses.replace(cfg, enable_lio_prediction=True),
-                dataclasses.replace(cfg, use_vio_undistortion=True)):
-        with pytest.raises(NotImplementedError):
-            tp.step(bad, state, scan, win, torch.tensor(False))
+    with pytest.raises(NotImplementedError):
+        tp.step(dataclasses.replace(cfg, use_vio_undistortion=True), state,
+                scan, win, torch.tensor(False))
 
 
 @pytest.mark.parametrize("name,make", [("os1", tcfg.parity_config),
