@@ -63,6 +63,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    increase at more than 35 samples a second with no step over 0.15 m;
    the ship path's first scans, replayed chunked on the CPU, agree with
    the card's.
+5. The SuperLoc path at 131,072 points a scan (``ship_config("os1")``
+   with each stress case's overrides, the port's copy of the stress
+   battery, seed 7): ``vio_corridor`` (SLAM with VIO undistortion and the
+   VIO prior, 170 scans), ``superloc_corridor`` (localization against the
+   frozen corridor prior map, with VIO; per scan and chunked at chunk = n)
+   and ``localization_room`` (the room's prior map from a 0.3 m /
+   0.05 rad init offset, 50 scans).  Each run's launches must equal
+   ``expected_launches`` (plus scan 0's, chunked), its poses be finite,
+   its first scans agree with the CPU plain path, a VIO case run K4 with
+   the prior enabled on at least one scan, and the case pass its ATE
+   bound, ``check`` and ``post_check`` (the map frozen) -- or, for a case
+   the reference fails at this density (REFERENCE_FAILS, C7 in
+   ROADMAP.md), give the CPU plain path's verdicts over the whole replay.
+   K4 with the VIO prior enabled against the plain solve at a corridor
+   scan's features on the prior map; checkpoint and resume on the card
+   (bit-identical), the prior map saved and loaded back.
 
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, then the last
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -88,6 +104,17 @@ CPU_AGREE_M = 1e-3
 CPU_SCANS = 12
 HOST_REPS = 100  # host-timed GN solves of each kind
 CHUNK = 16  # the replay benchmark's latency chunk
+SUPERLOC_POINTS = 131072  # phase 5: the stress battery at OS1-128 density
+SUPERLOC_SEED = 7
+# the cases that the reference (the JAX package, ship config, on the CPU:
+# tools/stress_matrix.py --points 131072) fails at this density (C7,
+# ROADMAP.md); each is held to the CPU plain path's verdicts instead
+REFERENCE_FAILS = ("vio_corridor", "superloc_corridor")
+# phase 5's replays: (case, chunked)
+SUPERLOC_RUNS = (("vio_corridor", False), ("superloc_corridor", False),
+                 ("superloc_corridor", True), ("localization_room", False))
+CPU_WORKER_THREADS = 4  # the CPU plain path's worker, beside the card runs
+CPU_WORKER_TIMEOUT_S = 600
 HR_MIN_RATE = 35.0  # IMU-rate stream samples a second of its span
 HR_MAX_STEP_M = 0.15
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, float32 outside the
@@ -321,11 +348,39 @@ def hold_reduce_select(m, s_r, queries, moved_q, W, k, timer, torch,
     return results
 
 
+def surface_features(shaper, s, res):
+    """The surface features the step selects from simulated scan ``s``:
+    the runner's layout, the quality gates, the configuration's thinning
+    at ``res`` and the compaction."""
+    from superodom_tpu_torch import frontend
+
+    sensor = shaper.cfg.sensor
+    scan = shaper.make_scan(s.t_start, s.xyz_body, s.t_rel)
+    gate = frontend.uniform_feature_gates(
+        scan.xyz, None, scan.mask, sensor.min_range, sensor.max_range,
+        skip_dup=True)
+    pts, mask, _ = frontend.thin_and_select(
+        scan.xyz, gate, res, sensor.max_surface_features,
+        sensor.compact_width, scan.t_rel, mode=sensor.scan_thin_mode,
+        table_bits=max((sensor.max_points * 4 - 1).bit_length(), 4))
+    return pts.contiguous(), mask.contiguous()
+
+
+def gn_solve_args(pts, fit, q, t, a_sq, n_it, prior, reg, hold):
+    """``kernels.gn_solve``'s arguments for the plane rows of ``pts`` and
+    their ``plane_fit`` outputs ``fit``, at pose (q, t), with ``prior``."""
+    return (pts, *(x.contiguous() for x in fit[:4]), fit[5].contiguous(), q,
+            t, a_sq, n_it, 1e-4,
+            tuple(x.contiguous() for x in (prior.pose.q, prior.pose.t,
+                                           prior.information, prior.enabled)),
+            reg.axis_hold_min_matches, reg.axis_hold_frac, hold)
+
+
 def phase_kernels(name, cfg, ds, torch, dev):
     """Phase 1: every kernel the ``name`` path runs between thinning and
     the pose, against its plain version on the card at that path's
     shapes."""
-    from superodom_tpu_torch import frontend, kernels, mapstate, registration
+    from superodom_tpu_torch import kernels, mapstate, registration
     from superodom_tpu_torch.config import RuntimeParams
     from superodom_tpu_torch.geometry import Pose, quat_mul, so3_exp
     from superodom_tpu_torch.runner import OdometryRunner
@@ -338,16 +393,7 @@ def phase_kernels(name, cfg, ds, torch, dev):
     shaper = OdometryRunner(cfg, device=dev)
 
     def features(i):
-        s = ds.scans[i]
-        scan = shaper.make_scan(s.t_start, s.xyz_body, s.t_rel)
-        gate = frontend.uniform_feature_gates(
-            scan.xyz, None, scan.mask, sensor.min_range, sensor.max_range,
-            skip_dup=True)
-        pts, mask, _ = frontend.thin_and_select(
-            scan.xyz, gate, res, sensor.max_surface_features,
-            sensor.compact_width, scan.t_rel, mode=sensor.scan_thin_mode,
-            table_bits=max((sensor.max_points * 4 - 1).bit_length(), 4))
-        return pts.contiguous(), mask.contiguous()
+        return surface_features(shaper, ds.scans[i], res)
 
     def gt_pose(i):
         return Pose(torch.tensor(ds.gt_poses_q[i], device=dev),
@@ -449,10 +495,7 @@ def phase_kernels(name, cfg, ds, torch, dev):
     solve_args = (pose, planes, None, rt, n_it)
 
     def gn_args(pr):  # kernels.gn_solve's arguments for solve_args, **kw
-        return (*args4[:5], out_r[5].contiguous(), q, t, a_sq, n_it, 1e-4,
-                tuple(x.contiguous() for x in (pr.pose.q, pr.pose.t,
-                                               pr.information, pr.enabled)),
-                reg.axis_hold_min_matches, reg.axis_hold_frac, hold_on)
+        return gn_solve_args(pts, out_r, q, t, a_sq, n_it, pr, reg, hold_on)
 
     gn_err = 0.0
     for case, pr in (("prior off", prior(False)), ("prior on", prior(True))):
@@ -1061,6 +1104,404 @@ def phase_chunked_cpu_agree(cfg, ds, res_gpu):
     return {"scans": n, "max_dt_m": dt, "max_dq": dq}
 
 
+def case_outcome(case, runner, res, ds):
+    """A stress case's verdicts on one run, as tools/stress_matrix.py
+    reads them: finite poses, the settled ATE against the case's bound,
+    the case's ``check`` and ``post_check``.  Returns (ATE, verdicts,
+    failure messages)."""
+    import numpy as np
+
+    from superodom_tpu_torch.io.datasets import ate_rmse
+
+    s = case.settle
+    finite = bool(np.isfinite(res.poses_t).all()
+                  and np.isfinite(res.poses_q).all())
+    ate = (ate_rmse(res.poses_t[s:], np.asarray(ds.gt_poses_t)[s:])
+           if finite else float("inf"))
+    verdicts, notes = {"finite": finite, "ate": ate < case.ate_bound}, []
+    for label, chk, args in (("check", case.check, (res, ds, s)),
+                             ("post_check", case.post_check,
+                              (runner, res, ds, s))):
+        if chk is None:
+            continue
+        try:
+            chk(*args)
+            verdicts[label] = True
+        except AssertionError as e:
+            verdicts[label] = False
+            notes.append(f"{label}: {e}")
+    return ate, verdicts, notes
+
+
+def superloc_run(case, cfg, ds, dev, chunked=False, n_scans=None):
+    """One replay of a SuperLoc case on ``dev`` through the user's entry
+    point: a fresh runner, the case's prior map primed (seed + 1, as
+    tools/stress_matrix.py primes it), then ``run_dataset`` or, chunked,
+    ``run_dataset_chunked`` at chunk = n with the inputs preloaded.  The
+    launch counts are set to 0 after the priming and read after the
+    replay.  ``n_scans`` replays the first scans only."""
+    import numpy as np
+
+    from superodom_tpu_torch import kernels
+    from superodom_tpu_torch.io import scenarios
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    if n_scans is not None:
+        ds = ds._replace(scans=ds.scans[:n_scans],
+                         gt_poses_q=ds.gt_poses_q[:n_scans],
+                         gt_poses_t=ds.gt_poses_t[:n_scans],
+                         times=ds.times[:n_scans])
+    runner = OdometryRunner(cfg, device=dev)
+    scenarios.prime_prior_map(runner, case,
+                              np.random.default_rng(SUPERLOC_SEED + 1))
+    kernels.reset_counts()
+    if chunked:
+        res = runner.run_dataset_chunked(ds, chunk=len(ds.scans))
+    else:
+        res = runner.run_dataset(ds, use_imu=True)
+    counts = dict(kernels.launch_counts)
+    return runner, res, counts, ds
+
+
+def superloc_setup():
+    """Phase 5's cases, configurations and data: {name: (case, config,
+    dataset)} for every SUPERLOC_RUNS case.  The two corridor cases build
+    the same dataset from the same seed; it is built once."""
+    import dataclasses
+
+    import numpy as np
+
+    from superodom_tpu_torch.config import ship_config
+    from superodom_tpu_torch.io import scenarios
+
+    cases = {c.name: c for c in scenarios.stress_battery(
+        points_per_scan=SUPERLOC_POINTS)}
+    corridor = cases["vio_corridor"].build(np.random.default_rng(
+        SUPERLOC_SEED))
+    room = cases["localization_room"].build(np.random.default_rng(
+        SUPERLOC_SEED))
+    base = ship_config("os1")
+    return {name: (cases[name],
+                   dataclasses.replace(base, **cases[name].cfg_overrides),
+                   room if name == "localization_room" else corridor)
+            for name, _ in SUPERLOC_RUNS}
+
+
+def cpu_superloc(n_threads):
+    """Phase 5's CPU plain path, in a worker process beside the card's
+    runs: each of SUPERLOC_RUNS replayed on the CPU, whole for a case the
+    reference fails at this density (its verdicts are the card's gate),
+    its first CPU_SCANS scans otherwise.  Returns {label: (first poses_t,
+    first poses_q, verdicts or None, settled ATE or None, seconds)}."""
+    import torch
+
+    torch.set_num_threads(n_threads)
+    setup = superloc_setup()
+    out = {}
+    for name, chunked in SUPERLOC_RUNS:
+        case, cfg, ds = setup[name]
+        whole = name in REFERENCE_FAILS
+        t0 = time.perf_counter()
+        runner, res, _, ds_n = superloc_run(
+            case, cfg, ds, "cpu", chunked, n_scans=None if whole
+            else CPU_SCANS)
+        ate, verdicts, _ = (case_outcome(case, runner, res, ds_n) if whole
+                            else (None, None, None))
+        out[run_label(name, chunked)] = (
+            res.poses_t[:CPU_SCANS], res.poses_q[:CPU_SCANS], verdicts, ate,
+            time.perf_counter() - t0)
+    return out
+
+
+def run_label(name, chunked):
+    return name + (" chunked" if chunked else "")
+
+
+def phase_superloc_case(case, cfg, ds, dev, out_dir, card, chunked=False):
+    """Phase 5: one SuperLoc case on the card.  Gates here: finite poses;
+    launches equal to ``expected_launches`` (plus scan 0's once,
+    chunked); a VIO case has at least one scan with K4's pose prior
+    enabled (the VIO prediction source).  The gates against the CPU plain
+    path are :func:`superloc_cpu_gates`'."""
+    import numpy as np
+
+    tag = f"phase 5 [{run_label(case.name, chunked)}]"
+    runner, res, counts, _ = superloc_run(case, cfg, ds, dev, chunked)
+    expect = expected_launches(cfg, res.stats
+                               + (res.stats[:1] if chunked else []))
+    log(f"{tag}: launches {counts}, expected {expect}")
+    if counts != expect:
+        raise SystemExit(f"{tag}: kernel launch counts do not match")
+    ate, verdicts, notes = case_outcome(case, runner, res, ds)
+    if not verdicts["finite"]:
+        raise SystemExit(f"{tag}: non-finite pose")
+    times = np.asarray([st["time_elapsed_ms"] for st in res.stats])
+    prior_frames = sum(st["pred_source"] == 2 for st in res.stats)
+    summary = {
+        "case": case.name, "chunked": chunked, "scans": len(ds.scans),
+        "points_per_scan": cfg.sensor.max_points,
+        "icp_rounds": sum(st["n_iterations"] for st in res.stats),
+        "launches": counts,
+        "scans_per_sec": res.scans_per_sec,
+        "p50_step_ms": float(np.percentile(times, 50)),
+        "p90_step_ms": float(np.percentile(times, 90)),
+        "settled_ate_m": ate, "ate_bound_m": case.ate_bound,
+        "verdicts": verdicts, "notes": notes,
+        "prior_enabled_frames": int(prior_frames),
+        "degenerate_frames": int(sum(st["degenerate"] for st in res.stats)),
+        "reference_fails_here": case.name in REFERENCE_FAILS,
+    }
+    log(f"{tag} ({card}): " + json.dumps(summary))
+    with open(os.path.join(out_dir, f"stats_{case.name}"
+                           f"{'_chunked' if chunked else ''}.jsonl"), "w") as f:
+        for rec in res.stats:
+            f.write(json.dumps(rec) + "\n")
+    if cfg.use_vio_undistortion and prior_frames == 0:
+        raise SystemExit(f"{tag}: no scan ran K4 with the VIO pose prior")
+    return runner, res, summary
+
+
+def superloc_cpu_gates(label, res, summary, cpu):
+    """Phase 5, against the CPU plain path's run of the same case: the
+    first CPU_SCANS scans agree within CPU_AGREE_M; the case's verdicts
+    all pass or, for a case the reference fails at this density (C7),
+    equal the CPU plain path's verdicts over the whole replay."""
+    import numpy as np
+
+    poses_t, poses_q, cpu_verdicts, cpu_ate, _ = cpu
+    n = len(poses_t)
+    dt = float(np.abs(poses_t - res.poses_t[:n]).max())
+    dq = float(np.abs(poses_q - res.poses_q[:n]).max())
+    summary.update(cpu_first_scans_max_dt_m=dt, cpu_first_scans_max_dq=dq)
+    if cpu_verdicts is not None:
+        summary.update(cpu_settled_ate_m=cpu_ate, cpu_verdicts=cpu_verdicts)
+    tag = f"phase 5 [{label}]"
+    log(f"{tag}: first {n} scans, GPU vs CPU plain path: max |dt| {dt:.3e} "
+        f"m, max |dq| {dq:.3e}" + (
+            f"; CPU settled ATE {cpu_ate:.6f} m, verdicts {cpu_verdicts}"
+            if cpu_verdicts is not None else ""))
+    if not (dt <= CPU_AGREE_M and dq <= CPU_AGREE_M):
+        raise SystemExit(f"{tag}: the first {n} scans disagree with the CPU "
+                         "plain path")
+    verdicts = summary["verdicts"]
+    if cpu_verdicts is not None:
+        if verdicts != cpu_verdicts:
+            raise SystemExit(f"{tag}: verdicts {verdicts} differ from the "
+                             f"CPU plain path's {cpu_verdicts}")
+    elif not all(verdicts.values()):
+        raise SystemExit(f"{tag}: the case fails on the card: {verdicts} "
+                         f"{summary['notes']}")
+
+
+def phase_prior_k4(cfg, m, ds, i, uncertainty, torch, dev):
+    """Phase 5: K4's GN solve with the VIO pose prior enabled, against the
+    plain solve, at the corridor's own shapes: the features of scan ``i``
+    (a scan the replay ran with the prior) at a pose 10 cm off along the
+    corridor, the SuperLoc prior map ``m``, the prior's information as
+    the step weighs it from the scan's carried ``uncertainty``; with the
+    axis hold disarmed (the main path past warm-up) and armed.  The pose
+    within GN_TOL of the plain solve, the same ``first_small``, repeat
+    runs bit-identical."""
+    from types import SimpleNamespace
+
+    from superodom_tpu_torch import kernels, mapstate, registration
+    from superodom_tpu_torch.config import RuntimeParams
+    from superodom_tpu_torch.geometry import Pose
+    from superodom_tpu_torch.pipeline import _vio_information
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    sensor, reg = cfg.sensor, cfg.registration
+    res = torch.full((), sensor.default_plane_res, device=dev)
+    pts, mask = surface_features(OdometryRunner(cfg, device=dev),
+                                 ds.scans[i], res)
+    gt = Pose(torch.tensor(ds.gt_poses_q[i], device=dev),
+              torch.tensor(ds.gt_poses_t[i], device=dev))
+    pose = Pose(gt.q, gt.t + torch.tensor([0.1, 0.0, 0.0], device=dev))
+    queries = pose.apply(pts).contiguous()
+    q, t = pose.q.contiguous(), pose.t.contiguous()
+    slots = mapstate.octant_lookup_reference(m.keys, queries,
+                                             cfg.map.cell_size)
+    nr, sr, vr, _ = mapstate.knn_select_reference(m.pts, slots, queries,
+                                                  reg.plane_knn)
+    fit = registration.plane_fit_reference(
+        nr.contiguous(), sr.contiguous(), vr.contiguous(), mask, queries, q,
+        res)
+    planes = registration.PlaneCorrs(pts, *fit)
+    info = _vio_information(SimpleNamespace(uncertainty=torch.tensor(
+        uncertainty, device=dev)), mask, reg, torch.float32)
+    prior = registration.PosePrior(
+        pose=Pose(gt.q, gt.t + torch.tensor([0.02, -0.01, 0.0], device=dev)),
+        information=info.contiguous(),
+        enabled=torch.tensor(True, device=dev))
+    rt = RuntimeParams(torch.tensor(sensor.default_line_res, device=dev), res)
+    n_it = reg.max_gn_iters
+    a_sq = (3.0 * res).contiguous()
+    nq = pts.shape[0]
+    out, err = {}, 0.0
+    for hold in (False, True):
+        hold_t = torch.tensor(hold, device=dev)
+        kw = dict(prior=prior, axis_hold_min=reg.axis_hold_min_matches,
+                  axis_hold_frac=reg.axis_hold_frac, hold_enabled=hold_t)
+        solve_args = (pose, planes, None, rt, n_it)
+        gn = gn_solve_args(pts, fit, q, t, a_sq, n_it, prior, reg, hold_t)
+        qk, tk, sk1 = kernels.gn_solve(*gn)
+        qk2, tk2, sk2 = kernels.gn_solve(*gn)
+        ref, sr1 = registration.gauss_newton_solve_reference(*solve_args,
+                                                             **kw)
+        torch.cuda.synchronize()
+        dt = float((tk - ref.t).abs().max())
+        dq = float((qk - ref.q).abs().max())
+        same_small = bool(sk1) == bool(sr1) == bool(sk2)
+        rep = torch.equal(qk, qk2) and torch.equal(tk, tk2)
+        log(f"K4 gn_solve, VIO prior on, corridor scan {i} ({nq} rows, "
+            f"{int(fit[3].sum())} valid planes, hold "
+            f"{'armed' if hold else 'disarmed'}): max |dt| {dt:.3e} m, max "
+            f"|dq| {dq:.3e}, first_small kernel {bool(sk1)} plain "
+            f"{bool(sr1)}, repeat bit-identical {rep}; the solve moved the "
+            f"pose {float((ref.t - pose.t).abs().max()):.3e} m; information "
+            f"{[round(float(v), 2) for v in info]}")
+        if not (dt <= GN_TOL and dq <= GN_TOL and same_small and rep):
+            raise SystemExit("K4 gn_solve with the VIO prior disagrees with "
+                             "the plain solve")
+        err = max(err, dt, dq)
+        if not hold:  # the main path's mode past warm-up
+            out = dict(
+                err=err, ms=device_ms(lambda: kernels.gn_solve(*gn), torch),
+                plain_ms=device_ms(
+                    lambda: registration.gauss_newton_solve_reference(
+                        *solve_args, **kw), torch),
+                bound=bound(nq * 37 + 32 + 53 + 29, n_it * (nq * 124 + 600)))
+    out["err"] = err
+    return out
+
+
+def phase_checkpoint(cfg, ds, torch, dev, out_dir):
+    """Phase 5: checkpoint and resume on the card.  Ten scans of the VIO
+    corridor, ``save_state``; ``load_state`` into a fresh runner fed the
+    same IMU and VIO streams; ten more scans in both: every output
+    bit-identical.  Then ``save_prior_map`` / ``load_prior_map`` into a
+    fresh state: above 0.9 of the stored points come back (the insert
+    thins co-located points)."""
+    import numpy as np
+
+    from superodom_tpu_torch import checkpoint, mapstate
+    from superodom_tpu_torch.convert import to_numpy
+    from superodom_tpu_torch.pipeline import init_state
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    def leaves(tree):
+        return ([x for part in tree for x in leaves(part)]
+                if isinstance(tree, tuple) else [tree])
+
+    def leaves_equal(x, y):
+        lx, ly = leaves(x), leaves(y)
+        return len(lx) == len(ly) and all(
+            np.array_equal(u, v) for u, v in zip(lx, ly))
+
+    runners = [OdometryRunner(cfg, device=dev) for _ in range(2)]
+    for r in runners:
+        r._ingest_dataset_vio(ds)
+    imu = ds.imu
+    imu_i = 0
+
+    def feed(rs, i):
+        nonlocal imu_i
+        t_end = ds.scans[i].t_start + float(ds.scans[i].t_rel[-1])
+        while imu_i < len(imu.t) and imu.t[imu_i] <= t_end + 0.02:
+            for r in rs:
+                r.add_imu(imu.t[imu_i], imu.acc[imu_i], imu.gyr[imu_i])
+            imu_i += 1
+
+    a, b = runners
+    for i in range(10):
+        feed(runners, i)
+        s = ds.scans[i]
+        a.process_scan(s.t_start, s.xyz_body, s.t_rel)
+    path = os.path.join(out_dir, "checkpoint.npz")
+    checkpoint.save_state(path, a.state)
+    b.state = checkpoint.load_state(path, cfg, dev)
+    same = []
+    for i in range(10, 20):
+        feed(runners, i)
+        s = ds.scans[i]
+        outs = [to_numpy(r.process_scan(s.t_start, s.xyz_body, s.t_rel))
+                for r in runners]
+        same.append(leaves_equal(*outs))
+    state_same = leaves_equal(*(to_numpy(r.state) for r in runners))
+    os.remove(path)
+    pcd = os.path.join(out_dir, "prior_map.pcd")
+    checkpoint.save_prior_map(pcd, a.state)
+    loaded = checkpoint.load_prior_map(pcd, cfg, init_state(cfg,
+                                                            device=dev))
+    os.remove(pcd)
+    n_before = int(mapstate.total_points(a.state.surf_map))
+    n_after = int(mapstate.total_points(loaded.surf_map))
+    summary = {"resumed_scans": len(same), "outputs_bit_identical": all(same),
+               "state_bit_identical": state_same,
+               "map_points_saved": n_before, "map_points_loaded": n_after}
+    log("phase 5 [checkpoint]: " + json.dumps(summary))
+    if not (all(same) and state_same):
+        raise SystemExit("phase 5: the resumed runner's outputs differ from "
+                         "the original's")
+    if not n_after > 0.9 * n_before:
+        raise SystemExit("phase 5: the prior map did not come back")
+    return summary
+
+
+def phase_superloc(torch, dev, out_dir, card):
+    """Phase 5: the SuperLoc path on the card at 131,072 points a scan
+    (``ship_config("os1")`` with each case's overrides, the stress
+    battery's data, seed 7): ``vio_corridor`` (SLAM with VIO, 170 scans),
+    ``superloc_corridor`` (the frozen corridor prior map with VIO, 170
+    scans, per scan and chunked at chunk = n), ``localization_room`` (the
+    room's prior map from a 0.3 m / 0.05 rad offset, 50 scans); K4 with
+    the VIO prior at the corridor's shapes; checkpoint and resume.  The
+    CPU plain path's replays run meanwhile in one spawned worker process
+    (CPU_WORKER_THREADS threads), which is stopped on the way out."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        cpu_async = pool.apply_async(cpu_superloc, (CPU_WORKER_THREADS,))
+        t0 = time.perf_counter()
+        setup = superloc_setup()
+        log(f"phase 5: datasets ({SUPERLOC_POINTS} points a scan) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out, card_runs = {}, {}
+        for name, chunked in SUPERLOC_RUNS:
+            case, cfg, ds = setup[name]
+            runner, res, summary = phase_superloc_case(
+                case, cfg, ds, dev, out_dir, card, chunked)
+            out[run_label(name, chunked)] = summary
+            card_runs[run_label(name, chunked)] = res
+            if name == "superloc_corridor" and not chunked:
+                i = next(k for k, st in enumerate(res.stats)
+                         if st["pred_source"] == 2)
+                k4 = phase_prior_k4(cfg, runner.state.surf_map, ds, i,
+                                    res.stats[i - 1]["uncertainty"], torch,
+                                    dev)
+        case, cfg, ds = setup["vio_corridor"]
+        out["checkpoint"] = phase_checkpoint(cfg, ds, torch, dev, out_dir)
+        t0 = time.perf_counter()
+        cpu = cpu_async.get(timeout=CPU_WORKER_TIMEOUT_S)
+        log(f"phase 5: waited {time.perf_counter() - t0:.1f} s for the CPU "
+            f"plain path's replays ("
+            + ", ".join(f"{k} {v[4]:.1f} s" for k, v in cpu.items()) + ")")
+    finally:
+        pool.terminate()
+        pool.join()
+    for label, res in card_runs.items():
+        superloc_cpu_gates(label, res, out[label], cpu[label])
+        r = out[label]
+        log(f"phase 5 [{label}] ({card}): settled ATE "
+            f"{r['settled_ate_m']:.6f} m (bound {r['ate_bound_m']} m), "
+            f"{r['scans_per_sec']:.3f} scans/s, p50 / p90 "
+            f"{r['p50_step_ms']:.2f} / {r['p90_step_ms']:.2f} ms, "
+            f"{r['prior_enabled_frames']} scans with K4's VIO prior "
+            f"enabled, verdicts {r['verdicts']}")
+    return out, k4
+
+
 def measured(r):
     """The kernels line's measured fields of one phase-1 result."""
     return {"max_abs_err": r["err"], "ms": r["ms"],
@@ -1193,6 +1634,9 @@ def main(argv=None):
                f"{ref['p90_step_ms']:.2f} ms, ATE {ref['ate_m']:.6f} m"
                if ref else ""))
 
+    # phase 5: the SuperLoc path
+    superloc, k4_prior = phase_superloc(torch, dev, args.out, smi)
+
     # every number but ``launches`` and ``bound_ms`` is of the path under
     # ``path``; ``by_path`` has the same fields for every path that runs
     # the kernel
@@ -1208,6 +1652,8 @@ def main(argv=None):
         "library_ms": None,  # no single PyTorch call computes these
         "by_path": {p: dict(measured(kres[p][k]), launches=runs[p][1][k])
                     for p in paths if k in kres[p]},
+        **({"vio_prior_on_corridor": measured(k4_prior)}
+           if k == "gn_solve" else {}),
     } for k in kernels.KERNELS]
     record = {"card": smi, "kernels": entries, "main_path": runs["ship"][2],
               "paths": {p: runs[p][2] for p in paths},
@@ -1220,7 +1666,9 @@ def main(argv=None):
                                          if k != "result"}
                                  for label, r in per.items()}
                           for name, per in chunked.items()},
-              "chunked_cpu_agree": chunked_cpu}
+              "chunked_cpu_agree": chunked_cpu,
+              "superloc": superloc,
+              "gn_solve_vio_prior_on_corridor": measured(k4_prior)}
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"kernels": entries}))

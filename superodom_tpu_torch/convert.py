@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from superodom_tpu_torch.config import RuntimeParams
-from superodom_tpu_torch.frontend import ImuWindow, Scan
+from superodom_tpu_torch.frontend import ImuWindow, Scan, VioWindow
 from superodom_tpu_torch.geometry import Pose
 from superodom_tpu_torch.inertial import Preintegrated, SmootherState
 from superodom_tpu_torch.mapstate import ReducedCandidates, VoxelHashMap
@@ -35,7 +35,7 @@ from superodom_tpu_torch.registration import (
 _TYPES = {cls.__name__: cls for cls in (
     OdomState, StepOutput, Pose, RuntimeParams, VoxelHashMap, SmootherState,
     Preintegrated, ImuWindow, Scan, IcpStats, RegistrationError, PlaneCorrs,
-    PosePrior, ReducedCandidates, EdgeCorrs, HighRateOut)}
+    PosePrior, ReducedCandidates, EdgeCorrs, HighRateOut, VioWindow)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -76,4 +76,5 @@ voxel_map_from_numpy = _typed("VoxelHashMap")
 smoother_state_from_numpy = _typed("SmootherState")
 scan_from_numpy = _typed("Scan")
 imu_window_from_numpy = _typed("ImuWindow")
+vio_window_from_numpy = _typed("VioWindow")
 odom_state_to_numpy = to_numpy

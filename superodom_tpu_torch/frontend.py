@@ -1,7 +1,7 @@
 """Scan frontend: feature gates, curvature edges (K11a), scan thinning in
 its four modes (voxel claim, voxel centroid, r^2-stratified, none),
-even-rate compaction and IMU undistortion (counterpart of
-``superodom_tpu.frontend``).
+even-rate compaction, IMU undistortion and the 6-DoF undistortion against
+an external (VIO) pose path (counterpart of ``superodom_tpu.frontend``).
 
 Every array keeps its static width with a validity mask: no ``nonzero()``
 and no boolean indexing, so the step never waits on the host.
@@ -54,6 +54,17 @@ class ImuWindow(NamedTuple):
     mask: torch.Tensor  # bool[M]
 
 
+class VioWindow(NamedTuple):
+    """External (visual-inertial) odometry pose samples covering one scan,
+    as T_w_lidar (removePointDistortion<Odometry> over visualOdomBuf,
+    featureExtraction.cpp:236-249,462-468)."""
+
+    t: torch.Tensor  # f32[K] absolute sample times
+    q: torch.Tensor  # f32[K,4] lidar-frame world orientation
+    p: torch.Tensor  # f32[K,3] lidar-frame world position
+    mask: torch.Tensor  # bool[K]
+
+
 def _interp_pose_at(imu: ImuWindow, pos: torch.Tensor,
                     times: torch.Tensor) -> Pose:
     """Slerp-interpolated pose at arbitrary times from the IMU window,
@@ -103,6 +114,37 @@ def undistort_points(
     q_w_original_l = quat_normalize(quat_mul(q_w_start, matrix_to_quat(R_i_l)))
     t_w_original_l = quat_rotate(q_w_start, t_i_l)
     return out, q_w_original_l, t_w_original_l
+
+
+def undistort_points_posed(
+    xyz: torch.Tensor,
+    t_rel: torch.Tensor,
+    mask: torch.Tensor,
+    t_start,
+    path_t: torch.Tensor,
+    path_q: torch.Tensor,
+    path_p: torch.Tensor,
+    path_mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Undistortion against a 6-DoF pose path in the lidar frame (rotation
+    and translation, removePointDistortion<Odometry>,
+    featureExtraction.cpp:236-249,462-468): p' = T_start^-1 T(t_point) p,
+    in the JAX package's operation order.
+
+    Returns (undistorted xyz, q_w_original, t_w_original)."""
+    dtype, dev = xyz.dtype, xyz.device
+    t_start = torch.as_tensor(t_start, dtype=dtype, device=dev)
+    win = ImuWindow(t=path_t, acc=torch.zeros_like(path_p),
+                    gyr=torch.zeros_like(path_p), q=path_q, mask=path_mask)
+    start = _interp_pose_at(win, path_p, t_start[None])
+    q0, p0 = start.q[0], start.t[0]
+    pt_pose = _interp_pose_at(win, path_p, t_start + t_rel)
+    inv_q = quat_normalize(quat_conj(q0))
+    rel_q = quat_mul(inv_q.expand(pt_pose.q.shape), pt_pose.q)
+    rel_t = quat_rotate(inv_q[None, :], pt_pose.t - p0[None, :])
+    out = quat_rotate(rel_q, xyz) + rel_t
+    out = torch.where(mask[:, None], out, xyz)
+    return out, q0, p0
 
 
 def uniform_feature_gates(xyz, prev, mask, min_range: float,

@@ -423,3 +423,20 @@ def census_box(m: VoxelHashMap, cfg: MapConfig, center: torch.Tensor,
     inside = (m.keys != _EMPTY) & torch.all(torch.abs(d) <= half_extent,
                                             dim=-1)
     return torch.sum(torch.where(inside, m.cnt, 0)).to(torch.int32)
+
+
+def total_points(m: VoxelHashMap) -> torch.Tensor:
+    """Stored points over the whole table."""
+    return torch.sum(torch.where(m.keys != _EMPTY, m.cnt, 0)).to(torch.int32)
+
+
+def extract_points(m: VoxelHashMap):
+    """Every slot lane of the table as points [NB*B*C, 3] and their
+    validity mask (a stored point of a live cell), flattened slot-major."""
+    nb, B = m.keys.shape
+    C = m.cell_capacity
+    lanes = torch.arange(C, dtype=torch.int32, device=m.keys.device)
+    valid = (m.keys != _EMPTY)[..., None] & (lanes < m.cnt[..., None])
+    pts = torch.stack([m.pts[:, 0:C], m.pts[:, C:2 * C], m.pts[:, 2 * C:]],
+                      dim=-1).reshape(-1, 3)
+    return pts, valid.reshape(-1)

@@ -1,4 +1,5 @@
-"""Host IMU buffer: ctypes bindings for the repository's native runtime.
+"""Host IMU buffer and prior-map thinning: ctypes bindings for the
+repository's native runtime.
 
 The C++ source is this package's ``csrc/native_loader.cpp``, a byte-for-byte
 copy of the JAX package's native loader (held equal by
@@ -6,8 +7,10 @@ copy of the JAX package's native loader (held equal by
 built with the host C++ compiler into this package's ``build/`` directory
 at first use.  The library's name carries a hash of the source, the
 compiler, its flags and what ``-march=native`` means on this host, so a
-library built on another CPU is never loaded.  A failed build raises:
-there is no silent numpy fallback.
+library built on another CPU is never loaded.  A failed build raises for
+the IMU buffer; :func:`voxel_downsample`, a host utility of the prior-map
+load, keeps the JAX package's numpy branch for a host without the
+library.
 """
 
 from __future__ import annotations
@@ -92,6 +95,8 @@ def load() -> ctypes.CDLL:
     lib.so_imu_buffer_window.restype = i64
     lib.so_imu_buffer_window.argtypes = [vp, f64, f64, i64, f64p, f32p, f32p,
                                          f32p]
+    lib.so_voxel_downsample.restype = i64
+    lib.so_voxel_downsample.argtypes = [f32p, i64, f64, f32p]
     _lib = lib
     return lib
 
@@ -102,6 +107,28 @@ def _fp(a: np.ndarray):
 
 def _dp(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def voxel_downsample(xyz: np.ndarray, res: float) -> np.ndarray:
+    """Per-voxel centroids of ``xyz`` at ``res`` (the prior map's host
+    thinning): the native hash grid, or where the library cannot be built
+    the numpy centroid per voxel."""
+    try:
+        lib = load()
+    except (OSError, RuntimeError):
+        lib = None
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    n = len(xyz)
+    if lib is not None:
+        out = np.empty((n, 3), np.float32)
+        m = lib.so_voxel_downsample(_fp(xyz), n, res, _fp(out))
+        return out[:m].copy()
+    keys = np.floor(xyz / res).astype(np.int64)
+    _, inv, cnt = np.unique(keys, axis=0, return_inverse=True,
+                            return_counts=True)
+    sums = np.zeros((len(cnt), 3), np.float64)
+    np.add.at(sums, inv, xyz)
+    return (sums / cnt[:, None]).astype(np.float32)
 
 
 class ImuBuffer:

@@ -4,15 +4,16 @@
 One scan runs, in order: feature gates, scan thinning and even-rate
 compaction, with ``use_edge_features`` curvature edges (K11a) and their
 voxel thinning, IMU undistortion with the constant-velocity and
-translation de-skews, prediction-source selection, scan-to-map ICP, motion
-gates, map insert and eviction (the edge map's too), and the inertial
-smoother.  Decisions that
-JAX makes with ``jnp.where`` stay device-side selections here, so a step
-waits on the host only for the ICP early-exit flag and, where a map
-cadence is not 1, for the frame count.
+translation de-skews, with ``use_vio_undistortion`` and a VIO window the
+6-DoF undistortion against the external pose path and the refresh of the
+VIO pose prior, prediction-source selection, scan-to-map ICP (with the
+prior under degeneracy), motion gates, map insert and eviction (the edge
+map's too; none with a frozen localization map), and the inertial
+smoother.  Decisions that JAX makes with ``jnp.where`` stay device-side
+selections here, so a step waits on the host only for the ICP early-exit
+flag and, where a map cadence is not 1, for the frame count.
 
-The step is pure: it never modifies ``state``.  The static branch that
-is not ported yet (VIO undistortion) raises NotImplementedError.
+The step is pure: it never modifies ``state``.
 :func:`make_chunked_step_fn` replays a chunk of stacked scans through
 :func:`step`, with the IMU-rate stream of each scan beside its outputs.
 """
@@ -28,10 +29,12 @@ from superodom_tpu_torch.config import MapConfig, PipelineConfig, RuntimeParams
 from superodom_tpu_torch.frontend import (
     ImuWindow,
     Scan,
+    VioWindow,
     curvature_edge_extraction,
     decimated_width,
     thin_and_select,
     undistort_points,
+    undistort_points_posed,
     uniform_feature_extraction,
     uniform_feature_gates,
 )
@@ -132,6 +135,16 @@ def empty_imu_window(m: int, dtype=torch.float32, device=None) -> ImuWindow:
         gyr=torch.zeros((m, 3), dtype=dtype, device=device),
         q=quat_identity(dtype, device)[None].repeat(m, 1),
         mask=torch.zeros((m,), dtype=torch.bool, device=device),
+    )
+
+
+def empty_vio_window(k: int, dtype=torch.float32, device=None) -> VioWindow:
+    """All-masked-out external-odometry window."""
+    return VioWindow(
+        t=torch.zeros((k,), dtype=dtype, device=device),
+        q=quat_identity(dtype, device)[None].repeat(k, 1),
+        p=torch.zeros((k, 3), dtype=dtype, device=device),
+        mask=torch.zeros((k,), dtype=torch.bool, device=device),
     )
 
 
@@ -285,6 +298,17 @@ def _adjust_voxel_size(cfg: PipelineConfig, rt: RuntimeParams, xyz, mask):
                          plane_res=plane.to(xyz.dtype)), average_distance
 
 
+def _vio_covers(scan: Scan, vio: VioWindow) -> torch.Tensor:
+    """Sweep-coverage gate of the external pose path: >= 2 samples
+    spanning [t_start, t_end], t_end the scan's latest masked point time
+    (synchronize_measurements, featureExtraction.cpp:171-217)."""
+    n = torch.sum(vio.mask.to(torch.int32))
+    tmin = torch.min(torch.where(vio.mask, vio.t, torch.inf))
+    tmax = torch.max(torch.where(vio.mask, vio.t, -torch.inf))
+    t_end = scan.t_start + torch.max(torch.where(scan.mask, scan.t_rel, 0.0))
+    return (n >= 2) & (tmin <= scan.t_start + 1e-6) & (tmax + 1e-6 >= t_end)
+
+
 def _vio_information(state, surf_mask, reg, dtype):
     """Per-axis information of the absolute-pose constraint under
     degeneracy (LidarSlam.cpp:285-298)."""
@@ -317,12 +341,14 @@ class _Stages:
 
 
 def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
-         imu_available: torch.Tensor, vio=None
+         imu_available: torch.Tensor, vio: VioWindow | None = None
          ) -> Tuple[OdomState, StepOutput]:
     """Process one scan end to end (laserMapping::process with the feature
-    extraction ahead of it and the inertial smoother after it)."""
-    if cfg.use_vio_undistortion:
-        raise NotImplementedError("VIO undistortion is not ported yet")
+    extraction ahead of it and the inertial smoother after it).  ``vio``
+    (an external 6-DoF pose path over the sweep) is read only with
+    ``cfg.use_vio_undistortion``; without a window the flag is ignored, as
+    in the JAX package."""
+    use_vio_path = cfg.use_vio_undistortion and vio is not None
     dtype, dev = scan.xyz.dtype, scan.xyz.device
     sensor = cfg.sensor
     reg = cfg.registration
@@ -391,6 +417,13 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
         tr = torch.where(surf_mask[:, None],
                          surf_trel[:, None] * v_b[None, :], 0.0)
         surf_pts = torch.where(use_trans, surf_u + tr, surf_pts)
+    if use_vio_path:
+        # 6-DoF undistortion where the external path covers the sweep
+        vio_ok = _vio_covers(scan, vio)
+        surf_v, q_vio0, p_vio0 = undistort_points_posed(
+            surf_raw, surf_trel, surf_mask, scan.t_start, vio.t, vio.q,
+            vio.p, vio.mask)
+        surf_pts = torch.where(vio_ok, surf_v, surf_pts)
     if cfg.use_edge_features:
         # curvature edges over every raw lane, voxel-thinned at line_res
         # after an even-rate compaction to compact_width // 2 lanes
@@ -414,6 +447,11 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
             tr_e = torch.where(edge_mask[:, None],
                                edge_trel[:, None] * v_b[None, :], 0.0)
             edge_pts = torch.where(use_trans, edge_u + tr_e, edge_pts)
+        if use_vio_path:
+            edge_v, _, _ = undistort_points_posed(
+                edge_raw, edge_trel, edge_mask, scan.t_start, vio.t, vio.q,
+                vio.p, vio.mask)
+            edge_pts = torch.where(vio_ok, edge_v, edge_pts)
     else:
         # slim-release parity: empty edge clouds (featureExtraction.cpp:429)
         edge_pts = torch.zeros((sensor.max_edge_features, 3), dtype=dtype,
@@ -423,6 +461,14 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
 
     # ---------------- prediction ------------------------------------------
     stage("prediction")
+    if use_vio_path:
+        # a covering window refreshes the VIO pose and its availability for
+        # this scan; availability is per-scan freshness, so a stream that
+        # drops out leaves no stale prior
+        state = state._replace(
+            vio_pose=_where_pose(vio_ok, Pose(q_vio0, p_vio0),
+                                 state.vio_pose),
+            vio_available=vio_ok)
     lidar2imu = Pose(matrix_to_quat(R_il), t_il)
     # the previous interval, preintegrated once: the LIO source and the
     # smoother share it
@@ -608,18 +654,23 @@ def tree_map(fn, *trees):
 def make_chunked_step_fn(cfg: PipelineConfig, high_rate: bool = False
                          ) -> Callable:
     """Replay of a chunk of scans (JAX: ``jax.jit`` of a ``lax.scan``):
-    ``(state, scans, imus, avails) -> (state, outputs)``, where every
-    input leaf has a leading chunk dimension and ``outputs`` is the
+    ``(state, scans, imus, avails[, vios]) -> (state, outputs)``, where
+    every input leaf has a leading chunk dimension (the stacked VIO windows
+    with ``cfg.use_vio_undistortion``, as in JAX) and ``outputs`` is the
     StepOutput of each scan stacked on the device.  With ``high_rate`` the
     outputs are ``(stacked StepOutput, stacked HighRateOut)``: each scan's
     IMU window integrated forward from the state the step left.  The loop
     adds no device-to-host read to the step's own."""
 
-    def chunk_fn(state, scans, imus, avails):
+    def chunk_fn(state, scans, imus, avails, vios=None):
+        if cfg.use_vio_undistortion and vios is None:
+            raise TypeError("the chunked step of a use_vio_undistortion "
+                            "config takes the stacked VIO windows")
         outs = []
         for k in range(avails.shape[0]):
             scan, imu = tree_map(lambda a: a[k], (scans, imus))
-            state, out = step(cfg, state, scan, imu, avails[k])
+            vio = None if vios is None else tree_map(lambda a: a[k], vios)
+            state, out = step(cfg, state, scan, imu, avails[k], vio)
             if high_rate:
                 poses, vels, mask = propagate_high_rate(state.smoother,
                                                         cfg.imu, imu)

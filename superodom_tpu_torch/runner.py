@@ -10,7 +10,10 @@ steps scan by scan as the IMU arrives; :meth:`run_dataset_chunked` ingests
 the whole IMU stream first, stacks every scan's inputs on the host and
 steps them in chunks, with the inputs on the device before its timer
 starts (the replay the reference benchmark measures).  Either can stream
-the IMU-rate odometry beside the poses.
+the IMU-rate odometry beside the poses.  With ``use_vio_undistortion`` an
+external (VIO) pose stream, fed by :meth:`OdometryRunner.add_vio_pose` or
+a dataset's ``vio``, is cut into one window a scan on the host and ships
+with the scan.
 """
 
 from __future__ import annotations
@@ -26,11 +29,18 @@ import torch
 from superodom_tpu_torch import kernels, native
 from superodom_tpu_torch.config import Extrinsics, PipelineConfig
 from superodom_tpu_torch.convert import to_numpy
-from superodom_tpu_torch.frontend import ImuWindow, Scan, decimated_width
+from superodom_tpu_torch.frontend import (
+    ImuWindow,
+    Scan,
+    VioWindow,
+    decimated_width,
+)
+from superodom_tpu_torch.geometry import Pose
 from superodom_tpu_torch.inertial import propagate_high_rate
 from superodom_tpu_torch.pipeline import (
     StepOutput,
     empty_imu_window,
+    empty_vio_window,
     init_state,
     make_chunked_step_fn,
     step,
@@ -83,6 +93,9 @@ class OdometryRunner:
         self.imu_init = None  # (acc_mean, gyr_bias, q0) after static init
         self._imu_t_first: Optional[float] = None
         self._last_window: Optional[ImuWindow] = None  # on the device
+        # external-odometry pose samples for the 6-DoF path undistortion,
+        # bounded like the reference's visualOdomBuf (5000)
+        self._vio_samples: list = []
 
     # ---------------- IMU ingestion ---------------------------------------
     def add_imu(self, t: float, acc: np.ndarray, gyr: np.ndarray):
@@ -124,6 +137,78 @@ class OdometryRunner:
             mask=np.arange(m) < len(ts),
         ), True
 
+    # ---------------- external odometry (VIO) aiding ------------------------
+    def add_vio_pose(self, t: float, q_wxyz: np.ndarray, p_xyz: np.ndarray):
+        """Ingest one external-odometry pose sample (T_w_lidar at time t),
+        the reference's visual_odom_Handler feeding visualOdomBuf."""
+        self._vio_samples.append((float(t), np.asarray(q_wxyz, np.float32),
+                                  np.asarray(p_xyz, np.float32)))
+        if len(self._vio_samples) > 5000:
+            self._vio_samples.pop(0)
+
+    def _vio_window(self, t0: float, t1: float) -> VioWindow:
+        """Pose samples bracketing [t0, t1] with host leaves, evenly
+        decimated to ``max_vio_per_scan`` (endpoints kept); all masked out
+        when the stream does not cover the sweep (the step's coverage gate
+        checks again)."""
+        k = self.cfg.max_vio_per_scan
+        ts = np.asarray([s[0] for s in self._vio_samples])
+        if len(ts) < 2 or ts[0] > t0 or ts[-1] < t1:
+            return to_numpy(empty_vio_window(k))
+        lo = int(np.searchsorted(ts, t0, side="right")) - 1
+        hi = int(np.searchsorted(ts, t1, side="left")) + 1
+        sel = list(range(max(lo, 0), min(hi, len(ts))))
+        if len(sel) > k:
+            idx = np.linspace(0, len(sel) - 1, k).round().astype(int)
+            sel = [sel[i] for i in idx]
+        n = len(sel)
+        pad = k - n
+        q = np.stack([self._vio_samples[i][1] for i in sel])
+        p = np.stack([self._vio_samples[i][2] for i in sel])
+        return VioWindow(
+            t=np.pad(ts[sel], (0, pad)).astype(np.float32),
+            q=np.concatenate([q, np.tile(np.array([1, 0, 0, 0], np.float32),
+                                         (pad, 1))]).astype(np.float32),
+            p=np.pad(p, ((0, pad), (0, 0))).astype(np.float32),
+            mask=np.arange(k) < n,
+        )
+
+    def set_vio_pose(self, q_wxyz: np.ndarray, t_xyz: np.ndarray,
+                     available: bool = True):
+        """Set the external absolute pose estimate: the prediction source
+        and the absolute-pose constraint under degeneracy
+        (addAbsolutePoseConstraints, LidarSlam.cpp:281-298)."""
+        self.state = self.state._replace(
+            vio_pose=Pose(torch.tensor(np.asarray(q_wxyz), dtype=self.dtype,
+                                       device=self.device),
+                          torch.tensor(np.asarray(t_xyz), dtype=self.dtype,
+                                       device=self.device)),
+            vio_available=torch.tensor(bool(available), device=self.device))
+
+    def _ingest_dataset_vio(self, dataset) -> None:
+        """Feed a dataset's external-odometry stream (``dataset.vio``),
+        where it has one and the VIO path is on, once."""
+        vio = getattr(dataset, "vio", None)
+        if vio is None or not self.cfg.use_vio_undistortion:
+            return
+        if self._vio_samples and self._vio_samples[-1][0] >= float(vio.t[0]):
+            return  # already ingested
+        for i in range(len(vio.t)):
+            self.add_vio_pose(vio.t[i], vio.q[i], vio.p[i])
+
+    def _host_inputs(self, t_start: float, xyz: np.ndarray,
+                     t_rel: np.ndarray, use_imu: bool = True):
+        """One scan's step inputs with host leaves: (Scan, ImuWindow,
+        avail) and, with ``use_vio_undistortion``, its VioWindow."""
+        t_end = t_start + (float(t_rel[-1]) if len(t_rel) else 0.0)
+        win, ok = (self._imu_window(t_start, t_end) if use_imu
+                   else (to_numpy(empty_imu_window(
+                       self.cfg.imu.max_imu_per_scan)), False))
+        out = (self.make_host_scan(t_start, xyz, t_rel), win, np.asarray(ok))
+        if self.cfg.use_vio_undistortion:
+            out = out + (self._vio_window(t_start, t_end),)
+        return out
+
     # ---------------- scan processing --------------------------------------
     def make_scan(self, t_start: float, xyz: np.ndarray, t_rel: np.ndarray,
                   ring: Optional[np.ndarray] = None) -> Scan:
@@ -164,14 +249,9 @@ class OdometryRunner:
                     t_start=np.asarray(t_start, np.float32), ring=ring_arr)
 
     def process_scan(self, t_start, xyz, t_rel) -> StepOutput:
-        scan = self.make_scan(t_start, xyz, t_rel)
-        t_end = t_start + (float(t_rel[-1]) if len(t_rel) else 0.0)
-        window, synced = self._imu_window(t_start, t_end)
-        window = self._to_device(window)
-        self.state, out = step(
-            self.step_cfg, self.state, scan, window,
-            torch.tensor(synced, device=self.device))
-        self._last_window = window
+        inputs = self._to_device(self._host_inputs(t_start, xyz, t_rel))
+        self.state, out = step(self.step_cfg, self.state, *inputs)
+        self._last_window = inputs[1]
         return out
 
     def high_rate_states(self):
@@ -263,6 +343,7 @@ class OdometryRunner:
             kernels.load()
         imu_i = 0
         imu = dataset.imu
+        self._ingest_dataset_vio(dataset)
         poses_q, poses_t, smoothed_t, stats = [], [], [], []
         stream = _Stream(self.cfg.imu.high_rate_decimation) \
             if high_rate else None
@@ -307,23 +388,17 @@ class OdometryRunner:
         ingested before any window is cut, so the buffer is initialised
         before scan 0 (the chunked replay is another estimator than the
         per-scan one over the first scans).  Returns the (Scan, ImuWindow,
-        avail) trees of the first ``n_chunks * chunk`` scans stacked on the
-        host as ``[n_chunks, chunk, ...]`` (None when no chunk is whole),
-        the built inputs of the remaining scans, and ``n_chunks``."""
+        avail[, VioWindow]) trees of the first ``n_chunks * chunk`` scans
+        stacked on the host as ``[n_chunks, chunk, ...]`` (None when no
+        chunk is whole), the built inputs of the remaining scans, and
+        ``n_chunks``."""
         imu = dataset.imu
         if use_imu:
             for i in range(len(imu.t)):
                 self.add_imu(imu.t[i], imu.acc[i], imu.gyr[i])
-
-        def build(s):
-            scan = self.make_host_scan(s.t_start, s.xyz_body, s.t_rel)
-            t_end = s.t_start + (float(s.t_rel[-1]) if len(s.t_rel) else 0.0)
-            win, ok = (self._imu_window(s.t_start, t_end) if use_imu
-                       else (to_numpy(empty_imu_window(
-                           self.cfg.imu.max_imu_per_scan)), False))
-            return scan, win, np.asarray(ok)
-
-        built = [build(s) for s in dataset.scans]
+        self._ingest_dataset_vio(dataset)
+        built = [self._host_inputs(s.t_start, s.xyz_body, s.t_rel, use_imu)
+                 for s in dataset.scans]
         n_chunks = len(built) // chunk
         stacked = None
         if n_chunks:
@@ -337,8 +412,7 @@ class OdometryRunner:
         """One discarded step of ``inputs`` (host leaves) on the current
         state, ahead of a timed loop.  The step is pure: the state is
         left as it was."""
-        scan, win, ok = self._to_device(inputs)
-        step(self.step_cfg, self.state, scan, win, ok)
+        step(self.step_cfg, self.state, *self._to_device(inputs))
         self._sync()
 
     def run_dataset_chunked(self, dataset, use_imu: bool = True,
@@ -419,9 +493,9 @@ class OdometryRunner:
                     time_ms=per_scan_ms))
         for b in rest:
             t_scan0 = time.perf_counter()
-            scan, win, ok = self._to_device(b)
-            self.state, out = step(self.step_cfg, self.state, scan, win, ok)
-            self._last_window = win
+            inp = self._to_device(b)
+            self.state, out = step(self.step_cfg, self.state, *inp)
+            self._last_window = inp[1]
             out = to_numpy(out)
             scan_ms = (time.perf_counter() - t_scan0) * 1000.0
             poses_q.append(out.pose.q[None])

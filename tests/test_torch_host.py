@@ -129,6 +129,88 @@ def test_cli_chunked_high_rate_replay(tmp_path, capsys):
                                atol=1e-5)
 
 
+def test_cli_localize_configuration(tmp_path):
+    """``--localize`` puts the JAX CLI's localization on whatever
+    configuration the other flags chose: a frozen map from the
+    ``--init-pose`` (or the first line of ``--init-pose-file``), zeros
+    without either."""
+    from superodom_tpu.io.pcd import write_pose_file as j_write_pose_file
+
+    from superodom_tpu_torch import cli
+
+    pose_file = str(tmp_path / "start_pose.txt")
+    j_write_pose_file(pose_file, [(1.5, -2.0, 0.25, 0.01, -0.02, 0.3),
+                                  (9.0, 9.0, 9.0, 0.0, 0.0, 0.0)])
+    for flags, init in (
+            ([], (0.0,) * 6),
+            (["--init-pose", "1", "2", "3", "0.1", "0.2", "0.3"],
+             (1.0, 2.0, 3.0, 0.1, 0.2, 0.3)),
+            (["--init-pose-file", pose_file, "--ship"],
+             (1.5, -2.0, 0.25, 0.01, -0.02, 0.3))):
+        argv = ["--profile", "os1_128", "--synthetic", "1", "--localize",
+                "m.pcd"] + flags
+        args = cli.parse_args(argv)
+        got = _asdict(cli.config_from_args(args))
+        base = (tcfg.ship_config("os1_128") if args.ship
+                else jcfg.PipelineConfig(sensor=jcfg.OS1_128))
+        want = dataclasses.replace(base, localization=jcfg.LocalizationConfig(
+            enabled=True, update_map=False, init_pose_xyz=init[:3],
+            init_pose_rpy=init[3:]))
+        assert got == _asdict(want), flags
+        assert got["localization"]["update_map"] is False
+
+
+def test_cli_save_map_localize_checkpoint_resume(tmp_path, capsys):
+    """The CLI on the CPU: a replay that writes its map (``--save-map``)
+    and its state (``--checkpoint``); localization runs against that map
+    from ``--init-pose`` and from ``--init-pose-file``, leaving it frozen;
+    ``--resume`` from the checkpoint continues from its frame count."""
+    import json
+
+    from superodom_tpu.io.pcd import read_pcd as j_read_pcd
+
+    from superodom_tpu_torch import checkpoint, cli
+    from superodom_tpu_torch.pipeline import init_state as tp_init_state
+
+    def run(*flags):
+        out = tmp_path / f"run{len(list(tmp_path.iterdir()))}"
+        cli.main(["--synthetic", "6", "--device", "cpu", "--out", str(out),
+                  *flags])
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert line["scans"] == 6 and np.isfinite(line["ate_rmse_m"])
+        return out, line
+
+    m, ck = str(tmp_path / "map.pcd"), str(tmp_path / "state.npz")
+    run("--save-map", m, "--checkpoint", ck)
+    prior = j_read_pcd(m)
+    assert len(prior) > 1000 and np.isfinite(prior).all()
+    saved = checkpoint.load_state(ck, cli.config_from_args(
+        cli.parse_args(["--synthetic", "6"])), "cpu")
+    assert int(saved.frame_count) == 6
+    pose_file = tmp_path / "start_pose.txt"
+    pose_file.write_text("0.0 0.1 0.0 0.0 0.0 0.02\n")
+    # the prior map as localization loads it, before any scan
+    cfg = cli.config_from_args(cli.parse_args(["--synthetic", "6",
+                                               "--localize", m]))
+    loaded = str(tmp_path / "loaded.pcd")
+    checkpoint.save_prior_map(loaded, checkpoint.load_prior_map(
+        m, cfg, tp_init_state(cfg)))
+    for init in (["--init-pose", "0", "0.1", "0", "0", "0", "0.02"],
+                 ["--init-pose-file", str(pose_file)]):
+        m2 = str(tmp_path / f"after{len(init)}.pcd")
+        out, line = run("--localize", m, *init, "--save-map", m2)
+        assert line["ate_rmse_m"] < 0.2
+        with open(m2, "rb") as f, open(loaded, "rb") as g:
+            assert f.read() == g.read()
+        traj = np.loadtxt(out / "trajectory.txt")
+        assert traj.shape == (6, 7)
+    ck2 = str(tmp_path / "resumed.npz")
+    run("--resume", ck, "--checkpoint", ck2)
+    resumed = checkpoint.load_state(ck2, cli.config_from_args(
+        cli.parse_args(["--synthetic", "6"])), "cpu")
+    assert int(resumed.frame_count) == 12
+
+
 def test_profile_by_name_and_runtime():
     for n in ("velodyne", "vlp_16", "ouster", "os1_128", "livox",
               "livox_mid360"):
@@ -226,7 +308,9 @@ def test_port_imports_no_jax():
         "import sys; sys.path.insert(0, %r)\n"
         "import superodom_tpu_torch.runner, superodom_tpu_torch.cli, "
         "superodom_tpu_torch.convert, superodom_tpu_torch.kernels, "
-        "superodom_tpu_torch.profile, chip_smoke\n"
+        "superodom_tpu_torch.profile, superodom_tpu_torch.checkpoint, "
+        "superodom_tpu_torch.io.scenarios, superodom_tpu_torch.io.pcd, "
+        "chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'superodom_tpu' or m.startswith('superodom_tpu.')]\n"
         "assert not bad, bad\n"

@@ -16,7 +16,8 @@ neighbour and sentinel neighbours; the Gauss-Newton kernel with 0, 1 and
 512 edge rows beside 2,048 planes and the hold on edge votes alone;
 replays of the four paths repeated over poisoned freed memory; the
 chunked replay repeated at chunk sizes 20 and 4, preloaded and streamed,
-and one chunk against its four steps; and the wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
+and one chunk against its four steps; a SuperLoc replay (VIO and a
+frozen prior map) repeated the same way; and the wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
 test skips.
 
 Run on the GPU machine (no JAX there, so without the JAX conftest):
@@ -1073,3 +1074,38 @@ def test_chunk_is_its_steps(dev):
         assert len(leaves_a) > 30
         for a, b in zip(leaves_a, leaves_b):
             np.testing.assert_array_equal(a, b)
+
+
+def test_superloc_replay_repeats_bit_for_bit(dev):
+    """The SuperLoc path over 20 scans of the stress battery's corridor at
+    OS1-128 density (``ship_config("os1")`` with the case's overrides:
+    VIO undistortion, the frozen corridor prior map): two replays with the
+    freed device memory filled with NaN in between give the same poses to
+    the bit; the prior map stays as it was loaded; the kernels launch as
+    the rounds imply."""
+    from superodom_tpu_torch.io import scenarios
+
+    case = next(c for c in scenarios.stress_battery(
+        points_per_scan=131072, scale=20.5 / 170)
+        if c.name == "superloc_corridor")
+    ds = case.build(np.random.default_rng(7))
+    assert len(ds.scans) == 20 and ds.vio is not None
+    cfg = dataclasses.replace(ship_config("os1"), **case.cfg_overrides)
+    poses = []
+    for _ in range(2):
+        runner = OdometryRunner(cfg, device=dev)
+        scenarios.prime_prior_map(runner, case, np.random.default_rng(8))
+        before = dict(kernels.launch_counts)
+        res = runner.run_dataset(ds)
+        launched = {k: kernels.launch_counts[k] - before[k] for k in before}
+        assert launched["gn_solve"] == sum(s["n_iterations"]
+                                           for s in res.stats)
+        assert launched["normal_system"] == 20
+        assert int(mapstate.total_points(runner.state.surf_map)) == \
+            runner.prior_map_total > 10000
+        poses.append(np.concatenate([res.poses_t, res.poses_q], axis=1))
+        junk = [torch.full(((1 << k) + 3 * j,), float("nan"), device=dev)
+                for k in range(2, 23) for j in range(4)]
+        del junk
+    assert np.isfinite(poses[0]).all() and poses[0].shape == (20, 7)
+    np.testing.assert_array_equal(poses[0], poses[1])

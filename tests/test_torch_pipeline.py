@@ -198,17 +198,28 @@ def test_lio_prediction_matches_jax(jax_replay):
 
 
 def test_unported_branches_raise():
-    """VIO undistortion is not ported yet (edge features and LIO
-    prediction are: tests/test_torch_edges.py and
-    test_lio_prediction_matches_jax)."""
+    """No branch of the step is left unported, so none raises: VIO
+    undistortion, the last one, runs (tests/test_torch_vio.py holds it
+    against JAX; edge features and LIO prediction: tests/test_torch_edges.py
+    and test_lio_prediction_matches_jax).  As in JAX, the step ignores the
+    flag without a VIO window, and an all-masked-out window fails the
+    coverage gate: both give the plain step's outputs to the bit."""
     cfg = _tiny(tcfg, early_exit=True)
     state = tp.init_state(cfg)
+    rng = np.random.default_rng(0)
     scan = OdometryRunner(cfg, device="cpu").make_scan(
-        0.0, np.zeros((10, 3), np.float32), np.zeros(10, np.float32))
+        0.0, rng.uniform(-5, 5, (3000, 3)).astype(np.float32),
+        np.sort(rng.uniform(0, 0.1, 3000)).astype(np.float32))
     win = tp.empty_imu_window(cfg.imu.max_imu_per_scan)
-    with pytest.raises(NotImplementedError):
-        tp.step(dataclasses.replace(cfg, use_vio_undistortion=True), state,
-                scan, win, torch.tensor(False))
+    vio_cfg = dataclasses.replace(cfg, use_vio_undistortion=True)
+    _, plain = tp.step(cfg, state, scan, win, torch.tensor(False))
+    for vio in (None, tp.empty_vio_window(vio_cfg.max_vio_per_scan)):
+        _, out = tp.step(vio_cfg, state, scan, win, torch.tensor(False), vio)
+        a = jax.tree_util.tree_leaves(convert.to_numpy(out))
+        b = jax.tree_util.tree_leaves(convert.to_numpy(plain))
+        assert len(a) == len(b) > 30
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize("name,make", [("os1", tcfg.parity_config),
