@@ -79,6 +79,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K4 with the VIO prior enabled against the plain solve at a corridor
    scan's features on the prior map; checkpoint and resume on the card
    (bit-identical), the prior map saved and loaded back.
+6. Recorded sensors: phase 2's datasets written as rosbag2 recordings
+   with the port's ``Rosbag2Writer`` into a temporary directory (each
+   cloud recorded 0.12 s after its sweep starts, a 200 Hz IMU topic, a
+   ground-truth odometry topic).  6a: the OS1-128 dataset's 64 scans as
+   ouster_ros ``PointCloud2`` (48-byte points in the Ouster frame, ns
+   times) through ``cli.main(["--bag", ..., "--profile", "os1_128",
+   "--ship", "--gt-topic", ...])``; 6b: the same bag streamed message by
+   message into ``OdometryRunner(ship_config("os1")).push_scan``; 6c: a
+   Livox ``CustomMsg`` bag (``--profile livox_mid360 --ship``) and a
+   VLP-16 ``PointCloud2`` bag (``--profile vlp_16`` alone: the JAX CLI's
+   default configuration, K10), 32 scans each; 6d: 32 scans per scan of
+   the ship path with edges and of the ship path with LIO prediction.
+   Each run's launches must equal ``expected_launches``, its poses be
+   finite, its ATE below the bar (the report's, against the bag's
+   ground truth, equal to the trajectory's against the dataset), the
+   loader guess the bag's sensor kind, the stream process every scan
+   with none skipped or shed, LIO prediction take over on some scan, and
+   the first scans agree with the CPU plain path on the same inputs (the
+   same bag through the CLI with ``--device cpu``, the same stream, the
+   same scans), run meanwhile in phase 5's worker process.  Host time a
+   scan of the bag's read and decode, scans/s, the step's p50 / p90 and
+   the ``push_scan`` call's are printed.
 
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, then the last
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -87,7 +109,10 @@ line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -115,6 +140,23 @@ SUPERLOC_RUNS = (("vio_corridor", False), ("superloc_corridor", False),
                  ("superloc_corridor", True), ("localization_room", False))
 CPU_WORKER_THREADS = 4  # the CPU plain path's worker, beside the card runs
 CPU_WORKER_TIMEOUT_S = 600
+# phase 6: recorded sensors.  (label, sensor kind, scans) of each bag;
+# the CLI flags of each bag's run; (label, ship-config overrides, CPU
+# scans) of 6d's per-scan runs (LIO's CPU run covers every scan: the
+# prediction takes over once the smoother's window fills, at scan 10)
+BAG_SCANS = 32
+BAG_RUNS = (("ouster", "ouster", N_SCANS), ("livox", "livox", BAG_SCANS),
+            ("vlp16", "velodyne", BAG_SCANS))
+BAG_CLI_FLAGS = {"ouster": ["--profile", "os1_128", "--ship"],
+                 "livox": ["--profile", "livox_mid360", "--ship"],
+                 "vlp16": ["--profile", "vlp_16"]}
+PER_SCAN_RUNS = (("edges_ship", dict(use_edge_features=True), CPU_SCANS),
+                 ("lio", dict(enable_lio_prediction=True), BAG_SCANS))
+LIDAR_TOPICS = {"ouster": "/os_cloud_node/points",
+                "velodyne": "/velodyne_points", "livox": "/livox/lidar"}
+IMU_TOPIC = "/imu/data"
+GT_TOPIC = "/ground_truth"
+CLOUD_DELAY_S = 0.12  # a cloud is recorded after its 0.1 s sweep
 HR_MIN_RATE = 35.0  # IMU-rate stream samples a second of its span
 HR_MAX_STEP_M = 0.15
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, float32 outside the
@@ -223,6 +265,13 @@ def make_ship_dataset(cfg, n_scans, seed=7):
                                                              8.0])),
                         radius=5.0, laps=0.5 * n_scans / 120.0,
                         distortion=True)
+
+
+def first_scans(ds, n):
+    """The dataset cut to its first ``n`` scans (the whole IMU and VIO
+    streams kept)."""
+    return ds._replace(scans=ds.scans[:n], gt_poses_q=ds.gt_poses_q[:n],
+                       gt_poses_t=ds.gt_poses_t[:n], times=ds.times[:n])
 
 
 def hold_lookup_select(m, cell_size, queries, k, timer, torch, tag=""):
@@ -939,8 +988,8 @@ def expected_launches(cfg, stats):
     }
 
 
-def phase_main(name, cfg, ds, torch, dev, out_dir, card):
-    """Phase 2: one path through the user's entry point."""
+def phase_main(name, cfg, ds, torch, dev, out_dir, card, phase="2"):
+    """Phase 2 (and 6d): one path through the user's entry point."""
     import numpy as np
 
     from superodom_tpu_torch import kernels
@@ -956,7 +1005,7 @@ def phase_main(name, cfg, ds, torch, dev, out_dir, card):
     n = len(ds.scans)
     rounds = sum(s["n_iterations"] for s in res.stats)
     expect = expected_launches(cfg, res.stats)
-    log(f"phase 2 [{name}]: launches {counts}, expected {expect} "
+    log(f"phase {phase} [{name}]: launches {counts}, expected {expect} "
         f"({rounds} ICP rounds over {n} scans); K4-family launches per "
         f"scan {(counts['gn_solve'] + counts['normal_system']) / n:.3f}")
     if counts != expect:
@@ -988,7 +1037,7 @@ def phase_main(name, cfg, ds, torch, dev, out_dir, card):
                                         for s in res.stats)
         summary["line_rejection_hist_sum"] = np.sum(
             [s["line_rejection_hist"] for s in res.stats], axis=0).tolist()
-    log(f"phase 2 [{name}] ({card}): " + json.dumps(summary))
+    log(f"phase {phase} [{name}] ({card}): " + json.dumps(summary))
     if not ate < ATE_BAR_M:
         raise SystemExit(f"{name} path: ATE {ate:.4f} m is not below "
                          f"{ATE_BAR_M} m")
@@ -999,13 +1048,10 @@ def phase_cpu_agree(name, cfg, ds, res_gpu, torch):
     """Phase 3: the plain PyTorch path on the CPU over the first scans."""
     import numpy as np
 
-    from superodom_tpu_torch.io.datasets import SimDataset
     from superodom_tpu_torch.runner import OdometryRunner
 
     n = min(CPU_SCANS, len(ds.scans))
-    small = SimDataset(scans=ds.scans[:n], imu=ds.imu,
-                       gt_poses_q=ds.gt_poses_q[:n],
-                       gt_poses_t=ds.gt_poses_t[:n], times=ds.times[:n])
+    small = first_scans(ds, n)
     res_cpu = OdometryRunner(cfg, device="cpu").run_dataset(small)
     dt = float(np.abs(res_cpu.poses_t - res_gpu.poses_t[:n]).max())
     dq = float(np.abs(res_cpu.poses_q - res_gpu.poses_q[:n]).max())
@@ -1085,13 +1131,10 @@ def phase_chunked_cpu_agree(cfg, ds, res_gpu):
     chunked replay."""
     import numpy as np
 
-    from superodom_tpu_torch.io.datasets import SimDataset
     from superodom_tpu_torch.runner import OdometryRunner
 
     n = min(CPU_SCANS, len(ds.scans))
-    small = SimDataset(scans=ds.scans[:n], imu=ds.imu,
-                       gt_poses_q=ds.gt_poses_q[:n],
-                       gt_poses_t=ds.gt_poses_t[:n], times=ds.times[:n])
+    small = first_scans(ds, n)
     res_cpu = OdometryRunner(cfg, device="cpu").run_dataset_chunked(
         small, chunk=n)
     dt = float(np.abs(res_cpu.poses_t - res_gpu.poses_t[:n]).max())
@@ -1147,10 +1190,7 @@ def superloc_run(case, cfg, ds, dev, chunked=False, n_scans=None):
     from superodom_tpu_torch.runner import OdometryRunner
 
     if n_scans is not None:
-        ds = ds._replace(scans=ds.scans[:n_scans],
-                         gt_poses_q=ds.gt_poses_q[:n_scans],
-                         gt_poses_t=ds.gt_poses_t[:n_scans],
-                         times=ds.times[:n_scans])
+        ds = first_scans(ds, n_scans)
     runner = OdometryRunner(cfg, device=dev)
     scenarios.prime_prior_map(runner, case,
                               np.random.default_rng(SUPERLOC_SEED + 1))
@@ -1448,7 +1488,7 @@ def phase_checkpoint(cfg, ds, torch, dev, out_dir):
     return summary
 
 
-def phase_superloc(torch, dev, out_dir, card):
+def phase_superloc(pool, torch, dev, out_dir, card):
     """Phase 5: the SuperLoc path on the card at 131,072 points a scan
     (``ship_config("os1")`` with each case's overrides, the stress
     battery's data, seed 7): ``vio_corridor`` (SLAM with VIO, 170 scans),
@@ -1456,40 +1496,32 @@ def phase_superloc(torch, dev, out_dir, card):
     scans, per scan and chunked at chunk = n), ``localization_room`` (the
     room's prior map from a 0.3 m / 0.05 rad offset, 50 scans); K4 with
     the VIO prior at the corridor's shapes; checkpoint and resume.  The
-    CPU plain path's replays run meanwhile in one spawned worker process
-    (CPU_WORKER_THREADS threads), which is stopped on the way out."""
-    import multiprocessing
-
-    pool = multiprocessing.get_context("spawn").Pool(1)
-    try:
-        cpu_async = pool.apply_async(cpu_superloc, (CPU_WORKER_THREADS,))
-        t0 = time.perf_counter()
-        setup = superloc_setup()
-        log(f"phase 5: datasets ({SUPERLOC_POINTS} points a scan) in "
-            f"{time.perf_counter() - t0:.1f} s")
-        out, card_runs = {}, {}
-        for name, chunked in SUPERLOC_RUNS:
-            case, cfg, ds = setup[name]
-            runner, res, summary = phase_superloc_case(
-                case, cfg, ds, dev, out_dir, card, chunked)
-            out[run_label(name, chunked)] = summary
-            card_runs[run_label(name, chunked)] = res
-            if name == "superloc_corridor" and not chunked:
-                i = next(k for k, st in enumerate(res.stats)
-                         if st["pred_source"] == 2)
-                k4 = phase_prior_k4(cfg, runner.state.surf_map, ds, i,
-                                    res.stats[i - 1]["uncertainty"], torch,
-                                    dev)
-        case, cfg, ds = setup["vio_corridor"]
-        out["checkpoint"] = phase_checkpoint(cfg, ds, torch, dev, out_dir)
-        t0 = time.perf_counter()
-        cpu = cpu_async.get(timeout=CPU_WORKER_TIMEOUT_S)
-        log(f"phase 5: waited {time.perf_counter() - t0:.1f} s for the CPU "
-            f"plain path's replays ("
-            + ", ".join(f"{k} {v[4]:.1f} s" for k, v in cpu.items()) + ")")
-    finally:
-        pool.terminate()
-        pool.join()
+    CPU plain path's replays run meanwhile in the worker process of
+    ``pool`` (CPU_WORKER_THREADS threads)."""
+    cpu_async = pool.apply_async(cpu_superloc, (CPU_WORKER_THREADS,))
+    t0 = time.perf_counter()
+    setup = superloc_setup()
+    log(f"phase 5: datasets ({SUPERLOC_POINTS} points a scan) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out, card_runs = {}, {}
+    for name, chunked in SUPERLOC_RUNS:
+        case, cfg, ds = setup[name]
+        runner, res, summary = phase_superloc_case(
+            case, cfg, ds, dev, out_dir, card, chunked)
+        out[run_label(name, chunked)] = summary
+        card_runs[run_label(name, chunked)] = res
+        if name == "superloc_corridor" and not chunked:
+            i = next(k for k, st in enumerate(res.stats)
+                     if st["pred_source"] == 2)
+            k4 = phase_prior_k4(cfg, runner.state.surf_map, ds, i,
+                                res.stats[i - 1]["uncertainty"], torch, dev)
+    case, cfg, ds = setup["vio_corridor"]
+    out["checkpoint"] = phase_checkpoint(cfg, ds, torch, dev, out_dir)
+    t0 = time.perf_counter()
+    cpu = cpu_async.get(timeout=CPU_WORKER_TIMEOUT_S)
+    log(f"phase 5: waited {time.perf_counter() - t0:.1f} s for the CPU "
+        f"plain path's replays ("
+        + ", ".join(f"{k} {v[4]:.1f} s" for k, v in cpu.items()) + ")")
     for label, res in card_runs.items():
         superloc_cpu_gates(label, res, out[label], cpu[label])
         r = out[label]
@@ -1500,6 +1532,420 @@ def phase_superloc(torch, dev, out_dir, card):
             f"{r['prior_enabled_frames']} scans with K4's VIO prior "
             f"enabled, verdicts {r['verdicts']}")
     return out, k4
+
+
+def bag_message(rb, kind, s):
+    """One scan of a dataset as its vendor's message (CDR bytes).
+
+    ouster: ``sensor_msgs/PointCloud2`` in the ouster_ros layout (48 bytes
+    a point, ``t`` in u32 ns, the points in the Ouster frame: the inverse
+    of the adapter's sensor-frame transform, whose rotation is diagonal
+    +-1 and so its own inverse).  velodyne: the velodyne_pointcloud layout (x,
+    y, z, intensity f32, ring u16, f32 time at byte 18; 22 bytes a point).
+    livox: ``livox_ros_driver2/CustomMsg`` (offsets in ns from the
+    timebase, single-return tags on lines 0-3)."""
+    import numpy as np
+
+    from superodom_tpu_torch.io.adapters import (
+        OUSTER_SENSOR_R,
+        OUSTER_SENSOR_T,
+    )
+
+    n = len(s.xyz_body)
+    t_ns = np.round(s.t_rel.astype(np.float64) * 1e9).astype(np.uint32)
+    if kind == "livox":
+        return rb.encode_livox_custom(rb.LivoxCustomMsg(
+            s.t_start, "livox", int(round(s.t_start * 1e9)), s.xyz_body,
+            t_ns, np.zeros(n, np.uint8), np.full(n, 0x10, np.uint8),
+            (np.arange(n) % 4).astype(np.uint8)))
+    if kind == "ouster":
+        fields = (("x", 0, "<f4"), ("y", 4, "<f4"), ("z", 8, "<f4"),
+                  ("intensity", 16, "<f4"), ("t", 20, "<u4"),
+                  ("reflectivity", 24, "<u2"), ("ring", 26, "<u2"),
+                  ("ambient", 28, "<u2"), ("range", 32, "<u4"))
+        step = 48
+        xyz = ((s.xyz_body - OUSTER_SENSOR_T) @ OUSTER_SENSOR_R).astype(
+            np.float32)
+    else:
+        fields = (("x", 0, "<f4"), ("y", 4, "<f4"), ("z", 8, "<f4"),
+                  ("intensity", 12, "<f4"), ("ring", 16, "<u2"),
+                  ("time", 18, "<f4"))
+        step = 22
+        xyz = s.xyz_body
+    rec = np.zeros(n, np.dtype({"names": [f[0] for f in fields],
+                                "formats": [f[2] for f in fields],
+                                "offsets": [f[1] for f in fields],
+                                "itemsize": step}))
+    rec["x"], rec["y"], rec["z"] = xyz.T
+    if kind == "ouster":
+        rec["t"] = t_ns
+        rec["range"] = np.linalg.norm(s.xyz_body, axis=1) * 1e3  # mm
+    else:
+        rec["time"] = s.t_rel
+        rec["ring"] = np.arange(n) % 16
+    code = {v: k for k, v in rb._PF_DTYPES.items()}
+    return rb.encode_pointcloud2(rb.PointCloud2(
+        s.t_start, "lidar", 1, n,
+        [rb.PointField(name, off, code[np.dtype(t)], 1)
+         for name, off, t in fields],
+        False, step, step * n, rec.tobytes(), True))
+
+
+def write_bag(path, kind, ds, n):
+    """The first ``n`` scans of ``ds`` as a rosbag2 recording at ``path``:
+    each cloud recorded CLOUD_DELAY_S after its sweep starts (when the
+    sensor's node publishes it), the IMU on a 200 Hz ``sensor_msgs/Imu`` topic over the
+    same span, and the ground-truth pose at each scan's start on a
+    ``nav_msgs/Odometry`` topic.  Returns the bag's bytes on disk."""
+    import numpy as np
+
+    from superodom_tpu_torch.io import rosbag as rb
+
+    w = rb.Rosbag2Writer(path)
+    lidar = LIDAR_TOPICS[kind]
+    w.add_topic(lidar, "livox_ros_driver2/msg/CustomMsg" if kind == "livox"
+                else "sensor_msgs/msg/PointCloud2")
+    w.add_topic(IMU_TOPIC, "sensor_msgs/msg/Imu")
+    w.add_topic(GT_TOPIC, "nav_msgs/msg/Odometry")
+    for i, s in enumerate(ds.scans[:n]):
+        w.write(lidar, int(round((s.t_start + CLOUD_DELAY_S) * 1e9)),
+                bag_message(rb, kind, s))
+        w.write(GT_TOPIC, int(round(s.t_start * 1e9)), rb.encode_odometry(
+            rb.OdometryMsg(s.t_start, "map", "lidar", ds.gt_poses_q[i],
+                           ds.gt_poses_t[i])))
+    t_stop = ds.scans[n - 1].t_start + 2 * CLOUD_DELAY_S
+    ident = np.array([1.0, 0.0, 0.0, 0.0])
+    for k in np.flatnonzero(ds.imu.t <= t_stop):
+        t = float(ds.imu.t[k])
+        w.write(IMU_TOPIC, int(round(t * 1e9)), rb.encode_imu(rb.ImuMsg(
+            t, "imu", ident, ds.imu.gyr[k], ds.imu.acc[k])))
+    w.close()
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def bag_argv(label, path, n, device, out):
+    """The CLI's arguments for a bag run: the bag's profile and
+    configuration flags, its ground-truth topic, the scans, the device and
+    the output directory."""
+    return (["--bag", path, "--gt-topic", GT_TOPIC, "--max-scans", str(n),
+             "--device", device, "--out", out] + BAG_CLI_FLAGS[label])
+
+
+def stream_bag(runner, path, kind, n_lines, stop_after=None):
+    """The recording's messages in recorded order, as a live node gets
+    them: IMU to ``add_imu``, each cloud parsed and decoded through the
+    vendor adapter into ``push_scan``, whose outputs are read back (what a
+    consumer of the pose waits for).  After the last message the queue is
+    drained once; with ``stop_after`` the stream ends once that many scans
+    came out.  Returns (outputs with numpy leaves, host ms a cloud for
+    parse and decode, ms a ``push_scan`` call with its read-back)."""
+    from superodom_tpu_torch.convert import to_numpy
+    from superodom_tpu_torch.io import rosbag as rb
+
+    lidar = LIDAR_TOPICS[kind]
+    outs, decode_ms, push_ms = [], [], []
+    for topic, _, _, data in rb.Rosbag2Reader(path).messages(
+            [lidar, IMU_TOPIC], raw=True):
+        if topic == IMU_TOPIC:
+            m = rb.parse_imu(data)
+            runner.add_imu(m.stamp, m.linear_acceleration,
+                           m.angular_velocity)
+            continue
+        t0 = time.perf_counter()
+        pc = rb.parse_pointcloud2(data)
+        raw = rb._cloud_to_rawscan(pc, kind, n_lines)
+        t1 = time.perf_counter()
+        outs += [to_numpy(o) for o in runner.push_scan(
+            pc.stamp, raw.xyz, raw.t_rel, raw.ring)]
+        push_ms.append((time.perf_counter() - t1) * 1e3)
+        decode_ms.append((t1 - t0) * 1e3)
+        if stop_after is not None and len(outs) >= stop_after:
+            return outs, decode_ms, push_ms
+    outs += [to_numpy(o) for o in runner.drain_scans()]
+    return outs, decode_ms, push_ms
+
+
+def cpu_recorded(bags, out_root, n_threads):
+    """Phase 6's CPU plain path, in the worker process beside the card's
+    runs: each bag's first CPU_SCANS scans through the CLI with
+    ``--device cpu``, the Ouster bag streamed into a CPU runner until
+    CPU_SCANS scans came out, and 6d's first scans through
+    ``run_dataset``.  Returns {label: (poses_t, poses_q, seconds)}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from superodom_tpu_torch import cli
+    from superodom_tpu_torch.config import ship_config
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    torch.set_num_threads(n_threads)
+    out = {}
+    for label, (path, kind, _, _) in bags.items():
+        t0 = time.perf_counter()
+        run_dir = os.path.join(out_root, f"cpu_{label}")
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            cli.main(bag_argv(label, path, CPU_SCANS, "cpu", run_dir))
+        traj = np.loadtxt(os.path.join(run_dir, "trajectory.txt"))
+        out[label] = (traj[:, :3], traj[:, 3:], time.perf_counter() - t0)
+    path, kind, _, _ = bags["ouster"]
+    t0 = time.perf_counter()
+    cfg = ship_config("os1")
+    outs, _, _ = stream_bag(OdometryRunner(cfg, device="cpu"), path, kind,
+                            cfg.sensor.n_scan_lines, stop_after=CPU_SCANS)
+    out["ouster stream"] = (np.stack([o.pose.t for o in outs]),
+                            np.stack([o.pose.q for o in outs]),
+                            time.perf_counter() - t0)
+    ds = make_ship_dataset(cfg, N_SCANS)
+    for label, overrides, n_cpu in PER_SCAN_RUNS:
+        t0 = time.perf_counter()
+        res = OdometryRunner(dataclasses.replace(cfg, **overrides),
+                             device="cpu").run_dataset(first_scans(ds, n_cpu))
+        out[label] = (res.poses_t, res.poses_q, time.perf_counter() - t0)
+    return out
+
+
+def agree_with_cpu(tag, poses_t, poses_q, cpu, gt_t):
+    """The card's first CPU_SCANS poses against the CPU plain path's,
+    within CPU_AGREE_M.  Where the CPU replayed more scans (LIO, whose
+    prediction carries the smoother's state into the ICP prior: the
+    smoother's float32 sums part the two devices by more than that once
+    the window is full, C2 in ROADMAP.md), the card's ATE over those
+    scans is also held to the CPU's by the pinning rule of
+    tests/test_golden.py (<= max(1.3 x, + 1 cm)).  Returns the numbers
+    compared."""
+    import numpy as np
+
+    from superodom_tpu_torch.io.datasets import ate_rmse
+
+    c_t, c_q, secs = cpu
+    n = min(len(c_t), CPU_SCANS)
+    dt = float(np.abs(c_t[:n] - poses_t[:n]).max())
+    dq = float(np.abs(c_q[:n] - poses_q[:n]).max())
+    out = {"cpu_scans": n, "cpu_max_dt_m": dt, "cpu_max_dq": dq}
+    log(f"{tag}: first {n} scans, GPU vs CPU plain path ({secs:.1f} s on "
+        f"the CPU): max |dt| {dt:.3e} m, max |dq| {dq:.3e}")
+    if not (dt <= CPU_AGREE_M and dq <= CPU_AGREE_M):
+        raise SystemExit(f"{tag}: the GPU trajectory disagrees with the CPU "
+                         "plain path")
+    if len(c_t) > n:
+        m = len(c_t)
+        gt = np.asarray(gt_t[:m])
+        out.update(cpu_whole_scans=m, cpu_ate_m=ate_rmse(c_t, gt),
+                   card_ate_m=ate_rmse(poses_t[:m], gt),
+                   cpu_whole_max_dt_m=float(np.abs(c_t - poses_t[:m]).max()))
+        log(f"{tag}: all {m} scans, ATE card {out['card_ate_m']:.6f} m, CPU "
+            f"{out['cpu_ate_m']:.6f} m, max |dt| "
+            f"{out['cpu_whole_max_dt_m']:.3e} m")
+        if not out["card_ate_m"] <= max(1.3 * out["cpu_ate_m"],
+                                        out["cpu_ate_m"] + 0.01):
+            raise SystemExit(f"{tag}: the card's ATE is not within the "
+                             "pinning rule of the CPU plain path's")
+    return out
+
+
+class _Records(logging.Handler):
+    """Collects the records of the logger it is added to."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def phase_bag_cli(label, bag, ds, out_dir, card):
+    """Phase 6a / 6c: one recording through ``cli.main`` on the card.
+    Gates: the sensor kind the loader guessed (none for a Livox bag, whose
+    message type names it); launches equal to ``expected_launches`` of the
+    run's stats.jsonl; finite poses; the report's ATE (against the bag's
+    ground-truth topic) below the bar and equal to the trajectory's
+    against the dataset; the report's ``ate``, ``rpe`` and
+    ``stats.time_elapsed_ms``."""
+    import numpy as np
+
+    from superodom_tpu_torch import cli, kernels
+    from superodom_tpu_torch.io.datasets import ate_rmse
+    from superodom_tpu_torch.tools.benchmark import load_jsonl
+
+    path, kind, n, size = bag
+    tag = f"phase 6 [{label} bag, CLI]"
+    run_dir = os.path.join(out_dir, f"bag_{label}")
+    argv = bag_argv(label, path, n, "cuda", run_dir)
+    cfg = cli.config_from_args(cli.parse_args(argv))
+    records = _Records()
+    logger = logging.getLogger("superodom_tpu_torch.io.rosbag")
+    logger.addHandler(records)
+    printed = io.StringIO()
+    kernels.reset_counts()
+    try:
+        with contextlib.redirect_stdout(printed):
+            cli.main(argv)
+    finally:
+        logger.removeHandler(records)
+    counts = dict(kernels.launch_counts)
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    stats = load_jsonl(os.path.join(run_dir, "stats.jsonl"))
+    with open(os.path.join(run_dir, "report.json")) as f:
+        report = json.load(f)
+    traj = np.loadtxt(os.path.join(run_dir, "trajectory.txt"))
+    guessed = [r.args[0] for r in records.records
+               if r.msg.startswith("guessed sensor_kind")]
+    expect = expected_launches(cfg, stats)
+    log(f"{tag}: guessed sensor kinds {guessed}; launches {counts}, "
+        f"expected {expect}")
+    if guessed != ([] if kind == "livox" else [kind]):
+        raise SystemExit(f"{tag}: the loader guessed {guessed}, not {kind}")
+    if counts != expect:
+        raise SystemExit(f"{tag}: kernel launch counts do not match")
+    if traj.shape != (n, 7) or not np.isfinite(traj).all():
+        raise SystemExit(f"{tag}: {traj.shape} poses, or a non-finite one")
+    missing = [k for k in ("ate", "rpe") if k not in report]
+    if missing or "time_elapsed_ms" not in report["stats"]:
+        raise SystemExit(f"{tag}: report.json lacks {missing or 'stats'}")
+    ate = report["ate"]["rmse_m"]
+    ate_ds = ate_rmse(traj[:, :3], np.asarray(ds.gt_poses_t[:n]))
+    times = np.asarray([st["time_elapsed_ms"] for st in stats])
+    summary = {
+        "bag": label, "sensor_kind": kind, "scans": n,
+        "points_per_scan": cfg.sensor.max_points,
+        "bag_mib": size / 2 ** 20, "flags": BAG_CLI_FLAGS[label],
+        "icp_rounds": sum(st["n_iterations"] for st in stats),
+        "launches": counts,
+        "read_decode_ms_per_scan": line["load_seconds"] / n * 1e3,
+        "scans_per_sec": line["scans_per_sec"],
+        "p50_step_ms": float(np.percentile(times, 50)),
+        "p90_step_ms": float(np.percentile(times, 90)),
+        "ate_m": ate, "ate_vs_dataset_m": ate_ds,
+        "rpe_rmse_m": report["rpe"]["rpe_rmse_m"],
+    }
+    log(f"{tag} ({card}): " + json.dumps(summary))
+    if not ate < ATE_BAR_M or abs(ate - ate_ds) > 1e-6:
+        raise SystemExit(f"{tag}: ATE {ate:.4f} m (against the dataset "
+                         f"{ate_ds:.4f} m), bar {ATE_BAR_M} m")
+    return summary, traj
+
+
+def phase_stream(bag, ds, out_dir, card):
+    """Phase 6b: the Ouster recording as a live stream into
+    ``OdometryRunner(ship_config("os1"), device="cuda").push_scan``.
+    Gates: every scan processed, none skipped or shed, none left queued;
+    launches equal to ``expected_launches``; finite poses; the ATE below
+    the bar."""
+    import numpy as np
+
+    from superodom_tpu_torch import kernels
+    from superodom_tpu_torch.config import ship_config
+    from superodom_tpu_torch.io.datasets import ate_rmse
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    path, kind, n, _ = bag
+    tag = "phase 6 [ouster stream, push_scan]"
+    cfg = ship_config("os1")
+    runner = OdometryRunner(cfg, device="cuda")
+    kernels.reset_counts()
+    outs, decode_ms, push_ms = stream_bag(runner, path, kind,
+                                          cfg.sensor.n_scan_lines)
+    counts = dict(kernels.launch_counts)
+    stats = [runner._stats_record(o, i) for i, o in enumerate(outs)]
+    expect = expected_launches(cfg, stats)
+    log(f"{tag}: {len(outs)} outputs, skipped {runner.frames_skipped}, "
+        f"shed {runner.frames_shed}, queued {len(runner._scan_queue)}; "
+        f"launches {counts}, expected {expect}")
+    if (len(outs), runner.frames_skipped, runner.frames_shed,
+            len(runner._scan_queue)) != (n, 0, 0, 0):
+        raise SystemExit(f"{tag}: not every scan was processed")
+    if counts != expect:
+        raise SystemExit(f"{tag}: kernel launch counts do not match")
+    poses_t = np.stack([o.pose.t for o in outs])
+    poses_q = np.stack([o.pose.q for o in outs])
+    if not (np.isfinite(poses_t).all() and np.isfinite(poses_q).all()):
+        raise SystemExit(f"{tag}: non-finite pose")
+    ate = ate_rmse(poses_t, np.asarray(ds.gt_poses_t[:n]))
+    with open(os.path.join(out_dir, "stats_ouster_stream.jsonl"), "w") as f:
+        for rec in stats:
+            f.write(json.dumps(rec) + "\n")
+    summary = {
+        "scans": n, "ate_m": ate,
+        "icp_rounds": sum(st["n_iterations"] for st in stats),
+        "launches": counts,
+        "decode_ms_p50": float(np.percentile(decode_ms, 50)),
+        "push_scan_ms_p50": float(np.percentile(push_ms, 50)),
+        "push_scan_ms_p90": float(np.percentile(push_ms, 90)),
+        "push_scan_ms_max": float(np.max(push_ms)),
+        "scans_per_sec": n / (sum(push_ms) + sum(decode_ms)) * 1e3,
+    }
+    log(f"{tag} ({card}): " + json.dumps(summary))
+    if not ate < ATE_BAR_M:
+        raise SystemExit(f"{tag}: ATE {ate:.4f} m is not below {ATE_BAR_M} m")
+    return summary, poses_t, poses_q
+
+
+def phase_recorded(pool, datasets, torch, out_dir, card):
+    """Phase 6: recorded sensors on the card.  The recordings are written
+    into a temporary directory (removed on the way out); every run is
+    held against the CPU plain path's, computed meanwhile in the worker
+    process (``cpu_recorded``).  6a the Ouster bag through the CLI, 6b
+    the same bag as a live stream, 6c the Livox and VLP-16 bags through
+    the CLI, 6d the ship path with edges and with LIO prediction, per
+    scan.  ``datasets``: {sensor kind: dataset}."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from superodom_tpu_torch.config import ship_config
+    from superodom_tpu_torch.pipeline import PRED_LIO_ODOM
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_bags_")
+    try:
+        bags = {}
+        for label, kind, n in BAG_RUNS:
+            t0 = time.perf_counter()
+            path = os.path.join(root, label)
+            size = write_bag(path, kind, datasets[kind], n)
+            bags[label] = (path, kind, n, size)
+            log(f"phase 6: wrote the {label} bag ({n} scans, "
+                f"{size / 2 ** 20:.1f} MiB) in "
+                f"{time.perf_counter() - t0:.1f} s")
+        cpu_async = pool.apply_async(cpu_recorded, (bags, out_dir,
+                                                    CPU_WORKER_THREADS))
+        out, card_runs = {}, {}
+        for label, (path, kind, n, size) in bags.items():
+            out[label], traj = phase_bag_cli(label, bags[label],
+                                             datasets[kind], out_dir, card)
+            card_runs[label] = (traj[:, :3], traj[:, 3:])
+        out["ouster stream"], *card_runs["ouster stream"] = phase_stream(
+            bags["ouster"], datasets["ouster"], out_dir, card)
+        for label, overrides, _ in PER_SCAN_RUNS:
+            cfg = dataclasses.replace(ship_config("os1"), **overrides)
+            res, _, summary = phase_main(
+                label, cfg, first_scans(datasets["ouster"], BAG_SCANS),
+                torch, "cuda", out_dir, card, phase="6")
+            sources = [st["pred_source"] for st in res.stats]
+            summary["pred_sources"] = {str(k): sources.count(k)
+                                       for k in sorted(set(sources))}
+            out[label] = summary
+            card_runs[label] = (res.poses_t, res.poses_q)
+            if (overrides.get("enable_lio_prediction")
+                    and PRED_LIO_ODOM not in sources):
+                raise SystemExit(f"phase 6 [{label}]: no scan took the LIO "
+                                 f"prediction: {summary['pred_sources']}")
+        t0 = time.perf_counter()
+        cpu = cpu_async.get(timeout=CPU_WORKER_TIMEOUT_S)
+        log(f"phase 6: waited {time.perf_counter() - t0:.1f} s for the CPU "
+            "plain path's runs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for label, (poses_t, poses_q) in card_runs.items():
+        kind = bags[label][1] if label in bags else "ouster"
+        out[label].update(agree_with_cpu(f"phase 6 [{label}]", poses_t,
+                                         poses_q, cpu[label],
+                                         datasets[kind].gt_poses_t))
+    return out
 
 
 def measured(r):
@@ -1634,8 +2080,22 @@ def main(argv=None):
                f"{ref['p90_step_ms']:.2f} ms, ATE {ref['ate_m']:.6f} m"
                if ref else ""))
 
-    # phase 5: the SuperLoc path
-    superloc, k4_prior = phase_superloc(torch, dev, args.out, smi)
+    # phases 5 and 6 hold the card's runs against the CPU plain path's,
+    # computed meanwhile in one spawned worker process, stopped on the way
+    # out
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        # phase 5: the SuperLoc path
+        superloc, k4_prior = phase_superloc(pool, torch, dev, args.out, smi)
+        # phase 6: recorded sensors
+        recorded = phase_recorded(pool, {"ouster": ds, "velodyne": ds_vlp,
+                                         "livox": ds_livox}, torch,
+                                  args.out, smi)
+    finally:
+        pool.terminate()
+        pool.join()
 
     # every number but ``launches`` and ``bound_ms`` is of the path under
     # ``path``; ``by_path`` has the same fields for every path that runs
@@ -1668,7 +2128,8 @@ def main(argv=None):
                           for name, per in chunked.items()},
               "chunked_cpu_agree": chunked_cpu,
               "superloc": superloc,
-              "gn_solve_vio_prior_on_corridor": measured(k4_prior)}
+              "gn_solve_vio_prior_on_corridor": measured(k4_prior),
+              "recorded": recorded}
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"kernels": entries}))

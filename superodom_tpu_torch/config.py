@@ -183,6 +183,13 @@ class Extrinsics:
     def t(self) -> np.ndarray:
         return np.asarray(self.t_imu_laser, dtype=np.float32)
 
+    @staticmethod
+    def from_arrays(R: np.ndarray, t: np.ndarray) -> "Extrinsics":
+        return Extrinsics(
+            R_imu_laser=tuple(tuple(float(v) for v in row) for row in R),
+            t_imu_laser=tuple(float(v) for v in np.asarray(t).reshape(3)),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class LocalizationConfig:
@@ -296,3 +303,182 @@ def config_for(profile: str, parity: bool = False) -> PipelineConfig:
     with ``parity`` the reference-envelope one (the profiler's
     ``--profile`` / ``--parity``, the CLI's ``--ship`` / ``--parity``)."""
     return (parity_config if parity else ship_config)(profile)
+
+
+# reference-style YAML configurations (the JAX package's config loaders,
+# line for line)
+
+
+def _yaml():
+    """PyYAML, imported where a YAML file is read: the rest of the package
+    does not need it."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("reading a reference-style YAML configuration "
+                          "needs the PyYAML package (import yaml)") from e
+    return yaml
+
+
+def _rpy_deg_to_matrix(roll: float, pitch: float, yaw: float) -> np.ndarray:
+    """RPY (degrees) -> rotation matrix, Rz(yaw) @ Ry(pitch) @ Rx(roll)
+    (tf2 setRPY convention used by the reference's offset composition)."""
+    r, p, y = np.deg2rad([roll, pitch, yaw])
+    cr, sr, cp, sp, cy, sy = np.cos(r), np.sin(r), np.cos(p), np.sin(p), \
+        np.cos(y), np.sin(y)
+    Rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
+    Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+    Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
+    return Rz @ Ry @ Rx
+
+
+def _load_opencv_yaml(path: str) -> dict:
+    """Parse an OpenCV FileStorage YAML (the reference's calibration format):
+    strips the '%YAML:1.0' directive and resolves '!!opencv-matrix' nodes to
+    numpy arrays."""
+    yaml = _yaml()
+
+    with open(path) as f:
+        text = f.read()
+    lines = text.splitlines()
+    if lines and lines[0].lstrip().startswith("%YAML"):
+        lines = lines[1:]
+        if lines and lines[0].strip() == "---":
+            lines = lines[1:]
+    text = "\n".join(lines)
+
+    class _CvLoader(yaml.SafeLoader):
+        pass
+
+    def _mat(loader, node):
+        d = loader.construct_mapping(node, deep=True)
+        return np.asarray(d["data"], dtype=np.float64).reshape(
+            int(d["rows"]), int(d["cols"])
+        )
+
+    _CvLoader.add_constructor("tag:yaml.org,2002:opencv-matrix", _mat)
+    _CvLoader.add_constructor("!opencv-matrix", _mat)
+    return yaml.load(text, Loader=_CvLoader) or {}
+
+
+def load_calibration(
+    path: str, provide_imu_laser_extrinsic: bool = True
+) -> Tuple[Extrinsics, float]:
+    """Load a reference-style calibration YAML into (Extrinsics, yaw_ratio).
+
+    Mirrors readCalibration (reference parameter.cpp:118-280):
+
+    * direct path: ``extrinsicRotation_imu_laser`` / ``Translation`` with the
+      ``imu_laser_rotation_offset`` RPY (degrees) composed on the LEFT of the
+      rotation (parameter.cpp:198-214);
+    * camera path (``provide_imu_laser_extrinsic=False``): T_imu_laser =
+      T_imu_camera o T_camera_laser (parameter.cpp:237-260);
+    * ``yaw_ratio`` (degrees of yaw per meter traveled, parameter.cpp:150).
+    """
+    raw = _load_opencv_yaml(path)
+    yaw_ratio = float(raw.get("yaw_ratio", 0.0) or 0.0)
+    if provide_imu_laser_extrinsic:
+        R = np.asarray(raw["extrinsicRotation_imu_laser"], np.float64)
+        t = np.asarray(raw["extrinsicTranslation_imu_laser"],
+                       np.float64).reshape(3)
+        off = raw.get("imu_laser_rotation_offset")
+        if off is not None:
+            off = np.asarray(off, np.float64).reshape(-1)
+            R = _rpy_deg_to_matrix(off[0], off[1], off[2]) @ R
+    else:
+        R_cl = np.asarray(raw["extrinsicRotation_camera_laser"], np.float64)
+        t_cl = np.asarray(raw["extrinsicTranslation_camera_laser"],
+                          np.float64).reshape(3)
+        R_ic = np.asarray(raw["extrinsicRotation_imu_camera"], np.float64)
+        t_ic = np.asarray(raw["extrinsicTranslation_imu_camera"],
+                          np.float64).reshape(3)
+        # renormalize the camera rotation through a quaternion as the
+        # reference does (parameter.cpp:252-254)
+        u, _, vt = np.linalg.svd(R_ic)
+        R_ic = u @ vt
+        R = R_ic @ R_cl
+        t = R_ic @ t_cl + t_ic
+    return Extrinsics.from_arrays(R, t), yaw_ratio
+
+
+def load_yaml_config(path: str) -> PipelineConfig:
+    """Load a reference-style YAML profile into a PipelineConfig.
+
+    Accepts the reference's config schema (config/vlp_16.yaml layout) so users
+    of the reference can bring their configs directly.
+    """
+    yaml = _yaml()
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    params = raw.get("/**", raw).get("ros__parameters", raw)
+    sensor = profile_by_name(params.get("sensor", "velodyne"))
+    fe = params.get("feature_extraction_node", {})
+    lm = params.get("laser_mapping_node", {})
+    imu = params.get("imu_preintegration_node", {})
+
+    sensor = dataclasses.replace(
+        sensor,
+        n_scan_lines=int(fe.get("scan_line", sensor.n_scan_lines)),
+        min_range=float(fe.get("min_range", sensor.min_range)),
+        filter_point_size=int(fe.get("filter_point_size", sensor.filter_point_size)),
+        max_surface_features=int(
+            lm.get("max_surface_features", sensor.max_surface_features)
+        ),
+        default_line_res=float(
+            lm.get("mapping_line_resolution", sensor.default_line_res)
+        ),
+        default_plane_res=float(
+            lm.get("mapping_plane_resolution", sensor.default_plane_res)
+        ),
+    )
+    # calibration file: reference launch files pass it as a node parameter
+    # (launch/vlp_16.launch.py); accept a path relative to the config file
+    extr = Extrinsics()
+    yaw_ratio = 0.0
+    calib = params.get("calibration_file") or raw.get("calibration_file")
+    if calib:
+        import os
+
+        if not os.path.isabs(calib):
+            calib = os.path.join(os.path.dirname(os.path.abspath(path)), calib)
+        extr, yaw_ratio = load_calibration(
+            calib,
+            provide_imu_laser_extrinsic=bool(
+                params.get("provide_imu_laser_extrinsic", True)
+            ),
+        )
+    reg = RegistrationConfig(
+        max_icp_iters=int(lm.get("max_iterations", 4)),
+        velocity_failure_threshold=float(lm.get("velocity_failure_threshold", 30.0)),
+        yaw_ratio=yaw_ratio,
+    )
+    imu_cfg = ImuConfig(
+        acc_noise=float(imu.get("acc_n", ImuConfig.acc_noise)),
+        gyr_noise=float(imu.get("gyr_n", ImuConfig.gyr_noise)),
+        acc_bias_noise=float(imu.get("acc_w", ImuConfig.acc_bias_noise)),
+        gyr_bias_noise=float(imu.get("gyr_w", ImuConfig.gyr_bias_noise)),
+        gravity=float(imu.get("g_norm", ImuConfig.gravity)),
+        lidar_correction_noise=float(imu.get("lidar_correction_noise", 0.01)),
+    )
+    loc = LocalizationConfig(
+        enabled=bool(lm.get("localization_mode", False)),
+        init_pose_xyz=(
+            float(lm.get("init_x", 0.0)),
+            float(lm.get("init_y", 0.0)),
+            float(lm.get("init_z", 0.0)),
+        ),
+        init_pose_rpy=(
+            float(lm.get("init_roll", 0.0)),
+            float(lm.get("init_pitch", 0.0)),
+            float(lm.get("init_yaw", 0.0)),
+        ),
+    )
+    return PipelineConfig(
+        sensor=sensor, registration=reg, imu=imu_cfg, localization=loc,
+        extrinsics=extr,
+        use_imu_roll_pitch=bool(
+            lm.get("use_imu_roll_pitch",
+                   fe.get("use_imu_roll_pitch", False))
+        ),
+    )

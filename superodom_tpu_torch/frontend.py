@@ -23,6 +23,7 @@ from superodom_tpu_torch.geometry import (
     quat_normalize,
     quat_rotate,
     quat_slerp,
+    so3_exp,
 )
 from superodom_tpu_torch.ops.voxel import (
     hash_coords_u32,
@@ -63,6 +64,32 @@ class VioWindow(NamedTuple):
     q: torch.Tensor  # f32[K,4] lidar-frame world orientation
     p: torch.Tensor  # f32[K,3] lidar-frame world position
     mask: torch.Tensor  # bool[K]
+
+
+def propagate_orientation(q0: torch.Tensor, gyr0: torch.Tensor,
+                          t: torch.Tensor, gyr: torch.Tensor,
+                          mask: torch.Tensor, t0) -> torch.Tensor:
+    """Integrate gyro rates into per-sample orientations:
+    q_i = q_{i-1} * exp(dt * (w_i + w_{i-1}) / 2)
+    (reference updateImuOrientation, featureExtraction.cpp:574-583).
+
+    ``q0``/``gyr0``/``t0`` are the previous window's last state so
+    integration is continuous across windows; a masked-out sample repeats
+    the previous orientation and leaves the state as it was.  A sequential
+    loop over the window's samples, as JAX's ``lax.scan``."""
+    q_prev, g_prev = q0, gyr0
+    t_prev = torch.as_tensor(t0, dtype=t.dtype, device=t.device)
+    qs = []
+    for i in range(t.shape[0]):
+        dt = torch.clamp(t[i] - t_prev, 0.0, 0.5)
+        q_i = quat_normalize(quat_mul(q_prev,
+                                      so3_exp(dt * 0.5 * (gyr[i] + g_prev))))
+        q_i = torch.where(mask[i], q_i, q_prev)
+        g_prev = torch.where(mask[i], gyr[i], g_prev)
+        t_prev = torch.where(mask[i], t[i], t_prev)
+        q_prev = q_i
+        qs.append(q_i)
+    return torch.stack(qs) if qs else q0.new_zeros((0, 4))
 
 
 def _interp_pose_at(imu: ImuWindow, pos: torch.Tensor,
@@ -114,6 +141,14 @@ def undistort_points(
     q_w_original_l = quat_normalize(quat_mul(q_w_start, matrix_to_quat(R_i_l)))
     t_w_original_l = quat_rotate(q_w_start, t_i_l)
     return out, q_w_original_l, t_w_original_l
+
+
+def undistort_scan(scan: Scan, imu: ImuWindow, R_i_l: torch.Tensor,
+                   t_i_l: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-cloud undistortion (see :func:`undistort_points`)."""
+    return undistort_points(scan.xyz, scan.t_rel, scan.mask, scan.t_start,
+                            imu, R_i_l, t_i_l)
 
 
 def undistort_points_posed(

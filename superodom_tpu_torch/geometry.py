@@ -233,6 +233,13 @@ class Pose(NamedTuple):
         return Pose(quat_normalize(self.q), self.t)
 
 
+def pose_interpolate(p0: Pose, p1: Pose, alpha) -> Pose:
+    """Slerp rotation + lerp translation (reference
+    featureExtraction.cpp:269-275)."""
+    return Pose(quat_slerp(p0.q, p1.q, alpha),
+                (1.0 - alpha) * p0.t + alpha * p1.t)
+
+
 def pose_delta(a: Pose, b: Pose):
     """(translation norm, rotation angle) of a^-1 * b."""
     rel = a.inverse().compose(b)
@@ -244,3 +251,25 @@ def apply_se3_update(pose: Pose, xi: torch.Tensor) -> Pose:
     dq, dt = se3_exp(xi)
     return Pose(quat_normalize(quat_mul(dq, pose.q)),
                 quat_rotate(dq, pose.t) + dt)
+
+
+def gravity_align_matrix(acc_mean: torch.Tensor) -> torch.Tensor:
+    """Roll/pitch rotation whose *transpose* aligns the measured gravity
+    direction with +Z (R^T @ acc_mean = (0, 0, |acc_mean|)):
+    R = R_x(phi) @ R_y(theta) with theta = atan2(ax, sqrt(ay^2+az^2)),
+    phi = atan2(-ay, az) (Imu::calculatePitchRollMatrix, reference
+    imu_data.h:45-69)."""
+    ax, ay, az = acc_mean[..., 0], acc_mean[..., 1], acc_mean[..., 2]
+    theta = torch.atan2(ax, torch.sqrt(ay * ay + az * az))
+    phi = torch.atan2(-ay, az)
+    ct, st = torch.cos(theta), torch.sin(theta)
+    cp, sp = torch.cos(phi), torch.sin(phi)
+    zeros = torch.zeros_like(ct)
+    ones = torch.ones_like(ct)
+    R_y = torch.stack([torch.stack([ct, zeros, st], dim=-1),
+                       torch.stack([zeros, ones, zeros], dim=-1),
+                       torch.stack([-st, zeros, ct], dim=-1)], dim=-2)
+    R_x = torch.stack([torch.stack([ones, zeros, zeros], dim=-1),
+                       torch.stack([zeros, cp, -sp], dim=-1),
+                       torch.stack([zeros, sp, cp], dim=-1)], dim=-2)
+    return R_x @ R_y

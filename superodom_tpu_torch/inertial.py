@@ -21,6 +21,7 @@ from superodom_tpu_torch.config import ImuConfig
 from superodom_tpu_torch.frontend import ImuWindow
 from superodom_tpu_torch.geometry import (
     Pose,
+    gravity_align_matrix,
     quat_conj,
     quat_identity,
     quat_mul,
@@ -29,6 +30,46 @@ from superodom_tpu_torch.geometry import (
     so3_exp,
     so3_log,
 )
+
+
+class ImuInitState(NamedTuple):
+    """Output of static initialization (reference Imu::imuInit,
+    imu_data.h:71-160): measurement means, gravity, gyro bias and the
+    gravity-alignment rotation composed with the laser extrinsic."""
+
+    acc_mean: torch.Tensor  # f32[3]
+    gyr_mean: torch.Tensor  # f32[3]
+    acc_cov: torch.Tensor  # f32[3]
+    gyr_cov: torch.Tensor  # f32[3]
+    gravity: torch.Tensor  # f32[3] gravity vector in imu frame
+    gyr_bias: torch.Tensor  # f32[3]
+    R_gravity: torch.Tensor  # f32[3,3] roll/pitch gravity alignment
+    R_imu_laser_gravity: torch.Tensor  # f32[3,3] R_gravity^-1 @ R_imu_laser
+    ok: torch.Tensor  # bool
+
+
+def imu_static_init(acc: torch.Tensor, gyr: torch.Tensor, mask: torch.Tensor,
+                    R_imu_laser: torch.Tensor,
+                    gravity_norm: float = 9.81) -> ImuInitState:
+    """Masked-mean/covariance initialization over a ~1 s static buffer."""
+    w = mask.to(acc.dtype)
+    n = torch.clamp_min(torch.sum(w), 1.0)
+    acc_mean = torch.sum(acc * w[:, None], dim=0) / n
+    gyr_mean = torch.sum(gyr * w[:, None], dim=0) / n
+    acc_cov = torch.sum(((acc - acc_mean) ** 2) * w[:, None], dim=0) \
+        / torch.clamp_min(n - 1.0, 1.0)
+    gyr_cov = torch.sum(((gyr - gyr_mean) ** 2) * w[:, None], dim=0) \
+        / torch.clamp_min(n - 1.0, 1.0)
+    gravity = (-acc_mean / torch.clamp_min(torch.linalg.norm(acc_mean), 1e-6)
+               * gravity_norm)
+    R_g = gravity_align_matrix(acc_mean)
+    # reference: Roll_Pitch_Gravity^-1 * imu_laser_R
+    R_ilg = R_g.T @ R_imu_laser
+    return ImuInitState(
+        acc_mean=acc_mean, gyr_mean=gyr_mean, acc_cov=acc_cov,
+        gyr_cov=gyr_cov, gravity=gravity, gyr_bias=gyr_mean, R_gravity=R_g,
+        R_imu_laser_gravity=R_ilg,
+        ok=torch.sum(mask.to(torch.int32)) > 10)
 
 
 class Preintegrated(NamedTuple):

@@ -127,6 +127,12 @@ def lookup_packed(m: VoxelHashMap, packed: torch.Tensor) -> torch.Tensor:
     return _lookup_keys(m.keys, packed)
 
 
+def lookup(m: VoxelHashMap, cfg: MapConfig, cells: torch.Tensor
+           ) -> torch.Tensor:
+    """Integer cell coords [Q,3] -> flat slot [Q] or -1."""
+    return lookup_packed(m, pack_cells(cells))
+
+
 def octant_lookup_reference(keys: torch.Tensor, queries: torch.Tensor,
                             cell_size: float) -> torch.Tensor:
     """Plain version of K1: slot ids int32[Q, 8] of the 2x2x2 block of cells
@@ -179,15 +185,23 @@ def _nearest_lanes(planes, valid: torch.Tensor, queries: torch.Tensor,
     return tuple(torch.gather(c, 1, lane) for c in planes), sq, lane
 
 
+def _candidate_rows(pts: torch.Tensor, slots: torch.Tensor):
+    """The octant slots' rows (cand f32[Q,8,3C]) and their validity
+    (bool[Q,8*C]): a missing slot reads row 0 and is not valid."""
+    nq = slots.shape[0]
+    C = pts.shape[1] // 3
+    cand = pts[torch.clamp_min(slots, 0)]  # [Q, 8, 3C]
+    cvalid = (slots >= 0)[..., None].expand(nq, 8, C).reshape(nq, 8 * C)
+    return cand, cvalid
+
+
 def _candidate_planes(pts: torch.Tensor, slots: torch.Tensor):
     """The 8*C candidate lanes of each query's octant slots as coordinate
     planes (x, y, z), each [Q, 8C], and their validity (``gather_candidates``
     + ``cand_planes``).  Candidate lane ``o*C + c`` is point ``c`` of octant
     slot ``o``; a missing slot reads row 0 and is not valid."""
-    nq = slots.shape[0]
-    C = pts.shape[1] // 3
-    cand = pts[torch.clamp_min(slots, 0)]  # [Q, 8, 3C]
-    cvalid = (slots >= 0)[..., None].expand(nq, 8, C).reshape(nq, 8 * C)
+    cand, cvalid = _candidate_rows(pts, slots)
+    nq, C = slots.shape[0], pts.shape[1] // 3
     planes = tuple(cand[:, :, a * C:(a + 1) * C].reshape(nq, 8 * C)
                    for a in range(3))
     return planes, cvalid
@@ -217,6 +231,30 @@ def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
     if queries.device.type == "cpu":
         return knn_select_reference(pts, slots, queries, k)
     raise ValueError(f"knn_select: unsupported device {queries.device}")
+
+
+def query_knn(m: VoxelHashMap, cfg: MapConfig, queries: torch.Tensor,
+              k: int):
+    """K nearest stored points per query among the 2x2x2 block of cells
+    nearest it (the reference's per-block octree KNN, LocalMap.h:481-525):
+    K1 :func:`octant_lookup`, then K2 :func:`knn_select` — the kernels on
+    the card, their plain versions on the CPU.
+
+    Returns ``(pts f32[Q,k,3], sqdist f32[Q,k], valid bool[Q,k])``."""
+    slots = octant_lookup(m.keys, queries, cfg.cell_size)
+    pts, sq, valid, _ = knn_select(m.pts, slots, queries, k)
+    return pts, sq, valid
+
+
+def gather_candidates(m: VoxelHashMap, cfg: MapConfig,
+                      queries: torch.Tensor):
+    """The candidate point sets of a batch of queries: the 2x2x2 block of
+    cells nearest each query (slots from K1 :func:`octant_lookup`).
+    Returns (cand f32[Q,8,3C] — one coordinate-planar slot row per octant
+    cell — and valid bool[Q,8*C]); a missing cell reads row 0 and is not
+    valid."""
+    return _candidate_rows(m.pts, octant_lookup(m.keys, queries,
+                                                cfg.cell_size))
 
 
 class ReducedCandidates(NamedTuple):

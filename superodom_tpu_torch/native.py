@@ -1,5 +1,5 @@
-"""Host IMU buffer and prior-map thinning: ctypes bindings for the
-repository's native runtime.
+"""Host IMU buffer, point-record decode and prior-map thinning: ctypes
+bindings for the repository's native runtime.
 
 The C++ source is this package's ``csrc/native_loader.cpp``, a byte-for-byte
 copy of the JAX package's native loader (held equal by
@@ -8,7 +8,10 @@ built with the host C++ compiler into this package's ``build/`` directory
 at first use.  The library's name carries a hash of the source, the
 compiler, its flags and what ``-march=native`` means on this host, so a
 library built on another CPU is never loaded.  A failed build raises for
-the IMU buffer; :func:`voxel_downsample`, a host utility of the prior-map
+the IMU buffer, :func:`decode_points` and :func:`synth_ring_time` (their
+numpy versions, :func:`decode_points_reference` and
+:func:`synth_ring_time_reference`, are what the tests hold them
+against); :func:`voxel_downsample`, a host utility of the prior-map
 load, keeps the JAX package's numpy branch for a host without the
 library.
 """
@@ -30,6 +33,18 @@ _BUILD = os.path.join(_PKG, "build")
 # the flags of the JAX package's native Makefile, so both builds compute alike
 _CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
              "-march=native"]
+
+FIELD_F32, FIELD_F64 = 0, 1
+FIELD_I8, FIELD_U8, FIELD_I16, FIELD_U16, FIELD_I32, FIELD_U32 = 2, 3, 4, 5, 6, 7
+
+_NP_TO_FIELD = {
+    np.dtype("f4"): FIELD_F32, np.dtype("f8"): FIELD_F64,
+    np.dtype("i1"): FIELD_I8, np.dtype("u1"): FIELD_U8,
+    np.dtype("i2"): FIELD_I16, np.dtype("u2"): FIELD_U16,
+    np.dtype("i4"): FIELD_I32, np.dtype("u4"): FIELD_U32,
+}
+# the record fields so_decode_points reads, in its argument order
+_DECODE_FIELDS = ("x", "y", "z", "time", "ring", "intensity")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -80,7 +95,16 @@ def load() -> ctypes.CDLL:
     i64, i32, f64 = ctypes.c_int64, ctypes.c_int32, ctypes.c_double
     f32p = ctypes.POINTER(ctypes.c_float)
     f64p = ctypes.POINTER(ctypes.c_double)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
     vp = ctypes.c_void_p
+    lib.so_decode_points.restype = i64
+    lib.so_decode_points.argtypes = [u8p, i64, i64, i64p, i32p, f64, f32p,
+                                     f32p, i32p, f32p]
+    lib.so_synth_ring_time.restype = i64
+    lib.so_synth_ring_time.argtypes = [f32p, i64, i32, f64, f64, f32p, f32p,
+                                       i32p]
     lib.so_imu_buffer_new.restype = vp
     lib.so_imu_buffer_new.argtypes = [i64]
     lib.so_imu_buffer_free.argtypes = [vp]
@@ -95,6 +119,7 @@ def load() -> ctypes.CDLL:
     lib.so_imu_buffer_window.restype = i64
     lib.so_imu_buffer_window.argtypes = [vp, f64, f64, i64, f64p, f32p, f32p,
                                          f32p]
+    lib.so_imu_buffer_clean.argtypes = [vp, f64]
     lib.so_voxel_downsample.restype = i64
     lib.so_voxel_downsample.argtypes = [f32p, i64, f64, f32p]
     _lib = lib
@@ -107,6 +132,101 @@ def _fp(a: np.ndarray):
 
 def _dp(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def _ip(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _record_bytes(data) -> np.ndarray:
+    return (data.view(np.uint8).reshape(-1) if isinstance(data, np.ndarray)
+            else np.frombuffer(data, dtype=np.uint8))
+
+
+def decode_points(data, n: int, stride: int, layout: dict,
+                  time_scale: float = 1.0):
+    """Decode ``n`` packed point records of ``stride`` bytes
+    (PointCloud2-style layouts) in one native pass.
+
+    ``layout`` maps field name -> (byte offset, numpy dtype) for any of
+    x, y, z, time, ring, intensity; x/y/z are required.  Records with a
+    non-finite coordinate are dropped; ``time`` is scaled by
+    ``time_scale`` in float64.  Returns (xyz f32[m,3], t f32[m],
+    ring i32[m], intensity f32[m])."""
+    buf = _record_bytes(data)
+    ends = [layout[k][0] + np.dtype(layout[k][1]).itemsize
+            for k in _DECODE_FIELDS if k in layout]
+    if n > 0 and (n - 1) * stride + max(ends) > len(buf):
+        raise ValueError(f"{len(buf)} bytes hold fewer than {n} records of "
+                         f"{stride} bytes with fields ending at {max(ends)}")
+    offsets = np.array([layout[k][0] if k in layout else -1
+                        for k in _DECODE_FIELDS], np.int64)
+    types = np.array([_NP_TO_FIELD[np.dtype(layout[k][1])] if k in layout
+                      else FIELD_F32 for k in _DECODE_FIELDS], np.int32)
+    lib = load()
+    xyz = np.empty((n, 3), np.float32)
+    t = np.empty(n, np.float32)
+    ring = np.empty(n, np.int32)
+    inten = np.empty(n, np.float32)
+    m = lib.so_decode_points(_ip(buf, ctypes.c_uint8), n, stride,
+                             _ip(offsets, ctypes.c_int64),
+                             _ip(types, ctypes.c_int32), time_scale,
+                             _fp(xyz), _fp(t), _ip(ring, ctypes.c_int32),
+                             _fp(inten))
+    return xyz[:m], t[:m], ring[:m], inten[:m]
+
+
+def decode_points_reference(data, n: int, stride: int, layout: dict,
+                            time_scale: float = 1.0):
+    """Plain numpy version of :func:`decode_points`: strided views over the
+    raw buffer (the JAX package's fallback branch)."""
+    buf = _record_bytes(data)
+
+    def field(k, default=0.0, out_dtype=np.float32):
+        if k not in layout:
+            return np.full(n, default, out_dtype)
+        off, dt = layout[k]
+        v = np.ndarray(shape=(n,), dtype=np.dtype(dt), buffer=buf.tobytes(),
+                       offset=off, strides=(stride,))
+        return v.astype(out_dtype)
+
+    x, y, z = field("x"), field("y"), field("z")
+    ok = np.isfinite(x) & np.isfinite(y) & np.isfinite(z)
+    xyz = np.stack([x, y, z], -1)[ok]
+    tt = (field("time", 0.0, np.float64) * time_scale).astype(np.float32)[ok]
+    rr = field("ring", 0, np.float64).astype(np.int32)[ok]
+    ii = field("intensity", 0.0)[ok]
+    return xyz, tt, rr, ii
+
+
+def synth_ring_time(xyz: np.ndarray, n_scan_lines: int, column_time: float,
+                    laser_time: float):
+    """Ring from elevation and per-point time from the column/laser timing
+    model, in one native pass (the reference's assignTimeforPointCloud);
+    points outside the fan are dropped.  Returns (xyz f32[m,3], t f32[m],
+    ring i32[m])."""
+    lib = load()
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    n = len(xyz)
+    xo = np.empty((n, 3), np.float32)
+    to = np.empty(n, np.float32)
+    ro = np.empty(n, np.int32)
+    m = lib.so_synth_ring_time(_fp(xyz), n, n_scan_lines, column_time,
+                               laser_time, _fp(xo), _fp(to),
+                               _ip(ro, ctypes.c_int32))
+    return xo[:m], to[:m], ro[:m]
+
+
+def synth_ring_time_reference(xyz: np.ndarray, n_scan_lines: int,
+                              column_time: float, laser_time: float):
+    """Plain numpy version of :func:`synth_ring_time` (the adapters'
+    float32 timing model, at the adapters' own column and laser times)."""
+    from superodom_tpu_torch.io.adapters import _synthesize_ring_time
+
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    raw = _synthesize_ring_time(xyz, np.zeros(len(xyz), np.float32),
+                                n_scan_lines)
+    return raw.xyz, raw.t_rel, raw.ring
 
 
 def voxel_downsample(xyz: np.ndarray, res: float) -> np.ndarray:
@@ -190,3 +310,7 @@ class ImuBuffer:
         m = self._lib.so_imu_buffer_window(self._h, t0, t1, max_out, _dp(t),
                                            _fp(acc), _fp(gyr), _fp(q))
         return t[:m], acc[:m], gyr[:m], q[:m]
+
+    def clean(self, t: float):
+        """Drop the samples older than ``t`` (MapRingBuffer::clean)."""
+        self._lib.so_imu_buffer_clean(self._h, t)

@@ -95,3 +95,26 @@ def eigh3(A: torch.Tensor):
     vals = torch.stack([lo, mid, hi], dim=-1)
     vecs = torch.stack([v_lo, v_mid, v_hi], dim=-1)
     return vals, vecs
+
+
+def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve 3x3 system(s) A x = b via the adjugate (Cramer), batched; a
+    determinant below 1e-12 in magnitude gives zeros."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a02 * a21 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c10 = a12 * a20 - a10 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a02 * a10 - a00 * a12
+    c20 = a10 * a21 - a11 * a20
+    c21 = a01 * a20 - a00 * a21
+    c22 = a00 * a11 - a01 * a10
+    det = a00 * c00 + a01 * c10 + a02 * c20
+    inv_det = 1.0 / torch.where(torch.abs(det) < _EPS, math.inf, det)
+    x0 = (c00 * b[..., 0] + c01 * b[..., 1] + c02 * b[..., 2]) * inv_det
+    x1 = (c10 * b[..., 0] + c11 * b[..., 1] + c12 * b[..., 2]) * inv_det
+    x2 = (c20 * b[..., 0] + c21 * b[..., 1] + c22 * b[..., 2]) * inv_det
+    return torch.stack([x0, x1, x2], dim=-1)

@@ -10,7 +10,9 @@ steps scan by scan as the IMU arrives; :meth:`run_dataset_chunked` ingests
 the whole IMU stream first, stacks every scan's inputs on the host and
 steps them in chunks, with the inputs on the device before its timer
 starts (the replay the reference benchmark measures).  Either can stream
-the IMU-rate odometry beside the poses.  With ``use_vio_undistortion`` an
+the IMU-rate odometry beside the poses.  A live stream goes through
+:meth:`OdometryRunner.push_scan` / :meth:`OdometryRunner.drain_scans`,
+with the reference's real-time buffering.  With ``use_vio_undistortion`` an
 external (VIO) pose stream, fed by :meth:`OdometryRunner.add_vio_pose` or
 a dataset's ``vio``, is cut into one window a scan on the host and ships
 with the scan.
@@ -63,9 +65,6 @@ class RunResult:
     high_rate_p: Optional[np.ndarray] = None  # [m,3]
     high_rate_v: Optional[np.ndarray] = None  # [m,3]
 
-    def return_to_origin_error(self) -> float:
-        return float(np.linalg.norm(self.poses_t[-1] - self.poses_t[0]))
-
 
 class OdometryRunner:
     """Feeds scans + IMU windows through :func:`pipeline.step` on
@@ -96,6 +95,11 @@ class OdometryRunner:
         # external-odometry pose samples for the 6-DoF path undistortion,
         # bounded like the reference's visualOdomBuf (5000)
         self._vio_samples: list = []
+        # online ingestion state (push_scan)
+        self._frame_count = 0
+        self._scan_queue: list = []
+        self.frames_skipped = 0  # skip_frame decimation
+        self.frames_shed = 0  # queue overflow drops
 
     # ---------------- IMU ingestion ---------------------------------------
     def add_imu(self, t: float, acc: np.ndarray, gyr: np.ndarray):
@@ -253,6 +257,51 @@ class OdometryRunner:
         self.state, out = step(self.step_cfg, self.state, *inputs)
         self._last_window = inputs[1]
         return out
+
+    # ---------------- online ingestion (real-time semantics) ---------------
+    MAX_SCAN_QUEUE = 50  # lidar buffer shed threshold (featureExtraction.cpp:831)
+
+    def push_scan(self, t_start: float, xyz: np.ndarray, t_rel: np.ndarray,
+                  ring: Optional[np.ndarray] = None) -> List[StepOutput]:
+        """Online scan ingestion with the reference's real-time buffering
+        semantics (laserCloudHandler + manageLidarBuffer,
+        featureExtraction.cpp:710-842):
+
+        * frame decimation — every ``skip_frame``-th scan is processed
+          (featureExtraction.cpp:713-715);
+        * bounded pending queue — oldest scans are shed at 50 queued
+          (featureExtraction.cpp:825-842);
+        * deferred processing — a queued scan runs once the IMU stream
+          covers its sweep (synchronize_measurements), LiDAR-only if it
+          predates the buffer.
+
+        ``ring`` is queued with the scan but, as in the JAX package, not
+        passed on: :meth:`process_scan` takes none (C8 in ROADMAP.md).
+        Returns the outputs (device leaves) of every scan processed by
+        this call."""
+        self._frame_count += 1
+        if self._frame_count % self.cfg.sensor.skip_frame != 0:
+            self.frames_skipped += 1
+            return []
+        self._scan_queue.append((float(t_start), np.asarray(xyz),
+                                 np.asarray(t_rel), ring))
+        while len(self._scan_queue) > self.MAX_SCAN_QUEUE:
+            self._scan_queue.pop(0)
+            self.frames_shed += 1
+        return self.drain_scans()
+
+    def drain_scans(self) -> List[StepOutput]:
+        """Process queued scans whose IMU coverage is complete."""
+        outs: List[StepOutput] = []
+        while self._scan_queue:
+            t_start, xyz, t_rel, ring = self._scan_queue[0]
+            t_end = t_start + (float(t_rel[-1]) if len(t_rel) else 0.0)
+            sync = self.imu_buf.sync(t_start, t_end)
+            if sync == 0 and len(self.imu_buf) > 0:
+                break  # wait for more IMU before processing this scan
+            self._scan_queue.pop(0)
+            outs.append(self.process_scan(t_start, xyz, t_rel))
+        return outs
 
     def high_rate_states(self):
         """IMU-rate odometry over the last scan's IMU window: the latest

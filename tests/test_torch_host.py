@@ -103,7 +103,8 @@ def test_cli_chunked_high_rate_replay(tmp_path, capsys):
     """``--chunked --high-rate`` on the CPU, JAX's default profile (vlp_16)
     and its configuration: 12 scans, so the IMU's 1 s static init
     completes and the stream is written in TUM order (t x y z qx qy qz
-    qw); no stats.jsonl, as in the JAX CLI's chunked mode.  The two
+    qw); report.json and no stats.jsonl, as in the JAX CLI's chunked
+    mode.  The two
     benchmark flags exclude each other."""
     import json
 
@@ -119,7 +120,7 @@ def test_cli_chunked_high_rate_replay(tmp_path, capsys):
     assert line["config"] == "default"
     assert line["scans"] == 12 and line["device"] == "cpu"
     assert sorted(p.name for p in out.iterdir()) == [
-        "state_estimation.txt", "trajectory.txt"]
+        "report.json", "state_estimation.txt", "trajectory.txt"]
     traj = np.loadtxt(out / "trajectory.txt")
     assert traj.shape == (12, 7) and np.isfinite(traj).all()
     hr = np.loadtxt(out / "state_estimation.txt")
@@ -310,6 +311,9 @@ def test_port_imports_no_jax():
         "superodom_tpu_torch.convert, superodom_tpu_torch.kernels, "
         "superodom_tpu_torch.profile, superodom_tpu_torch.checkpoint, "
         "superodom_tpu_torch.io.scenarios, superodom_tpu_torch.io.pcd, "
+        "superodom_tpu_torch.io.rosbag, superodom_tpu_torch.io.adapters, "
+        "superodom_tpu_torch.tools.benchmark, "
+        "superodom_tpu_torch.tools.visualize, superodom_tpu_torch.utils, "
         "chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'superodom_tpu' or m.startswith('superodom_tpu.')]\n"

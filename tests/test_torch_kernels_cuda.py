@@ -17,7 +17,9 @@ neighbour and sentinel neighbours; the Gauss-Newton kernel with 0, 1 and
 replays of the four paths repeated over poisoned freed memory; the
 chunked replay repeated at chunk sizes 20 and 4, preloaded and streamed,
 and one chunk against its four steps; a SuperLoc replay (VIO and a
-frozen prior map) repeated the same way; and the wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
+frozen prior map) repeated the same way; ``query_knn`` and
+``gather_candidates`` against their CPU composition on a warm ship map;
+and the wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
 test skips.
 
 Run on the GPU machine (no JAX there, so without the JAX conftest):
@@ -1109,3 +1111,36 @@ def test_superloc_replay_repeats_bit_for_bit(dev):
         del junk
     assert np.isfinite(poses[0]).all() and poses[0].shape == (20, 7)
     np.testing.assert_array_equal(poses[0], poses[1])
+
+
+def test_query_knn_matches_the_cpu_composition(dev):
+    """``mapstate.query_knn`` on the card (K1 octant_lookup, then K2
+    knn_select) against the same function on the CPU (their plain
+    versions), bit for bit, on a warm ship map (8 OS1-128 scans replayed
+    on the card), with queries near the map's points and beyond it;
+    ``gather_candidates`` (K1 and the row gather) the same way."""
+    cfg = ship_config("os1")
+    runner = OdometryRunner(cfg, device=dev)
+    runner.run_dataset(_ship_dataset(8))
+    m = runner.state.surf_map
+    pts, valid = mapstate.extract_points(m)
+    stored = pts[valid]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    idx = torch.randint(0, stored.shape[0], (2000,), generator=g)
+    q = torch.cat([stored[idx.to(dev)]
+                   + 0.1 * torch.randn((2000, 3), generator=g).to(dev),
+                   (torch.rand((48, 3), generator=g) * 400 - 200).to(dev)])
+    m_cpu = mapstate.VoxelHashMap(*(a.cpu() for a in m))
+    k = cfg.registration.plane_knn
+    before = dict(kernels.launch_counts)
+    got = mapstate.query_knn(m, cfg.map, q, k)
+    assert kernels.launch_counts["octant_lookup"] == \
+        before["octant_lookup"] + 1
+    assert kernels.launch_counts["knn_select"] == before["knn_select"] + 1
+    want = mapstate.query_knn(m_cpu, cfg.map, q.cpu(), k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert want[2][:2000].any() and not want[2][2000:].any()
+    for a, b in zip(mapstate.gather_candidates(m, cfg.map, q),
+                    mapstate.gather_candidates(m_cpu, cfg.map, q.cpu())):
+        assert torch.equal(a.cpu(), b)
