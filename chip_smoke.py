@@ -102,8 +102,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scan of the bag's read and decode, scans/s, the step's p50 / p90 and
    the ``push_scan`` call's are printed.
 
-Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, then the last
-line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+7. Many instances on one card (``parallel.replay_batched``: the step
+   vmapped over the fleet, ICP at a fixed count, the map cadence decided
+   per instance on the device; the JAX package's ``bench.bench_batch``).
+   7a: every kernel entry through its custom operator's vmap rule at
+   B = 1, 4, 16 and 64 (four datasets of seeds 7-10, each its own warm
+   ship map of 30 scans; instance j on dataset j % 4 at its own perturbed
+   pose, its scan moved for each earlier copy, so that no two instances
+   share their inputs): each instance's outputs equal its single launch
+   bit for bit, one launch serves the fleet (B for the
+   per-instance-loop entries), the first tensor shared by four instances
+   (a stride of 0) too, repeats identical; the device time of the
+   batched launch at each B and its bound.  7b: ``replay_batched(ship_config("os1"))`` over 40 scans in
+   chunks of 10, four instances on the four datasets, against each
+   dataset's B = 1 replay through the same function: every instance's
+   poses within BATCH_AGREE_M, scan by scan; the ATE of each below the
+   bar; K1-K4 launched as often as at B = 1.  7c: the same replay at
+   B = 16 and 64 (the instances taking the datasets in turn), each
+   instance held as in 7b against its dataset's B = 1 replay, and one
+   instance without vmap (``run_dataset_chunked``, fixed count, chunk
+   10) within BATCH_AGREE_M of B = 1 through vmap: aggregate scans/s,
+   step p50 / p90 (chunk time / 10), peak device memory, every
+   instance's ATE.  7d: path V (``ship_config("vlp16")``,
+   K10) and path E (path P with edges: K9a, K9b, K10, K11a, K11b on both
+   maps) at B = 2 over 24 scans of two datasets, each instance against its
+   B = 1 replay; the per-instance-loop kernels launched B times as often.
+
+Output: a ``{"kernels": [...]}`` line (each entry with ``batched``: its
+route under vmap and its time at B = 4, 16 and 64), the nvidia-smi line,
+then the last line ``{"ok": true, "device": {...}}``.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -159,6 +187,20 @@ GT_TOPIC = "/ground_truth"
 CLOUD_DELAY_S = 0.12  # a cloud is recorded after its 0.1 s sweep
 HR_MIN_RATE = 35.0  # IMU-rate stream samples a second of its span
 HR_MAX_STEP_M = 0.15
+# phase 7: many instances on one card.  The fleet sizes (64:
+# BASELINE.json's fleet), the bench_batch replay (40 scans in chunks of
+# 10) on the datasets of four seeds, each instance within BATCH_AGREE_M of
+# its single-instance replay; 7a's warm maps and its edge rows; 7d's
+# replays of paths V and E
+BATCH_SIZES = (1, 4, 16, 64)
+BATCH_SCANS = 40
+BATCH_CHUNK = 10
+BATCH_SEEDS = (7, 8, 9, 10)
+BATCH_AGREE_M = 1e-4
+BATCH_MAP_SCANS = 30
+BATCH_W = 16
+EDGE_Q = 512
+BATCH_PATH_SCANS = 24
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -255,16 +297,9 @@ def lanes_that_differ(out_a, out_b, torch):
 def make_ship_dataset(cfg, n_scans, seed=7):
     """The replay benchmark's dataset (bench._dataset): a 80 x 60 x 16 m
     box, radius-5 m circle, 0.5 laps per 120 scans, distorted sweeps."""
-    import numpy as np
+    from superodom_tpu_torch.io.datasets import bench_dataset
 
-    from superodom_tpu_torch.io.datasets import BoxWorld, make_dataset
-
-    return make_dataset(np.random.default_rng(seed), n_scans=n_scans,
-                        points_per_scan=cfg.sensor.max_points,
-                        world=BoxWorld(half_extent=np.array([40.0, 30.0,
-                                                             8.0])),
-                        radius=5.0, laps=0.5 * n_scans / 120.0,
-                        distortion=True)
+    return bench_dataset(n_scans, cfg.sensor.max_points, seed)
 
 
 def first_scans(ds, n):
@@ -507,9 +542,9 @@ def phase_kernels(name, cfg, ds, torch, dev):
     a_sq = (3.0 * res).contiguous()
     args4 = (pts, out_r[0].contiguous(), out_r[1].contiguous(),
              out_r[2].contiguous(), out_r[3].contiguous(), q, t, a_sq)
-    Hk, gk, ck = kernels.normal_system(*args4)
+    Hk, gk, ck = registration.normal_system(*args4)
     Hr, gr, cr = registration.normal_system_reference(*args4)
-    Hk2, gk2, _ = kernels.normal_system(*args4)
+    Hk2, gk2, _ = registration.normal_system(*args4)
     torch.cuda.synchronize()
     scale = float(Hr.abs().max())
     err4 = max(float((Hk - Hr).abs().max()), float((gk - gr).abs().max()))
@@ -548,8 +583,9 @@ def phase_kernels(name, cfg, ds, torch, dev):
 
     gn_err = 0.0
     for case, pr in (("prior off", prior(False)), ("prior on", prior(True))):
-        qk, tk, sk1 = kernels.gn_solve(*gn_args(pr))
-        qk2, tk2, sk2 = kernels.gn_solve(*gn_args(pr))
+        qtk, sk1 = kernels.gn_solve(*gn_args(pr))
+        qtk2, sk2 = kernels.gn_solve(*gn_args(pr))
+        (qk, tk), (qk2, tk2) = qtk.split((4, 3)), qtk2.split((4, 3))
         ref, sr1 = registration.gauss_newton_solve_reference(
             *solve_args, **dict(kw, prior=pr))
         torch.cuda.synchronize()
@@ -826,9 +862,9 @@ def phase_edges(cfg, ds, torch, dev):
     a_sq, a_sq_e = (3.0 * plane_res).contiguous(), (3.0 * line_res).contiguous()
     args4 = (p_body, *(x.contiguous() for x in pfit[:4]), q, t, a_sq, rows,
              a_sq_e)
-    Hk, gk, _ = kernels.normal_system(*args4)
+    Hk, gk, _ = registration.normal_system(*args4)
     Hr, gr, _ = registration.normal_system_reference(*args4)
-    Hk2, gk2, _ = kernels.normal_system(*args4)
+    Hk2, gk2, _ = registration.normal_system(*args4)
     Hp, _, _ = registration.normal_system_reference(*args4[:8])
     torch.cuda.synchronize()
     scale = float(Hr.abs().max())
@@ -1384,8 +1420,9 @@ def phase_prior_k4(cfg, m, ds, i, uncertainty, torch, dev):
                   axis_hold_frac=reg.axis_hold_frac, hold_enabled=hold_t)
         solve_args = (pose, planes, None, rt, n_it)
         gn = gn_solve_args(pts, fit, q, t, a_sq, n_it, prior, reg, hold_t)
-        qk, tk, sk1 = kernels.gn_solve(*gn)
-        qk2, tk2, sk2 = kernels.gn_solve(*gn)
+        qtk, sk1 = kernels.gn_solve(*gn)
+        qtk2, sk2 = kernels.gn_solve(*gn)
+        (qk, tk), (qk2, tk2) = qtk.split((4, 3)), qtk2.split((4, 3))
         ref, sr1 = registration.gauss_newton_solve_reference(*solve_args,
                                                              **kw)
         torch.cuda.synchronize()
@@ -1948,6 +1985,371 @@ def phase_recorded(pool, datasets, torch, out_dir, card):
     return out
 
 
+def same(a, b):
+    """Equal to the bit, NaN where NaN."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        ((a == b) | ((a != a) & (b != b))).all())
+
+
+def batched_instances(cfg, datasets, n_inst, torch, dev):
+    """Phase 7a's ``n_inst`` instances: for each dataset its warm map (the
+    surface features of its first BATCH_MAP_SCANS scans inserted at the
+    true poses); instance j takes dataset j % len(datasets) and, for its
+    next scan, every kernel's single-instance inputs at a pose perturbed
+    its own way, the scan's points moved by a few centimetres for each
+    earlier copy of the same dataset, so that no two instances share
+    their inputs.  Returns per instance (name -> kernel_ops arguments) and
+    (name -> (bytes, operations))."""
+    import dataclasses
+
+    from superodom_tpu_torch import frontend, kernels, mapstate, registration
+    from superodom_tpu_torch.geometry import Pose, quat_mul, so3_exp
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    sensor, reg = cfg.sensor, cfg.registration
+    res = torch.full((), sensor.default_plane_res, device=dev)
+    line_res = torch.full((), sensor.default_line_res, device=dev)
+    shaper = OdometryRunner(cfg, device=dev)
+    full = OdometryRunner(dataclasses.replace(cfg, use_edge_features=True),
+                          device=dev)
+    k, W, C = reg.plane_knn, BATCH_W, cfg.map.cell_capacity
+    bits = max((sensor.max_points * 4 - 1).bit_length(), 4)
+    def gt(ds, i):
+        return Pose(torch.tensor(ds.gt_poses_q[i], device=dev),
+                    torch.tensor(ds.gt_poses_t[i], device=dev))
+
+    maps = []
+    for ds in datasets:
+        m = mapstate.empty_map(cfg.map, device=dev)
+        for i in range(BATCH_MAP_SCANS):
+            pts, mask = surface_features(shaper, ds.scans[i], res)
+            m = mapstate.insert(m, cfg.map, gt(ds, i).apply(pts), mask, res)
+        maps.append(m)
+    out = []
+    for inst in range(n_inst):
+        j, copy = inst % len(datasets), inst // len(datasets)
+        ds, m = datasets[j], maps[j]
+        s = ds.scans[BATCH_MAP_SCANS]
+        pts, mask = surface_features(shaper, s, res)
+        g = gt(ds, BATCH_MAP_SCANS)
+        pose = Pose(quat_mul(so3_exp(
+            torch.tensor([0.004, -0.003, 0.01], device=dev) * (1 + j)
+            + torch.tensor([7e-4, 5e-4, -6e-4], device=dev) * copy), g.q),
+            g.t + torch.tensor([0.03, -0.02, 0.01], device=dev) * (1 - j / 2)
+            + torch.tensor([4e-3, -3e-3, 2e-3], device=dev) * copy)
+        shift = torch.tensor([0.013, -0.007, 0.004], device=dev) * copy
+        q, t = pose.q.contiguous(), pose.t.contiguous()
+        w_pt = pose.apply(pts).contiguous()
+        nq = w_pt.shape[0]
+        slots = kernels.octant_lookup(m.keys, w_pt, cfg.map.cell_size)
+        neigh, sq, nvalid, _ = kernels.knn_select(m.pts, slots, w_pt, k)
+        red = kernels.reduce_candidates(m.pts, slots, w_pt, W)
+        moved = (w_pt + torch.tensor([0.01, -0.01, 0.005],
+                                     device=dev)).contiguous()
+        fit = kernels.plane_fit(neigh, sq, nvalid, mask, w_pt, q, res)
+        a_sq = (3.0 * res).contiguous()
+        prior = (g.q, g.t, torch.tensor([40.0, 50.0, 60.0, 10.0, 10.0, 0.0],
+                                        device=dev),
+                 torch.tensor(j % 2 == 1, device=dev))
+        hold = torch.tensor(True, device=dev)
+        scan = shaper.make_scan(s.t_start, s.xyz_body, s.t_rel)
+        gate = frontend.uniform_feature_gates(
+            scan.xyz, None, scan.mask, sensor.min_range, sensor.max_range,
+            skip_dup=True).contiguous()
+        fs = full.make_scan(s.t_start, s.xyz_body, s.t_rel)
+        ne = min(EDGE_Q, nq)
+        e_neigh, e_sq, e_nv, _ = kernels.knn_select(
+            m.pts, slots[:ne].contiguous(), w_pt[:ne].contiguous(),
+            reg.edge_knn)
+        nw, n_full = scan.xyz.shape[0], fs.xyz.shape[0]
+        nb, Bk = m.keys.shape
+        touched = torch.unique(mapstate._bucket_of(mapstate.octant_cells(
+            w_pt, cfg.map.cell_size).reshape(-1), nb)).numel()
+        live = torch.unique(slots[slots >= 0]).numel()
+        found = int((slots >= 0).sum())
+        n_it = reg.max_gn_iters
+        args = {
+            "octant_lookup": (m.keys, w_pt, float(cfg.map.cell_size)),
+            "knn_select": (m.pts, slots, w_pt, k),
+            "reduce_candidates": (m.pts, slots, w_pt, W),
+            "select_reduced": (*red, moved, k),
+            "plane_fit": (neigh, sq, nvalid, mask, w_pt, q, res),
+            "normal_system": (pts, *fit[:4], q, t, a_sq) + (None,) * 6,
+            "gn_solve": (pts, *fit[:4], fit[5], q, t, a_sq, n_it, 1e-4,
+                         *prior, reg.axis_hold_min_matches,
+                         reg.axis_hold_frac, hold) + (None,) * 6,
+            "voxel_claim": ((scan.xyz + shift).contiguous(), gate, res,
+                            bits),
+            "curvature_edges": ((fs.xyz + shift).contiguous(),
+                                fs.ring.contiguous(),
+                                fs.mask.contiguous(), 5,
+                                float(cfg.edge_curvature_threshold),
+                                float(sensor.min_range)),
+            "edge_fit": (e_neigh, e_sq, e_nv, mask[:ne].contiguous(),
+                         line_res, reg.min_edge_neighbors,
+                         float(reg.edge_max_dist_inlier)),
+        }
+        # the bytes each launch must move and its operations, as phase 1
+        # counts them for one instance
+        work = {
+            "octant_lookup": (nq * 12 + touched * Bk * 4 + nq * 32,
+                              nq * (12 + 8 * (15 + Bk))),
+            "knn_select": (nq * 44 + live * 3 * C * 4 + nq * k * 25,
+                           found * C * 8),
+            "reduce_candidates": (nq * 44 + live * 3 * C * 4 + nq * W * 13,
+                                  found * C * 8),
+            "select_reduced": (nq * W * 13 + nq * 12 + nq * k * 17,
+                               nq * W * 8),
+            "plane_fit": (nq * k * 17 + nq * 13 + 20 + nq * 37, nq * 450),
+            "normal_system": (nq * 33 + 32 + 43 * 4, nq * 124),
+            "gn_solve": (nq * 37 + 32 + 53 + 29, n_it * (nq * 124 + 600)),
+            "voxel_claim": (nw * 14 + 4, nw * 46),
+            "curvature_edges": (n_full * 18, n_full * 80),
+            "edge_fit": (ne * reg.edge_knn * 17 + ne * 34 + 4, ne * 1500),
+        }
+        out.append((args, work))
+    torch.cuda.synchronize()
+    return out
+
+
+def stack_instances(per, idx, torch):
+    """Arguments of instances ``idx`` (one kernel_ops argument tuple each)
+    stacked on a leading instance dimension, and vmap's in_dims."""
+    first = per[idx[0]]
+    args = tuple(torch.stack([per[i][a] for i in idx]).contiguous()
+                 if isinstance(x, torch.Tensor) else x
+                 for a, x in enumerate(first))
+    dims = tuple(0 if isinstance(x, torch.Tensor) else None for x in first)
+    return args, dims
+
+
+def phase_batched_kernels(cfg, datasets, torch, dev, card):
+    """Phase 7a: every kernel entry for B instances at once (four
+    datasets, four warm maps, B distinct poses and scans) through vmap of
+    its custom operator, against each instance's single launch, bit for
+    bit, at every fleet size; one shared table (stride 0) against single
+    launches on it; repeat runs; and the device time of one batched
+    launch at every fleet size."""
+    from superodom_tpu_torch import kernel_ops, kernels
+
+    t0 = time.perf_counter()
+    inst = batched_instances(cfg, datasets, max(BATCH_SIZES), torch, dev)
+    log(f"phase 7a: {len(inst)} instances' warm maps and inputs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name in kernels.KERNELS:
+        op = getattr(kernel_ops, name)
+        per = [a[name] for a, _ in inst]
+        single = [op(*a) for a in per]
+        single = [s if isinstance(s, tuple) else (s,) for s in single]
+        checks = {}
+        for B in BATCH_SIZES:
+            idx = list(range(B))
+            args, dims = stack_instances(per, idx, torch)
+            kernels.reset_counts()
+            got = torch.func.vmap(op, in_dims=dims)(*args)
+            launches = kernels.launch_counts[name]
+            got = got if isinstance(got, tuple) else (got,)
+            ok = all(same(g[b], s) for b, i in enumerate(idx)
+                     for g, s in zip(got, single[i]))
+            want = B if kernel_ops.ROUTE[name] == "per-instance loop" else 1
+            if B == 4:
+                again = torch.func.vmap(op, in_dims=dims)(*args)
+                again = again if isinstance(again, tuple) else (again,)
+                ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
+            checks[B] = ok and launches == want
+            ms = device_ms(lambda: torch.func.vmap(op, in_dims=dims)(*args),
+                           torch)
+            nbytes = sum(inst[i][1][name][0] for i in idx)
+            ops = sum(inst[i][1][name][1] for i in idx)
+            b_ms, b_by = bound(nbytes, ops)
+            out.setdefault(name, {})[B] = dict(
+                ms=ms, us_per_instance=ms * 1e3 / B, bound_ms=b_ms,
+                bound_by=b_by, launches=launches)
+            del args, got
+        if name in ("octant_lookup", "knn_select", "plane_fit"):
+            # the first argument (the table, or the neighbourhoods)
+            # unbatched: the rule shares it with a stride of 0
+            four = per[:4]
+            shared = tuple(x if i == 0 or not isinstance(x, torch.Tensor)
+                           else torch.stack([p[i] for p in four]).contiguous()
+                           for i, x in enumerate(four[0]))
+            dims = tuple(0 if isinstance(x, torch.Tensor) and i > 0 else None
+                         for i, x in enumerate(four[0]))
+            got = torch.func.vmap(op, in_dims=dims)(*shared)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = [op(four[0][0], *p[1:]) for p in four]
+            ref = [r if isinstance(r, tuple) else (r,) for r in ref]
+            checks["shared"] = all(same(g[b], r) for b in range(4)
+                                   for g, r in zip(got, ref[b]))
+        torch.cuda.synchronize()
+        line = ", ".join(f"B={B} {r['ms'] * 1e3:.2f} us "
+                         f"({r['us_per_instance']:.2f} us an instance, "
+                         f"bound {r['bound_ms'] * 1e3:.3f} us, "
+                         f"{r['launches']} launch(es))"
+                         for B, r in out[name].items())
+        log(f"phase 7a [{name}, {kernel_ops.ROUTE[name]}] ({card}): "
+            f"bit-identical per instance {checks}; {line}")
+        if not all(checks.values()):
+            raise SystemExit(f"phase 7a: {name} batched disagrees with its "
+                             f"single launches")
+    return out
+
+
+def replay_fleet(cfg, fleet, torch, dev, tag, card):
+    """One batched replay (``parallel.replay_batched``) with the launch
+    counts reset just before and read just after, its peak memory, and
+    each instance's ATE."""
+    import numpy as np
+
+    from superodom_tpu_torch import kernels
+    from superodom_tpu_torch.io.datasets import ate_rmse
+    from superodom_tpu_torch.parallel import replay_batched
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    res = replay_batched(cfg, fleet, BATCH_CHUNK, dev)
+    counts = dict(kernels.launch_counts)
+    step_ms = np.asarray(res.chunk_ms) / BATCH_CHUNK
+    ates = [ate_rmse(res.poses_t[:, b], ds.gt_poses_t)
+            for b, ds in enumerate(fleet)]
+    summary = {
+        "batch": len(fleet), "scans": len(fleet[0].scans),
+        "chunk": BATCH_CHUNK,
+        "aggregate_scans_per_sec": res.aggregate_scans_per_sec,
+        "p50_step_ms": float(np.percentile(step_ms, 50)),
+        "p90_step_ms": float(np.percentile(step_ms, 90)),
+        "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "ate_m": ates, "launches": counts}
+    log(f"{tag} ({card}): " + json.dumps(
+        {k: v for k, v in summary.items() if k != "ate_m"})
+        + f", ATE per instance max {max(ates):.6f} m min {min(ates):.6f} m")
+    poses = np.concatenate([res.poses_t, res.poses_q], axis=-1)
+    if not np.isfinite(poses).all():
+        raise SystemExit(f"{tag}: non-finite poses")
+    if not max(ates) < ATE_BAR_M:
+        raise SystemExit(f"{tag}: an instance's ATE {max(ates):.4f} m is "
+                         f"not below {ATE_BAR_M} m")
+    return res, summary
+
+
+def hold_fleet(tag, res, singles, counts, single_counts, loop_kernels=()):
+    """Each instance's poses within BATCH_AGREE_M of its single-instance
+    replay (``singles[b]``), scan by scan; every kernel launched as often
+    as at B = 1 (the per-instance-loop kernels B times as often)."""
+    import numpy as np
+
+    B = res.poses_t.shape[1]
+    dt = max(float(np.abs(res.poses_t[:, b] - s.poses_t[:, 0]).max())
+             for b, s in enumerate(singles))
+    dq = max(float(np.abs(res.poses_q[:, b] - s.poses_q[:, 0]).max())
+             for b, s in enumerate(singles))
+    want = {k: v * (B if k in loop_kernels else 1)
+            for k, v in single_counts.items()}
+    log(f"{tag}: each instance against its single replay: max |dt| "
+        f"{dt:.3e} m, max |dq| {dq:.3e}; launches {counts}, expected "
+        f"{want}")
+    if not (dt <= BATCH_AGREE_M and dq <= BATCH_AGREE_M):
+        raise SystemExit(f"{tag}: an instance disagrees with its single "
+                         f"replay")
+    if counts != want:
+        raise SystemExit(f"{tag}: the batched launches are not the single "
+                         f"replay's")
+    return {"max_dt_m": dt, "max_dq": dq}
+
+
+def phase_batched(cfg, torch, dev, card):
+    """Phase 7: many instances on one card (``parallel.replay_batched``,
+    the counterpart of the JAX package's bench_batch)."""
+    import dataclasses
+
+    import numpy as np
+
+    from superodom_tpu_torch.config import parity_config, ship_config
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    t0 = time.perf_counter()
+    data = [make_ship_dataset(cfg, BATCH_SCANS, seed) for seed in BATCH_SEEDS]
+    log(f"phase 7: datasets of seeds {BATCH_SEEDS} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"kernels": phase_batched_kernels(cfg, data, torch, dev, card)}
+
+    # 7b: four instances on four datasets against each one's B = 1 replay
+    singles = [replay_fleet(cfg, [d], torch, dev,
+                            f"phase 7b [B=1, seed {s}]", card)
+               for s, d in zip(BATCH_SEEDS, data)]
+    counts1 = singles[0][1]["launches"]
+    if any(s[1]["launches"] != counts1 for s in singles):
+        raise SystemExit("phase 7b: the single replays launch differently")
+    res4, sum4 = replay_fleet(cfg, data, torch, dev, "phase 7b [B=4]",
+                              card)
+    out["b4_vs_single"] = hold_fleet("phase 7b [B=4]", res4,
+                                     [s[0] for s in singles],
+                                     sum4["launches"], counts1)
+    fleets = {1: singles[0][1], 4: sum4}
+    # 7c: scaling, the instances taking the four datasets in turn, each
+    # held against its dataset's B = 1 replay
+    for B in BATCH_SIZES:
+        if B not in fleets:
+            tag = f"phase 7c [B={B}]"
+            res, fleets[B] = replay_fleet(
+                cfg, [data[b % 4] for b in range(B)], torch, dev, tag, card)
+            out[f"b{B}_vs_single"] = hold_fleet(
+                tag, res, [singles[b % 4][0] for b in range(B)],
+                fleets[B]["launches"], counts1)
+            del res
+    # one instance without vmap, the same fixed-count rounds and chunks
+    fixed = dataclasses.replace(cfg, registration=dataclasses.replace(
+        cfg.registration, icp_early_exit=False))
+    r = OdometryRunner(fixed, device=dev).run_dataset_chunked(
+        data[0], chunk=BATCH_CHUNK, time_chunks=True)
+    times = np.asarray([s["time_elapsed_ms"] for s in r.stats])
+    d_unb = float(np.abs(r.poses_t - singles[0][0].poses_t[:, 0]).max())
+    dq_unb = float(np.abs(r.poses_q - singles[0][0].poses_q[:, 0]).max())
+    out["unbatched_b1"] = {"scans_per_sec": r.scans_per_sec,
+                           "p50_step_ms": float(np.percentile(times, 50)),
+                           "p90_step_ms": float(np.percentile(times, 90)),
+                           "max_dt_vs_vmap_b1_m": d_unb,
+                           "max_dq_vs_vmap_b1": dq_unb}
+    if not (d_unb <= BATCH_AGREE_M and dq_unb <= BATCH_AGREE_M):
+        raise SystemExit(f"phase 7c: the replay without vmap is {d_unb:.3e} "
+                         f"m / {dq_unb:.3e} from B = 1 through vmap")
+    log(f"phase 7c ({card}): " + "; ".join(
+        f"B={B} {f['aggregate_scans_per_sec']:.3f} scans/s, p50 / p90 "
+        f"{f['p50_step_ms']:.1f} / {f['p90_step_ms']:.1f} ms, peak "
+        f"{f['peak_mem_mb']:.0f} MB" for B, f in sorted(fleets.items()))
+        + f" | one instance without vmap (run_dataset_chunked, fixed count, "
+        f"chunk {BATCH_CHUNK}): {r.scans_per_sec:.3f} scans/s, p50 / p90 "
+        f"{out['unbatched_b1']['p50_step_ms']:.1f} / "
+        f"{out['unbatched_b1']['p90_step_ms']:.1f} ms, poses within "
+        f"{d_unb:.3e} m / {dq_unb:.3e} of B=1 through vmap")
+    out["fleets"] = {B: {k: v for k, v in f.items()}
+                     for B, f in sorted(fleets.items())}
+
+    # 7d: the other kernels under batching, two instances on two datasets
+    edges = dataclasses.replace(parity_config("os1"), use_edge_features=True)
+    vlp = ship_config("vlp16")
+    for name, c, loop in (("vlp16", vlp, ("voxel_claim",)),
+                          ("edges", edges, ("voxel_claim", "curvature_edges",
+                                            "edge_fit"))):
+        pair = [make_ship_dataset(c, BATCH_PATH_SCANS, seed)
+                for seed in BATCH_SEEDS[:2]]
+        one = [replay_fleet(c, [d], torch, dev, f"phase 7d [{name}, B=1, "
+                            f"seed {s}]", card)
+               for s, d in zip(BATCH_SEEDS, pair)]
+        res2, sum2 = replay_fleet(c, pair, torch, dev,
+                                  f"phase 7d [{name}, B=2]", card)
+        out[f"{name}_b2"] = dict(sum2, **hold_fleet(
+            f"phase 7d [{name}, B=2]", res2, [o[0] for o in one],
+            sum2["launches"], one[0][1]["launches"], loop))
+        if name == "edges" and not all(
+                s["edge_stack"] > 0 for st in res2.stats for s in st):
+            raise SystemExit("phase 7d: a scan of path E extracted no edge")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 7: {out['seconds']:.1f} s")
+    return out
+
+
 def measured(r):
     """The kernels line's measured fields of one phase-1 result."""
     return {"max_abs_err": r["err"], "ms": r["ms"],
@@ -1977,7 +2379,7 @@ def main(argv=None):
         f"{torch.cuda.device_count()} device(s)")
     import dataclasses
 
-    from superodom_tpu_torch import kernels
+    from superodom_tpu_torch import kernel_ops, kernels
     from superodom_tpu_torch.config import parity_config, ship_config
 
     kernels.build(verbose=True)
@@ -2097,6 +2499,9 @@ def main(argv=None):
         pool.terminate()
         pool.join()
 
+    # phase 7: many instances on one card
+    batched = phase_batched(cfg, torch, dev, smi)
+
     # every number but ``launches`` and ``bound_ms`` is of the path under
     # ``path``; ``by_path`` has the same fields for every path that runs
     # the kernel
@@ -2114,6 +2519,9 @@ def main(argv=None):
                     for p in paths if k in kres[p]},
         **({"vio_prior_on_corridor": measured(k4_prior)}
            if k == "gn_solve" else {}),
+        "batched": {"route": kernel_ops.ROUTE[k], "us": {
+            B: batched["kernels"][k][B]["ms"] * 1e3
+            for B in BATCH_SIZES if B > 1}},
     } for k in kernels.KERNELS]
     record = {"card": smi, "kernels": entries, "main_path": runs["ship"][2],
               "paths": {p: runs[p][2] for p in paths},
@@ -2129,7 +2537,8 @@ def main(argv=None):
               "chunked_cpu_agree": chunked_cpu,
               "superloc": superloc,
               "gn_solve_vio_prior_on_corridor": measured(k4_prior),
-              "recorded": recorded}
+              "recorded": recorded,
+              "batched": batched}
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"kernels": entries}))

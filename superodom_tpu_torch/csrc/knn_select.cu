@@ -45,6 +45,14 @@
 // that is not valid (fewer than W live candidates) holds whatever its
 // winner's row holds there — the BIG sentinel of an empty lane, or a point
 // of row 0 for a missing slot — exactly as the plain version gathers it.
+//
+// Instances: one launch serves n_inst independent maps (the batched step
+// of superodom_tpu_torch/parallel.py).  Instance i is blockIdx.y: its
+// point table, slot ids and queries start istride[0..2] elements after
+// instance 0's (0: shared), its slot ids index its own table, and its
+// outputs follow at i * Q * k (times 3 for the neighbours).  Each instance
+// computes exactly what a launch on its own inputs computes, and
+// n_inst = 1 is the single launch.
 #include "common.cuh"
 
 #define KNN_THREADS 128
@@ -56,7 +64,19 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
     const float* __restrict__ pts, int C, const int* __restrict__ slots,
     const float* __restrict__ queries, int nq, int k,
     float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
-    unsigned char* __restrict__ valid_out, long long* __restrict__ lane_out) {
+    unsigned char* __restrict__ valid_out, long long* __restrict__ lane_out,
+    long long pts_is, long long slots_is, long long queries_is) {
+  {
+    const size_t outs = (size_t)blockIdx.y * nq * k;
+    pts += blockIdx.y * pts_is;
+    slots += blockIdx.y * slots_is;
+    queries += blockIdx.y * queries_is;
+    o0 += PLANAR ? outs : 3 * outs;
+    o1 += outs;
+    if constexpr (PLANAR) o2 += outs;
+    else lane_out += outs;
+    valid_out += outs;
+  }
   const int qi = blockIdx.x * (KNN_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (qi >= nq) return;  // uniform per warp
@@ -175,26 +195,35 @@ template <int P, bool VEC, bool PLANAR>
 static void launch_knn(const float* pts, int C, const int* slots,
                        const float* queries, int nq, int k, float* o0,
                        float* o1, float* o2, unsigned char* valid,
-                       long long* lane, cudaStream_t stream) {
+                       long long* lane, int n_inst, const long long* istride,
+                       cudaStream_t stream) {
   const int per_block = KNN_THREADS / 32;
-  const int blocks = (nq + per_block - 1) / per_block;
+  const dim3 blocks((unsigned)((nq + per_block - 1) / per_block),
+                    (unsigned)n_inst);
   knn_select_kernel<P, VEC, PLANAR><<<blocks, KNN_THREADS, 0, stream>>>(
-      pts, C, slots, queries, nq, k, o0, o1, o2, valid, lane);
+      pts, C, slots, queries, nq, k, o0, o1, o2, valid, lane, istride[0],
+      istride[1], istride[2]);
 }
 
-// C in 1..32 (P = ceil(C/4) points a lane), 1 <= k <= min(32, 8*C).
+// C in 1..32 (P = ceil(C/4) points a lane), 1 <= k <= min(32, 8*C);
+// istride (host) = {pts, slots, queries} instance strides in elements.
 template <bool PLANAR>
 static int knn_dispatch(const float* pts, int C, const int* slots,
                         const float* queries, int nq, int k, float* o0,
                         float* o1, float* o2, unsigned char* valid,
-                        long long* lane, void* stream) {
-  if (C < 1 || C > 32 || k < 1 || k > 32 || k > 8 * C)
+                        long long* lane, int n_inst, const long long* istride,
+                        void* stream) {
+  if (C < 1 || C > 32 || k < 1 || k > 32 || k > 8 * C || n_inst < 1 ||
+      n_inst > 65535)
     return (int)cudaErrorInvalidValue;
   if (nq > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
-    const bool vec = C % 16 == 0 && (reinterpret_cast<uintptr_t>(pts) & 15) == 0;
+    // 16-byte vectors: every instance's table on a 16-byte line
+    const bool vec = C % 16 == 0 &&
+                     (reinterpret_cast<uintptr_t>(pts) & 15) == 0 &&
+                     (istride[0] & 3) == 0;
 #define KNN_GO(P, V) \
-  launch_knn<P, V, PLANAR>(pts, C, slots, queries, nq, k, o0, o1, o2, valid, lane, s)
+  launch_knn<P, V, PLANAR>(pts, C, slots, queries, nq, k, o0, o1, o2, valid, lane, n_inst, istride, s)
     switch ((C + 3) / 4) {
       case 1: KNN_GO(1, false); break;
       case 2: KNN_GO(2, false); break;
@@ -219,16 +248,18 @@ static int knn_dispatch(const float* pts, int C, const int* slots,
 extern "C" int so_knn_select(const float* pts, int C, const int* slots,
                              const float* queries, int nq, int k, float* neigh,
                              float* sq, unsigned char* valid, long long* lane,
+                             int n_inst, const long long* istride,
                              void* stream) {
   return knn_dispatch<false>(pts, C, slots, queries, nq, k, neigh, sq, nullptr,
-                             valid, lane, stream);
+                             valid, lane, n_inst, istride, stream);
 }
 
 // K9a: the W nearest candidates as planes x, y, z f32[Q,W], valid bool[Q,W].
 extern "C" int so_reduce_candidates(const float* pts, int C, const int* slots,
                                     const float* queries, int nq, int w,
                                     float* x, float* y, float* z,
-                                    unsigned char* valid, void* stream) {
+                                    unsigned char* valid, int n_inst,
+                                    const long long* istride, void* stream) {
   return knn_dispatch<true>(pts, C, slots, queries, nq, w, x, y, z, valid,
-                            nullptr, stream);
+                            nullptr, n_inst, istride, stream);
 }

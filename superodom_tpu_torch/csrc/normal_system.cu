@@ -46,6 +46,15 @@
 // shared memory; after a second barrier every block reads it back.  No
 // float atomics: repeated runs are bit-identical.  The host pays one
 // launch per ICP round instead of ~100 small ops per GN iteration.
+//
+// Instances: one launch serves n_inst independent solves (the batched step
+// of superodom_tpu_torch/parallel.py) on a grid of (GN_BLOCKS, n_inst)
+// blocks, one cluster per instance: instance i is blockIdx.y, its inputs
+// start istride[...] elements after instance 0's (0: shared), its outputs
+// follow at i * 43 or i * 7 (and i for first_small).  The cluster, its
+// staging and its reduction through distributed shared memory are the
+// single launch's, so each instance computes exactly what a launch on its
+// own inputs computes, and n_inst = 1 is the single launch.
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -59,6 +68,7 @@ namespace cg = cooperative_groups;
 #define GN_MAX_DYN_SMEM (216 * 1024)  // of the 227 KB a block may use
 #define GN_BLOCKS 8      // the blocks of the one cluster
 #define GN_THREADS 256   // threads a block
+#define GN_INPUTS 20     // the per-instance inputs, in so_gn_solve's order
 
 struct GnArgs {
   const float* p_body;
@@ -91,7 +101,42 @@ struct GnArgs {
   int n_iters;
   float* out;  // n_iters = 0: H[36], g[6], cost; else q[4], t[3]
   unsigned char* first_small;
+  long long is[GN_INPUTS];  // the inputs' instance strides, in elements
 };
+
+// p + i * s, a null pointer kept null
+template <typename T>
+static __device__ __forceinline__ T* so_at(T* p, long long s, unsigned i) {
+  return p != nullptr ? p + i * s : p;
+}
+
+// The arguments of instance i: every input at its instance stride (in
+// so_gn_solve's order), the outputs at the instance's place.
+static __device__ GnArgs gn_instance(GnArgs a, unsigned i) {
+  a.p_body = so_at(a.p_body, a.is[0], i);
+  a.normal = so_at(a.normal, a.is[1], i);
+  a.d = so_at(a.d, a.is[2], i);
+  a.coeff = so_at(a.coeff, a.is[3], i);
+  a.valid = so_at(a.valid, a.is[4], i);
+  a.obs_bins = so_at(a.obs_bins, a.is[5], i);
+  a.q0 = so_at(a.q0, a.is[6], i);
+  a.t0 = so_at(a.t0, a.is[7], i);
+  a.a_sq = so_at(a.a_sq, a.is[8], i);
+  a.prior_q = so_at(a.prior_q, a.is[9], i);
+  a.prior_t = so_at(a.prior_t, a.is[10], i);
+  a.prior_info = so_at(a.prior_info, a.is[11], i);
+  a.prior_enabled = so_at(a.prior_enabled, a.is[12], i);
+  a.hold_enabled = so_at(a.hold_enabled, a.is[13], i);
+  a.e_p = so_at(a.e_p, a.is[14], i);
+  a.e_a = so_at(a.e_a, a.is[15], i);
+  a.e_b = so_at(a.e_b, a.is[16], i);
+  a.e_coeff = so_at(a.e_coeff, a.is[17], i);
+  a.e_valid = so_at(a.e_valid, a.is[18], i);
+  a.a_sq_e = so_at(a.a_sq_e, a.is[19], i);
+  a.out = so_at(a.out, a.n_iters > 0 ? 7 : 43, i);
+  a.first_small = so_at(a.first_small, 1, i);
+  return a;
+}
 
 // ---------------------------------------------------------------- mbarrier
 
@@ -307,8 +352,9 @@ static __device__ bool gn_update(const float* tot, const GnArgs& a,
 // ------------------------------------------------------------------ kernel
 
 __global__ void __cluster_dims__(GN_BLOCKS, 1, 1)
-    __launch_bounds__(GN_THREADS) gn_kernel(const GnArgs a) {
+    __launch_bounds__(GN_THREADS) gn_kernel(const GnArgs args) {
   constexpr int NT = GN_THREADS;
+  const GnArgs a = gn_instance(args, blockIdx.y);
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float warp_part[NT / 32][GN_ACC];
@@ -318,7 +364,7 @@ __global__ void __cluster_dims__(GN_BLOCKS, 1, 1)
   __shared__ __align__(8) unsigned long long bar;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rank = blockIdx.x;  // the grid is one cluster
+  const int rank = blockIdx.x;  // the grid's x is one cluster
   const int r0 = rank * a.rows;
   const int n = max(0, min(a.rows, a.nm - r0));
   const int e0 = rank * a.erows;
@@ -552,7 +598,11 @@ __global__ void __cluster_dims__(GN_BLOCKS, 1, 1)
 
 // n_iters = 0 writes H[36], g[6], cost to out; otherwise q[4], t[3] to out
 // and the first iteration's |delta| < 1e-6 to first_small.  ne = 0: no
-// edge rows (their pointers may be null).
+// edge rows (their pointers may be null).  n_inst instances; istride
+// (host) = the instance strides, in elements, of the GN_INPUTS inputs in
+// the order p_body, normal, d, coeff, valid, obs_bins, q0, t0, a_sq,
+// prior_q, prior_t, prior_info, prior_enabled, hold_enabled, e_p, e_a,
+// e_b, e_coeff, e_valid, a_sq_e.
 extern "C" int so_gn_solve(
     const float* p_body, const float* normal, const float* d,
     const float* coeff, const unsigned char* valid, const int* obs_bins,
@@ -562,8 +612,11 @@ extern "C" int so_gn_solve(
     int hold_min, float hold_frac, float damping, int n_iters, float* out,
     unsigned char* first_small, const float* e_p, const float* e_a,
     const float* e_b, const float* e_coeff, const unsigned char* e_valid,
-    int ne, const float* a_sq_e, void* stream) {
+    int ne, const float* a_sq_e, int n_inst, const long long* istride,
+    void* stream) {
+  if (n_inst < 1 || n_inst > 65535) return (int)cudaErrorInvalidValue;
   GnArgs a;
+  for (int i = 0; i < GN_INPUTS; ++i) a.is[i] = istride[i];
   a.p_body = p_body;
   a.normal = normal;
   a.d = d;
@@ -605,6 +658,7 @@ extern "C" int so_gn_solve(
         GN_MAX_DYN_SMEM);
     if (e != cudaSuccess) return (int)e;
   }
-  gn_kernel<<<GN_BLOCKS, GN_THREADS, dyn, (cudaStream_t)stream>>>(a);
+  gn_kernel<<<dim3(GN_BLOCKS, n_inst), GN_THREADS, dyn,
+              (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -35,6 +35,13 @@
 //     version, also where a row holds a key twice;
 //   * the quotient is the IEEE one (__fdiv_rn), as the plain version
 //     divides: that is what makes the cell floor agree with it to the bit.
+//
+// Instances: one launch serves n_inst independent maps (the batched step
+// of superodom_tpu_torch/parallel.py).  Instance i is blockIdx.y: its key
+// table starts istride[0] ints after instance 0's (0: one table shared),
+// its queries istride[1] floats after, its slot ids at i * Q * 8.  Each
+// instance computes exactly what a launch on its own inputs computes, and
+// n_inst = 1 is the single launch.
 #include "common.cuh"
 
 // lanes that share one (query, octant) probe, and threads a block
@@ -57,8 +64,11 @@ template <int NV>
 __global__ void __launch_bounds__(OL_THREADS) octant_lookup_kernel(
     const int* __restrict__ keys, int nb, int B,
     const float* __restrict__ queries, int nq, float cell_size,
-    int* __restrict__ out) {
+    int* __restrict__ out, long long keys_is, long long queries_is) {
   constexpr int L = OL_LANES;
+  keys += blockIdx.y * keys_is;
+  queries += blockIdx.y * queries_is;
+  out += (size_t)blockIdx.y * nq * 8;
   // a warp serves 4 octants, two warps a query
   const int warp = (int)((blockIdx.x * OL_THREADS + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
@@ -110,27 +120,32 @@ __global__ void __launch_bounds__(OL_THREADS) octant_lookup_kernel(
 template <int NV>
 static void so_launch_octant_lookup(const int* keys, int nb, int B,
                                     const float* queries, int nq,
-                                    float cell_size, int* out,
+                                    float cell_size, int* out, int n_inst,
+                                    const long long* istride,
                                     cudaStream_t stream) {
   const long long threads = (long long)nq * 8 * OL_LANES;
-  const int blocks = (int)((threads + OL_THREADS - 1) / OL_THREADS);
+  const dim3 blocks((unsigned)((threads + OL_THREADS - 1) / OL_THREADS),
+                    (unsigned)n_inst);
   octant_lookup_kernel<NV><<<blocks, OL_THREADS, 0, stream>>>(
-      keys, nb, B, queries, nq, cell_size, out);
+      keys, nb, B, queries, nq, cell_size, out, istride[0], istride[1]);
 }
 
-// nb a power of two, B a multiple of 4, keys 16-byte aligned.
+// nb a power of two, B a multiple of 4, every instance's keys 16-byte
+// aligned; istride (host) = {keys, queries} instance strides in elements.
 extern "C" int so_octant_lookup(const int* keys, int nb, int B,
                                 const float* queries, int nq, float cell_size,
-                                int* out, void* stream) {
+                                int* out, int n_inst,
+                                const long long* istride, void* stream) {
   if (nb < 1 || (nb & (nb - 1)) || B < 4 || (B & 3) ||
-      (reinterpret_cast<uintptr_t>(keys) & 15))
+      (reinterpret_cast<uintptr_t>(keys) & 15) || (istride[0] & 3) ||
+      n_inst < 1 || n_inst > 65535)
     return (int)cudaErrorInvalidValue;
   if (nq > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (B == 128)  // 4 vectors a lane
-      so_launch_octant_lookup<128 / (4 * OL_LANES)>(keys, nb, B, queries, nq, cell_size, out, s);
+      so_launch_octant_lookup<128 / (4 * OL_LANES)>(keys, nb, B, queries, nq, cell_size, out, n_inst, istride, s);
     else
-      so_launch_octant_lookup<0>(keys, nb, B, queries, nq, cell_size, out, s);
+      so_launch_octant_lookup<0>(keys, nb, B, queries, nq, cell_size, out, n_inst, istride, s);
   }
   return (int)cudaGetLastError();
 }

@@ -40,6 +40,14 @@
 // copies, coalesced stores of normal and bins through shared memory, and
 // the body axes computed once a block into shared memory (each costs a
 // block barrier).
+//
+// Instances: one launch serves n_inst independent solves (the batched step
+// of superodom_tpu_torch/parallel.py).  Instance i is blockIdx.y: its
+// inputs (neighbourhoods, distances, validity, mask, points, pose, plane
+// resolution) start istride[0..6] elements after instance 0's (0:
+// shared), its outputs follow at i * Q (times 3 for normal and bins).
+// Each instance computes exactly what a launch on its own inputs computes,
+// and n_inst = 1 is the single launch.
 #include <math.h>
 
 #include "common.cuh"
@@ -49,6 +57,11 @@
 // correspondences (= threads) a block; 32, 128 and 256 measured no faster
 // on the H100 (PERF.md)
 #define PF_BLOCK 64
+
+// the instance strides of the seven inputs, in elements
+struct PfStrides {
+  long long s[7];
+};
 
 // K > 0: k known when compiled; K == 0: any k <= PF_MAX_K, given as k_rt.
 template <int K>
@@ -60,7 +73,24 @@ __global__ void __launch_bounds__(PF_BLOCK) plane_fit_kernel(
     int nq, int k_rt, float* __restrict__ normal_out,
     float* __restrict__ d_out, float* __restrict__ coeff_out,
     unsigned char* __restrict__ valid_out, int* __restrict__ code_out,
-    int* __restrict__ bins_out) {
+    int* __restrict__ bins_out, PfStrides is) {
+  {
+    const unsigned i = blockIdx.y;
+    const size_t o = (size_t)i * nq;
+    neigh += i * is.s[0];
+    sq += i * is.s[1];
+    nvalid += i * is.s[2];
+    mask += i * is.s[3];
+    w_pt += i * is.s[4];
+    pose_q += i * is.s[5];
+    plane_res_p += i * is.s[6];
+    normal_out += 3 * o;
+    d_out += o;
+    coeff_out += o;
+    valid_out += o;
+    code_out += o;
+    bins_out += 3 * o;
+  }
   const int k = K > 0 ? K : k_rt;
   const int m = (int)(blockIdx.x * PF_BLOCK + threadIdx.x);
   if (m >= nq) return;
@@ -222,28 +252,35 @@ static void so_launch_plane_fit(
     const float* neigh, const float* sq, const unsigned char* nvalid,
     const unsigned char* mask, const float* w_pt, const float* pose_q,
     const float* plane_res, int nq, int k, float* normal, float* d,
-    float* coeff, unsigned char* valid, int* code, int* bins,
-    cudaStream_t stream) {
-  const int blocks = (nq + PF_BLOCK - 1) / PF_BLOCK;
+    float* coeff, unsigned char* valid, int* code, int* bins, int n_inst,
+    const PfStrides& is, cudaStream_t stream) {
+  const dim3 blocks((unsigned)((nq + PF_BLOCK - 1) / PF_BLOCK),
+                    (unsigned)n_inst);
   plane_fit_kernel<K><<<blocks, PF_BLOCK, 0, stream>>>(
       neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d,
-      coeff, valid, code, bins);
+      coeff, valid, code, bins, is);
 }
 
+// istride (host) = the instance strides, in elements, of neigh, sq,
+// nvalid, mask, w_pt, pose_q and plane_res.
 extern "C" int so_plane_fit(const float* neigh, const float* sq,
                             const unsigned char* nvalid,
                             const unsigned char* mask, const float* w_pt,
                             const float* pose_q, const float* plane_res,
                             int nq, int k, float* normal, float* d,
                             float* coeff, unsigned char* valid, int* code,
-                            int* bins, void* stream) {
-  if (k < 1 || k > PF_MAX_K) return (int)cudaErrorInvalidValue;
+                            int* bins, int n_inst, const long long* istride,
+                            void* stream) {
+  if (k < 1 || k > PF_MAX_K || n_inst < 1 || n_inst > 65535)
+    return (int)cudaErrorInvalidValue;
+  PfStrides is;
+  for (int i = 0; i < 7; ++i) is.s[i] = istride[i];
   if (nq > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     switch (k) {
-      case 5: so_launch_plane_fit<5>(neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d, coeff, valid, code, bins, s); break;
-      case 10: so_launch_plane_fit<10>(neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d, coeff, valid, code, bins, s); break;
-      default: so_launch_plane_fit<0>(neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d, coeff, valid, code, bins, s); break;
+      case 5: so_launch_plane_fit<5>(neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d, coeff, valid, code, bins, n_inst, is, s); break;
+      case 10: so_launch_plane_fit<10>(neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d, coeff, valid, code, bins, n_inst, is, s); break;
+      default: so_launch_plane_fit<0>(neigh, sq, nvalid, mask, w_pt, pose_q, plane_res, nq, k, normal, d, coeff, valid, code, bins, n_inst, is, s); break;
     }
   }
   return (int)cudaGetLastError();

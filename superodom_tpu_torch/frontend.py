@@ -13,7 +13,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from superodom_tpu_torch import kernels
+from superodom_tpu_torch import kernel_ops
 from superodom_tpu_torch.geometry import (
     Pose,
     dot3,
@@ -246,9 +246,10 @@ def curvature_edge_extraction(xyz, ring, mask, half_window: int = 5,
     """K11a: see :func:`curvature_edge_extraction_reference` for the
     contract."""
     if xyz.is_cuda:
-        return kernels.curvature_edges(
+        return kernel_ops.curvature_edges(
             xyz.contiguous(), ring.to(torch.int32).contiguous(),
-            mask.contiguous(), half_window, curvature_threshold, min_range)
+            mask.contiguous(), half_window, float(curvature_threshold),
+            float(min_range))
     if xyz.device.type == "cpu":
         return curvature_edge_extraction_reference(
             xyz, ring, mask, half_window, curvature_threshold, min_range)

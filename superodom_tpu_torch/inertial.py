@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import jacfwd, vmap
 
 from superodom_tpu_torch.config import ImuConfig
@@ -30,6 +31,7 @@ from superodom_tpu_torch.geometry import (
     so3_exp,
     so3_log,
 )
+from superodom_tpu_torch.ops import invariant as inv
 
 
 class ImuInitState(NamedTuple):
@@ -347,9 +349,9 @@ def _scaled_solve(A, rhs, damp=1e-7):
         A.shape[0], dtype=A.dtype, device=A.device)
     b = d * rhs if rhs.ndim == 1 else d[:, None] * rhs
     b2 = b[:, None] if rhs.ndim == 1 else b
-    # solve_ex: no host round trip for the error check; a singular system
-    # yields non-finite entries, which the callers zero out
-    x = torch.linalg.solve_ex(As, b2)[0]
+    # a singular system yields non-finite entries, which the callers zero
+    # out
+    x = inv.solve(As, b2)
     return d * x[:, 0] if rhs.ndim == 1 else d[:, None] * x
 
 
@@ -395,19 +397,21 @@ def _marginalize_oldest(state: SmootherState, cfg: ImuConfig, lidar_w,
     r6, J6 = pr(z15), jacfwd(pr)(z15)
     r0 = _state_tangent15(*xi, state.prior_q, state.prior_x)
 
-    H = Jp.T @ Jp
-    g = Jp.T @ rp
+    # the products and solves of ops.invariant: an instance's bits under
+    # vmap do not depend on the batch
+    H = inv.matmul(Jp.T, Jp)
+    g = inv.matmul(Jp.T, rp)
     H = H.clone()
-    H[:15, :15] += J6.T @ J6 + state.prior_info
+    H[:15, :15] += inv.matmul(J6.T, J6) + state.prior_info
     g = g.clone()
-    g[:15] += J6.T @ r6 + state.prior_info @ r0
+    g[:15] += inv.matmul(J6.T, r6) + inv.matmul(state.prior_info, r0)
 
     A, B, C = H[:15, :15], H[:15, 15:], H[15:, 15:]
     AinvB = _scaled_solve(A, B)
     Ainvg = _scaled_solve(A, g[:15])
-    info = C - B.T @ AinvB
+    info = C - inv.matmul(B.T, AinvB)
     info = 0.5 * (info + info.T)
-    gm = g[15:] - B.T @ Ainvg
+    gm = g[15:] - inv.matmul(B.T, Ainvg)
 
     caps = torch.tensor(_TRUST_CAPS, dtype=dtype, device=dev)
     delta = torch.clamp(-_scaled_solve(info, gm), -caps, caps)
@@ -513,27 +517,32 @@ def smoother_update(state: SmootherState, cfg: ImuConfig,
         xj = (q_c[1:], p_c[1:], v_c[1:], ba_c[1:], bg_c[1:])
         r_pair, J_pair = vmap(pair_factor)(xi, xj, pre_pairs, pair_valid,
                                            w_bias_a[1:], w_bias_g[1:])
-        Hp = torch.einsum("wri,wrj->wij", J_pr, J_pr)  # [W,15,15]
-        gp = torch.einsum("wri,wr->wi", J_pr, r_pr)
-        Hq = torch.einsum("wri,wrj->wij", J_pair, J_pair)  # [W-1,30,30]
-        gq = torch.einsum("wri,wr->wi", J_pair, r_pair)
+        Hp = inv.einsum("wri,wrj->wij", J_pr, J_pr)  # [W,15,15]
+        gp = inv.einsum("wri,wr->wi", J_pr, r_pr)
+        Hq = inv.einsum("wri,wrj->wij", J_pair, J_pair)  # [W-1,30,30]
+        gq = inv.einsum("wri,wr->wi", J_pair, r_pair)
         H = torch.block_diag(*Hp)
         g = gp.reshape(-1)
+        # each pair's block added in place of an indexed write (vmap takes
+        # no in-place write of a batched block into a fresh tensor): the
+        # padding adds exact zeros, so every sum keeps its order and bits
         Hpair = torch.zeros((W * 15, W * 15), dtype=dtype, device=dev)
         gpair = torch.zeros((W * 15,), dtype=dtype, device=dev)
         for i in range(W - 1):
-            sl = slice(i * 15, i * 15 + 30)
-            Hpair[sl, sl] += Hq[i]
-            gpair[sl] += gq[i]
+            pad = (i * 15, (W - 2 - i) * 15)
+            Hpair = Hpair + F.pad(Hq[i], pad + pad)
+            gpair = gpair + F.pad(gq[i], pad)
         H = H + Hpair
         g = g + gpair
         # marginal prior on the oldest state (J ~ identity in its tangent)
         r0 = _state_tangent15(q_c[0], p_c[0], v_c[0], ba_c[0], bg_c[0],
                               st.prior_q, st.prior_x)
-        H[:15, :15] += prior_gate * st.prior_info
-        g[:15] += prior_gate * (st.prior_info @ r0)
+        rest = (0, (W - 1) * 15)
+        H = H + F.pad(prior_gate * st.prior_info, rest + rest)
+        g = g + F.pad(prior_gate * inv.matmul(st.prior_info, r0), rest)
         # hierarchical bias reparametrization (see the JAX package)
-        delta = T @ _scaled_solve(T.T @ H @ T, -(T.T @ g))
+        delta = inv.matmul(T, _scaled_solve(
+            inv.matmul(inv.matmul(T.T, H), T), -inv.matmul(T.T, g)))
         delta = delta.reshape(W, 15)
         delta = torch.where(torch.isfinite(delta), delta, 0.0)
         delta = torch.clamp(delta, -caps, caps)

@@ -217,6 +217,19 @@ def make_dataset(
     )
 
 
+def bench_dataset(n_scans: int, points_per_scan: int,
+                  seed: int = 7) -> SimDataset:
+    """The replay benchmark's world (the JAX package's ``bench._dataset``):
+    an 80 x 60 x 16 m box, a radius-5 m circle at 0.5 laps per 120 scans,
+    distorted sweeps, drawn from ``seed``."""
+    return make_dataset(np.random.default_rng(seed), n_scans=n_scans,
+                        points_per_scan=points_per_scan,
+                        world=BoxWorld(half_extent=np.array([40.0, 30.0,
+                                                             8.0])),
+                        radius=5.0, laps=0.5 * n_scans / 120.0,
+                        distortion=True)
+
+
 def ate_rmse(est_t: np.ndarray, gt_t: np.ndarray) -> float:
     """Absolute trajectory error after origin alignment (both trajectories
     start at the same pose here, so no Umeyama fit is needed)."""

@@ -10,14 +10,20 @@ imports on a machine without either.
 Each launch function below checks device, dtype, shape and contiguity,
 allocates its outputs with ``torch.empty``, launches on the current CUDA
 stream, raises if the launch was refused, and adds one to its entry of
-:data:`launch_counts` — there and nowhere else.  They take CUDA tensors
-only; the dispatching wrappers (``mapstate.octant_lookup``,
-``mapstate.knn_select``, ``mapstate.reduce_candidates``,
-``mapstate.select_knn_reduced``, ``ops.voxel.voxel_downsample_scatter``,
+:data:`launch_counts` — there and nowhere else.  K1-K4 and K9a also take
+n instances in one launch (``*_batched``: every input with a leading
+instance dimension, each instance contiguous, any stride between them);
+the single-instance functions are that launch with n = 1.  They take
+CUDA tensors only, and raise on a tensor under ``torch.func.vmap``:
+``kernel_ops`` registers each entry as a custom operator whose vmap rule
+makes the batched launch.  The dispatching wrappers
+(``mapstate.octant_lookup``, ``mapstate.knn_select``,
+``mapstate.reduce_candidates``, ``mapstate.select_knn_reduced``,
+``ops.voxel.voxel_downsample_scatter``,
 ``frontend.curvature_edge_extraction``, ``registration.plane_fit``,
 ``registration.edge_fit``, ``registration.normal_system``,
-``registration.gauss_newton_solve``) send CPU tensors to the plain
-versions.
+``registration.gauss_newton_solve``) call those operators for CUDA
+tensors and send CPU tensors to the plain versions.
 """
 
 from __future__ import annotations
@@ -127,15 +133,17 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.so_octant_lookup.argtypes = [vp, ci, ci, vp, ci, cf, vp, vp]
-    lib.so_knn_select.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, vp]
+    lib.so_octant_lookup.argtypes = [vp, ci, ci, vp, ci, cf, vp, ci, vp, vp]
+    lib.so_knn_select.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, ci,
+                                  vp, vp]
     lib.so_plane_fit.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                 vp, vp, vp, vp, vp, vp, vp]
+                                 vp, vp, vp, vp, vp, vp, ci, vp, vp]
     lib.so_gn_solve.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, vp,
                                 vp, vp, vp, vp, vp, ci, cf, cf, ci,
-                                vp, vp, vp, vp, vp, vp, vp, ci, vp, vp]
+                                vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp,
+                                vp]
     lib.so_reduce_candidates.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp,
-                                         vp, vp]
+                                         vp, ci, vp, vp]
     lib.so_select_reduced.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci, vp, vp,
                                       vp, vp]
     lib.so_voxel_claim.argtypes = [vp, vp, ci, vp, ci, vp, vp, vp]
@@ -152,10 +160,20 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def under_vmap(t: torch.Tensor) -> bool:
+    """True for a tensor that ``torch.func.vmap`` carries (a batched tensor
+    at its outermost functorch level): it has no device pointer, and its
+    values are the instances'."""
+    return torch._C._functorch.is_batchedtensor(t)
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
            device=None) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if under_vmap(t):
+        raise RuntimeError(f"{name}: a kernel was reached under vmap without "
+                           f"its rule (kernel_ops registers one per entry)")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -164,6 +182,26 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_inst(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
+                shape=None, device=None) -> int:
+    """Check a per-instance input of ``n`` instances, ``[n, *shape]``, each
+    instance contiguous; return the stride between instances in elements
+    (0 where one tensor is shared, as ``expand`` gives it)."""
+    if n < 1:
+        raise ValueError(f"{name}: a launch takes at least one instance")
+    _check(name, t[0] if t.dim() and t.shape[0] == n else t, dtype,
+           None if shape is None else shape, device)
+    if t.dim() == 0 or t.shape[0] != n:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{n} instances")
+    return t.stride(0) if n > 1 else 0
+
+
+def _strides(*xs) -> ctypes.Array:
+    """The instance strides of a launch, as the C entries read them."""
+    return (ctypes.c_longlong * len(xs))(*xs)
 
 
 def _p(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -184,52 +222,75 @@ def _launched(name: str, rc: int) -> None:
 def octant_lookup(keys: torch.Tensor, queries: torch.Tensor,
                   cell_size: float) -> torch.Tensor:
     """K1 on the card: int32[Q, 8] slot ids (see csrc/octant_lookup.cu)."""
+    return octant_lookup_batched(keys[None], queries[None], cell_size)[0]
+
+
+def octant_lookup_batched(keys: torch.Tensor, queries: torch.Tensor,
+                          cell_size: float) -> torch.Tensor:
+    """K1 over n instances in one launch: key tables ``[n, NB, B]``,
+    queries ``[n, Q, 3]`` -> int32[n, Q, 8], each instance's slot ids into
+    its own table."""
+    n = queries.shape[0]
     dev = queries.device
-    nq = queries.shape[0]
-    _check("queries", queries, torch.float32, (nq, 3))
-    _check("keys", keys, torch.int32, device=dev)
-    nb, B = keys.shape
-    if nb & (nb - 1) or B % 32:
+    nq = queries.shape[1] if queries.dim() == 3 else -1
+    qs = _check_inst("queries", queries, torch.float32, n, (nq, 3))
+    ks = _check_inst("keys", keys, torch.int32, n, device=dev)
+    nb, B = keys.shape[1:] if keys.dim() == 3 else (0, 0)
+    if keys.dim() != 3 or nb & (nb - 1) or B % 32 or nb < 1:
         raise ValueError(f"octant_lookup: need power-of-two buckets and a "
-                         f"bucket size that is a multiple of 32, got {nb}x{B}")
-    if keys.data_ptr() % 16:
-        raise ValueError("octant_lookup: the key table must start on a "
-                         "16-byte line (its rows are read as 16-byte vectors)")
-    out = torch.empty((nq, 8), dtype=torch.int32, device=dev)
+                         f"bucket size that is a multiple of 32, got "
+                         f"{tuple(keys.shape[1:])}")
+    if keys.data_ptr() % 16 or ks % 4:
+        raise ValueError("octant_lookup: every key table must start on a "
+                         "16-byte line (its rows are read as 16-byte "
+                         "vectors)")
+    out = torch.empty((n, nq, 8), dtype=torch.int32, device=dev)
     rc = load().so_octant_lookup(_p(keys), nb, B, _p(queries), nq,
-                                 float(cell_size), _p(out), _stream(dev))
+                                 float(cell_size), _p(out), n,
+                                 _strides(ks, qs), _stream(dev))
     _launched("octant_lookup", rc)
     return out
 
 
-def _check_candidates(name: str, pts, slots, queries, k: int) -> int:
-    """The shared input checks of K2 and K9a; returns the cell capacity."""
+def _check_candidates(name: str, pts, slots, queries, k: int):
+    """The shared input checks of K2 and K9a over n instances; returns (n,
+    Q, the cell capacity, the instance strides)."""
+    n = queries.shape[0]
     dev = queries.device
-    nq = queries.shape[0]
-    _check("queries", queries, torch.float32, (nq, 3))
-    _check("slots", slots, torch.int32, (nq, 8), dev)
-    _check("pts", pts, torch.float32, device=dev)
-    C = pts.shape[1] // 3
-    if pts.shape[1] != 3 * C or not 1 <= C <= 32 or not 1 <= k <= min(
-            32, 8 * C):
+    nq = queries.shape[1] if queries.dim() == 3 else -1
+    qs = _check_inst("queries", queries, torch.float32, n, (nq, 3))
+    ss = _check_inst("slots", slots, torch.int32, n, (nq, 8), dev)
+    ps = _check_inst("pts", pts, torch.float32, n, device=dev)
+    C = pts.shape[-1] // 3
+    if pts.dim() != 3 or pts.shape[-1] != 3 * C or not 1 <= C <= 32 \
+            or not 1 <= k <= min(32, 8 * C):
         raise ValueError(f"{name}: unsupported cell capacity {C} or k {k}")
-    return C
+    return n, nq, C, _strides(ps, ss, qs)
 
 
 def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
                k: int):
     """K2 on the card: (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k],
     lane int64[Q,k]) (see csrc/knn_select.cu)."""
+    return tuple(o[0] for o in knn_select_batched(pts[None], slots[None],
+                                                  queries[None], k))
+
+
+def knn_select_batched(pts: torch.Tensor, slots: torch.Tensor,
+                       queries: torch.Tensor, k: int):
+    """K2 over n instances in one launch: point tables ``[n, rows, 3C]``,
+    slots ``[n, Q, 8]`` (into the instance's own table), queries
+    ``[n, Q, 3]`` -> K2's outputs with a leading instance dimension."""
     dev = queries.device
-    nq = queries.shape[0]
-    C = _check_candidates("knn_select", pts, slots, queries, k)
-    neigh = torch.empty((nq, k, 3), dtype=torch.float32, device=dev)
-    sq = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    valid = torch.empty((nq, k), dtype=torch.bool, device=dev)
-    lane = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    n, nq, C, strides = _check_candidates("knn_select", pts, slots, queries,
+                                          k)
+    neigh = torch.empty((n, nq, k, 3), dtype=torch.float32, device=dev)
+    sq = torch.empty((n, nq, k), dtype=torch.float32, device=dev)
+    valid = torch.empty((n, nq, k), dtype=torch.bool, device=dev)
+    lane = torch.empty((n, nq, k), dtype=torch.int64, device=dev)
     rc = load().so_knn_select(_p(pts), C, _p(slots), _p(queries), nq, k,
-                              _p(neigh), _p(sq), _p(valid), _p(lane),
-                              _stream(dev))
+                              _p(neigh), _p(sq), _p(valid), _p(lane), n,
+                              strides, _stream(dev))
     _launched("knn_select", rc)
     return neigh, sq, valid, lane
 
@@ -238,15 +299,23 @@ def reduce_candidates(pts: torch.Tensor, slots: torch.Tensor,
                       queries: torch.Tensor, w: int):
     """K9a on the card: the ``w`` nearest candidates of each query as planes
     (x f32[Q,w], y, z, valid bool[Q,w]) (see csrc/knn_select.cu)."""
+    return tuple(o[0] for o in reduce_candidates_batched(
+        pts[None], slots[None], queries[None], w))
+
+
+def reduce_candidates_batched(pts: torch.Tensor, slots: torch.Tensor,
+                              queries: torch.Tensor, w: int):
+    """K9a over n instances in one launch (inputs as
+    :func:`knn_select_batched`'s) -> (x, y, z, valid), each [n, Q, w]."""
     dev = queries.device
-    nq = queries.shape[0]
-    C = _check_candidates("reduce_candidates", pts, slots, queries, w)
-    x, y, z = (torch.empty((nq, w), dtype=torch.float32, device=dev)
+    n, nq, C, strides = _check_candidates("reduce_candidates", pts, slots,
+                                          queries, w)
+    x, y, z = (torch.empty((n, nq, w), dtype=torch.float32, device=dev)
                for _ in range(3))
-    valid = torch.empty((nq, w), dtype=torch.bool, device=dev)
+    valid = torch.empty((n, nq, w), dtype=torch.bool, device=dev)
     rc = load().so_reduce_candidates(_p(pts), C, _p(slots), _p(queries), nq,
-                                     w, _p(x), _p(y), _p(z), _p(valid),
-                                     _stream(dev))
+                                     w, _p(x), _p(y), _p(z), _p(valid), n,
+                                     strides, _stream(dev))
     _launched("reduce_candidates", rc)
     return x, y, z, valid
 
@@ -255,7 +324,8 @@ def select_reduced(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                    valid: torch.Tensor, queries: torch.Tensor, k: int):
     """K9b on the card: the ``k`` nearest of each query's reduced lanes,
     (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k]) (see
-    csrc/select_reduced.cu)."""
+    csrc/select_reduced.cu).  Every input is per query, so n instances
+    are one launch over their n * Q queries flattened."""
     dev = queries.device
     nq = queries.shape[0]
     _check("queries", queries, torch.float32, (nq, 3))
@@ -350,27 +420,40 @@ def plane_fit(neigh: torch.Tensor, sq: torch.Tensor, nvalid: torch.Tensor,
               plane_res: torch.Tensor):
     """K3 on the card: (normal, d, coeff, valid, code, obs_bins) (see
     csrc/plane_fit.cu)."""
+    return tuple(o[0] for o in plane_fit_batched(
+        *(t[None] for t in (neigh, sq, nvalid, mask, w_pt, q, plane_res))))
+
+
+def plane_fit_batched(neigh: torch.Tensor, sq: torch.Tensor,
+                      nvalid: torch.Tensor, mask: torch.Tensor,
+                      w_pt: torch.Tensor, q: torch.Tensor,
+                      plane_res: torch.Tensor):
+    """K3 over n instances in one launch: each input with a leading
+    instance dimension (``q`` [n, 4], ``plane_res`` [n]) -> K3's outputs
+    with one."""
     dev = neigh.device
-    nq, k = sq.shape
-    _check("neigh", neigh, torch.float32, (nq, k, 3))
-    _check("sq", sq, torch.float32, (nq, k), dev)
-    _check("nvalid", nvalid, torch.bool, (nq, k), dev)
-    _check("mask", mask, torch.bool, (nq,), dev)
-    _check("w_pt", w_pt, torch.float32, (nq, 3), dev)
-    _check("q", q, torch.float32, (4,), dev)
-    _check("plane_res", plane_res, torch.float32, (), dev)
+    n = neigh.shape[0]
+    nq, k = sq.shape[1:] if sq.dim() == 3 else (-1, -1)
+    strides = _strides(
+        _check_inst("neigh", neigh, torch.float32, n, (nq, k, 3)),
+        _check_inst("sq", sq, torch.float32, n, (nq, k), dev),
+        _check_inst("nvalid", nvalid, torch.bool, n, (nq, k), dev),
+        _check_inst("mask", mask, torch.bool, n, (nq,), dev),
+        _check_inst("w_pt", w_pt, torch.float32, n, (nq, 3), dev),
+        _check_inst("q", q, torch.float32, n, (4,), dev),
+        _check_inst("plane_res", plane_res, torch.float32, n, (), dev))
     if k > 16:
         raise ValueError(f"plane_fit: k={k} exceeds the kernel's 16")
-    normal = torch.empty((nq, 3), dtype=torch.float32, device=dev)
-    d = torch.empty((nq,), dtype=torch.float32, device=dev)
-    coeff = torch.empty((nq,), dtype=torch.float32, device=dev)
-    valid = torch.empty((nq,), dtype=torch.bool, device=dev)
-    code = torch.empty((nq,), dtype=torch.int32, device=dev)
-    bins = torch.empty((nq, 3), dtype=torch.int32, device=dev)
+    normal = torch.empty((n, nq, 3), dtype=torch.float32, device=dev)
+    d = torch.empty((n, nq), dtype=torch.float32, device=dev)
+    coeff = torch.empty((n, nq), dtype=torch.float32, device=dev)
+    valid = torch.empty((n, nq), dtype=torch.bool, device=dev)
+    code = torch.empty((n, nq), dtype=torch.int32, device=dev)
+    bins = torch.empty((n, nq, 3), dtype=torch.int32, device=dev)
     rc = load().so_plane_fit(_p(neigh), _p(sq), _p(nvalid), _p(mask),
                              _p(w_pt), _p(q), _p(plane_res), nq, k,
                              _p(normal), _p(d), _p(coeff), _p(valid),
-                             _p(code), _p(bins), _stream(dev))
+                             _p(code), _p(bins), n, strides, _stream(dev))
     _launched("plane_fit", rc)
     return normal, d, coeff, valid, code, bins
 
@@ -378,43 +461,52 @@ def plane_fit(neigh: torch.Tensor, sq: torch.Tensor, nvalid: torch.Tensor,
 def _gn_launch(rows, q, t, a_sq, n_iters, out, first_small, *, obs_bins=None,
                prior=None, hold_min=0, hold_frac=0.0, hold_enabled=None,
                damping=0.0, edges=None, a_sq_e=None):
-    """Check the inputs of csrc/normal_system.cu and launch it; returns the
-    C function's code.  ``rows`` = (p_body, normal, d, coeff, valid);
+    """Check the inputs of csrc/normal_system.cu over n instances (every
+    tensor with a leading instance dimension) and launch it; returns the C
+    function's code.  ``rows`` = (p_body, normal, d, coeff, valid);
     ``edges`` = None or (p_body, a, b, coeff, valid) with ``a_sq_e`` their
     Tukey support."""
     p_body, normal, d, coeff, valid = rows
     dev = p_body.device
-    nm = p_body.shape[0]
+    n = p_body.shape[0]
+    nm = p_body.shape[1] if p_body.dim() == 3 else -1
     ne = 0
+    stride = dict.fromkeys(range(20), 0)  # so_gn_solve's input order
     if edges is not None:
         e_p, e_a, e_b, e_c, e_v = edges
-        ne = e_p.shape[0]
-        for name, x in (("edge p_body", e_p), ("edge a", e_a),
-                        ("edge b", e_b)):
-            _check(name, x, torch.float32, (ne, 3), dev)
-        _check("edge coeff", e_c, torch.float32, (ne,), dev)
-        _check("edge valid", e_v, torch.bool, (ne,), dev)
-        _check("a_sq_e", a_sq_e, torch.float32, (), dev)
-    _check("p_body", p_body, torch.float32, (nm, 3))
-    _check("normal", normal, torch.float32, (nm, 3), dev)
-    _check("d", d, torch.float32, (nm,), dev)
-    _check("coeff", coeff, torch.float32, (nm,), dev)
-    _check("valid", valid, torch.bool, (nm,), dev)
-    _check("q", q, torch.float32, (4,), dev)
-    _check("t", t, torch.float32, (3,), dev)
-    _check("a_sq", a_sq, torch.float32, (), dev)
+        ne = e_p.shape[1] if e_p.dim() == 3 else -1
+        for i, name, x in ((14, "edge p_body", e_p), (15, "edge a", e_a),
+                           (16, "edge b", e_b)):
+            stride[i] = _check_inst(name, x, torch.float32, n, (ne, 3), dev)
+        stride[17] = _check_inst("edge coeff", e_c, torch.float32, n, (ne,),
+                                 dev)
+        stride[18] = _check_inst("edge valid", e_v, torch.bool, n, (ne,),
+                                 dev)
+        stride[19] = _check_inst("a_sq_e", a_sq_e, torch.float32, n, (),
+                                 dev)
+    stride[0] = _check_inst("p_body", p_body, torch.float32, n, (nm, 3))
+    stride[1] = _check_inst("normal", normal, torch.float32, n, (nm, 3), dev)
+    stride[2] = _check_inst("d", d, torch.float32, n, (nm,), dev)
+    stride[3] = _check_inst("coeff", coeff, torch.float32, n, (nm,), dev)
+    stride[4] = _check_inst("valid", valid, torch.bool, n, (nm,), dev)
+    stride[6] = _check_inst("q", q, torch.float32, n, (4,), dev)
+    stride[7] = _check_inst("t", t, torch.float32, n, (3,), dev)
+    stride[8] = _check_inst("a_sq", a_sq, torch.float32, n, (), dev)
     if hold_min > 0:
         if obs_bins is None:
             raise ValueError("gn_solve: the axis hold needs obs_bins")
-        _check("obs_bins", obs_bins, torch.int32, (nm, 3), dev)
+        stride[5] = _check_inst("obs_bins", obs_bins, torch.int32, n,
+                                (nm, 3), dev)
     if prior is not None:
-        for name, x, dtype, shape in zip(
+        for i, name, x, dtype, shape in zip(
+                (9, 10, 11, 12),
                 ("prior q", "prior t", "prior information", "prior enabled"),
                 prior, (torch.float32,) * 3 + (torch.bool,),
                 ((4,), (3,), (6,), ())):
-            _check(name, x, dtype, shape, dev)
+            stride[i] = _check_inst(name, x, dtype, n, shape, dev)
     if hold_enabled is not None:
-        _check("hold_enabled", hold_enabled, torch.bool, (), dev)
+        stride[13] = _check_inst("hold_enabled", hold_enabled, torch.bool, n,
+                                 (), dev)
     if gn_staged_bytes(nm, ne) > GN_MAX_ROW_BYTES:
         raise ValueError(f"gn_solve: {nm} plane and {ne} edge rows do not "
                          f"fit the shared memory of {GN_BLOCKS} blocks")
@@ -425,7 +517,8 @@ def _gn_launch(rows, q, t, a_sq, n_iters, out, first_small, *, obs_bins=None,
         nm, _p(q), _p(t), _p(a_sq), _p(pq), _p(pt), _p(pi), _p(pe),
         _p(hold_enabled), int(hold_min), float(hold_frac), float(damping),
         int(n_iters), _p(out), _p(first_small), _p(e_p), _p(e_a), _p(e_b),
-        _p(e_c), _p(e_v), ne, _p(a_sq_e if ne else None), _stream(dev))
+        _p(e_c), _p(e_v), ne, _p(a_sq_e if ne else None), n,
+        _strides(*stride.values()), _stream(dev))
 
 
 def gn_staged_bytes(n_planes: int, n_edges: int) -> int:
@@ -435,19 +528,41 @@ def gn_staged_bytes(n_planes: int, n_edges: int) -> int:
     return rows(n_planes) * 33 + rows(n_edges) * 41
 
 
+def _as_instance(x):
+    """A single launch's argument as the one instance of a batched launch
+    (None stays None; a tuple of tensors maps element by element)."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_as_instance(e) for e in x)
+    return x[None]
+
+
 def normal_system(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
                   coeff: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
                   t: torch.Tensor, a_sq: torch.Tensor, edges=None,
                   a_sq_e=None):
-    """K4 on the card, n_iters = 0 mode: (H f32[6,6], g f32[6], cost f32[])
-    at the pose (q, t), of the plane rows and the ``edges`` rows (None or
-    (p_body, a, b, coeff, valid), Tukey support ``a_sq_e``) (see
-    csrc/normal_system.cu)."""
-    out = torch.empty((43,), dtype=torch.float32, device=p_body.device)
+    """K4 on the card, n_iters = 0 mode: f32[43], H (36, row-major), g (6)
+    and cost at the pose (q, t), of the plane rows and the ``edges`` rows
+    (None or (p_body, a, b, coeff, valid), Tukey support ``a_sq_e``) (see
+    csrc/normal_system.cu).  :func:`registration.normal_system` splits
+    it."""
+    return normal_system_batched(
+        *_as_instance((p_body, normal, d, coeff, valid, q, t, a_sq)),
+        _as_instance(edges), _as_instance(a_sq_e))[0]
+
+
+def normal_system_batched(p_body, normal, d, coeff, valid, q, t, a_sq,
+                          edges=None, a_sq_e=None) -> torch.Tensor:
+    """K4's n_iters = 0 mode over n instances in one launch (every input
+    with a leading instance dimension) -> f32[n, 43]: each instance's H
+    (36, row-major), g (6) and cost."""
+    n = p_body.shape[0]
+    out = torch.empty((n, 43), dtype=torch.float32, device=p_body.device)
     rc = _gn_launch((p_body, normal, d, coeff, valid), q, t, a_sq, 0, out,
                     None, edges=edges, a_sq_e=a_sq_e)
     _launched("normal_system", rc)
-    return out[:36].view(6, 6), out[36:42], out[42]
+    return out
 
 
 def gn_solve(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
@@ -460,21 +575,36 @@ def gn_solve(p_body: torch.Tensor, normal: torch.Tensor, d: torch.Tensor,
     launch.  ``prior`` is None or (q f32[4], t f32[3], information f32[6],
     enabled bool[]); ``hold_min`` > 0 arms the axis hold; ``edges`` is None
     or the edge rows (p_body, a, b, coeff, valid) with Tukey support
-    ``a_sq_e``.  Returns (q f32[4], t f32[3], first_small bool[]) (see
+    ``a_sq_e``.  Returns (f32[7]: q and t, first_small bool[]) (see
     csrc/normal_system.cu)."""
+    out, small = gn_solve_batched(
+        *_as_instance((p_body, normal, d, coeff, valid, obs_bins, q, t, a_sq)),
+        n_iters, damping, _as_instance(prior), hold_min, hold_frac,
+        _as_instance(hold_enabled), _as_instance(edges), _as_instance(a_sq_e))
+    return out[0], small[0]
+
+
+def gn_solve_batched(p_body, normal, d, coeff, valid, obs_bins, q, t, a_sq,
+                     n_iters: int, damping: float = 1e-4, prior=None,
+                     hold_min: int = 0, hold_frac: float = 0.005,
+                     hold_enabled=None, edges=None, a_sq_e=None):
+    """K4 over n instances in one launch, one thread-block cluster each
+    (every tensor with a leading instance dimension) -> (f32[n, 7]: each
+    instance's q and t, first_small bool[n])."""
     if n_iters < 1:
         raise ValueError("gn_solve: n_iters must be >= 1 (n_iters = 0 is "
                          "normal_system)")
     dev = p_body.device
-    out = torch.empty((7,), dtype=torch.float32, device=dev)
-    small = torch.empty((), dtype=torch.bool, device=dev)
+    n = p_body.shape[0]
+    out = torch.empty((n, 7), dtype=torch.float32, device=dev)
+    small = torch.empty((n,), dtype=torch.bool, device=dev)
     rc = _gn_launch((p_body, normal, d, coeff, valid), q, t, a_sq, n_iters,
                     out, small, obs_bins=obs_bins, prior=prior,
                     hold_min=hold_min, hold_frac=hold_frac,
                     hold_enabled=hold_enabled, damping=damping,
                     edges=edges, a_sq_e=a_sq_e)
     _launched("gn_solve", rc)
-    return out[:4], out[4:], small
+    return out, small
 
 
 def launch_floor(device) -> None:

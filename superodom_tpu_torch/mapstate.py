@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from superodom_tpu_torch import kernels
+from superodom_tpu_torch import kernel_ops
 from superodom_tpu_torch.config import MapConfig
 from superodom_tpu_torch.ops.voxel import (
     _composite_sort_order,
@@ -161,7 +161,7 @@ def octant_lookup(keys: torch.Tensor, queries: torch.Tensor,
                   cell_size: float) -> torch.Tensor:
     """K1: slot ids int32[Q, 8] of the octant cells nearest each query."""
     if queries.is_cuda:
-        return kernels.octant_lookup(keys, queries, cell_size)
+        return kernel_ops.octant_lookup(keys, queries, float(cell_size))
     if queries.device.type == "cpu":
         return octant_lookup_reference(keys, queries, cell_size)
     raise ValueError(f"octant_lookup: unsupported device {queries.device}")
@@ -227,7 +227,7 @@ def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
     """K2: (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k],
     lane[Q,k]) — see :func:`knn_select_reference` for the contract."""
     if queries.is_cuda:
-        return kernels.knn_select(pts, slots, queries, k)
+        return kernel_ops.knn_select(pts, slots, queries, k)
     if queries.device.type == "cpu":
         return knn_select_reference(pts, slots, queries, k)
     raise ValueError(f"knn_select: unsupported device {queries.device}")
@@ -286,8 +286,8 @@ def reduce_candidates(pts: torch.Tensor, slots: torch.Tensor,
                       queries: torch.Tensor, w: int) -> ReducedCandidates:
     """K9a: see :func:`reduce_candidates_reference` for the contract."""
     if queries.is_cuda:
-        return ReducedCandidates(*kernels.reduce_candidates(pts, slots,
-                                                            queries, w))
+        return ReducedCandidates(*kernel_ops.reduce_candidates(
+            pts, slots, queries, w))
     if queries.device.type == "cpu":
         return reduce_candidates_reference(pts, slots, queries, w)
     raise ValueError(f"reduce_candidates: unsupported device {queries.device}")
@@ -305,8 +305,8 @@ def select_knn_reduced_reference(red: ReducedCandidates,
 def select_knn_reduced(red: ReducedCandidates, queries: torch.Tensor, k: int):
     """K9b: see :func:`select_knn_reduced_reference` for the contract."""
     if queries.is_cuda:
-        return kernels.select_reduced(red.x, red.y, red.z, red.valid, queries,
-                                      k)
+        return kernel_ops.select_reduced(red.x, red.y, red.z, red.valid,
+                                         queries, k)
     if queries.device.type == "cpu":
         return select_knn_reduced_reference(red, queries, k)
     raise ValueError(f"select_knn_reduced: unsupported device "
@@ -365,8 +365,9 @@ def insert(m: VoxelHashMap, cfg: MapConfig, xyz: torch.Tensor,
     rb_sorted = rep_bucket[border]
     is_start = torch.cat([true1, rb_sorted[1:] != rb_sorted[:-1]])
     idx = torch.arange(n, device=dev)
-    rank = torch.empty((n,), dtype=torch.int32, device=dev)
-    rank[border] = (idx - _run_start(is_start)).to(torch.int32)
+    # border is a permutation: the scatter writes every lane once
+    rank = torch.zeros_like(border, dtype=torch.int32).scatter(
+        0, border, (idx - _run_start(is_start)).to(torch.int32))
 
     empty_cum = torch.cumsum((m.keys == _EMPTY).to(torch.int32), dim=1)
     hit = empty_cum[bucket] == (rank + 1)[:, None]  # [N, B]
@@ -422,10 +423,10 @@ def insert(m: VoxelHashMap, cfg: MapConfig, xyz: torch.Tensor,
     pts = pts[:trash]
 
     seg_id = torch.cumsum(new_run.to(torch.int64), dim=0) - 1
-    adds = torch.zeros((n,), dtype=torch.int32, device=dev).index_add_(
+    adds = torch.zeros((n,), dtype=torch.int32, device=dev).index_add(
         0, seg_id, write.to(torch.int32))
     rep_lane = new_run & (slot >= 0) & mask_s
-    cnt = torch.cat([cnt_flat, cnt_flat.new_zeros((1,))]).index_add_(
+    cnt = torch.cat([cnt_flat, cnt_flat.new_zeros((1,))]).index_add(
         0, torch.where(rep_lane, safe_slot, trash).long(), adds[seg_id])
     return VoxelHashMap(keys=keys, pts=pts, cnt=cnt[:trash].reshape(nb, B))
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from superodom_tpu_torch import kernels
+from superodom_tpu_torch import kernel_ops
 
 _M32 = 0xFFFFFFFF
 _P1 = 73856093
@@ -96,7 +96,7 @@ def voxel_downsample_centroid(xyz: torch.Tensor, mask: torch.Tensor, res,
 
     Returns (xyz_out f32[N,3], mask_out bool[N], *extras_out): one valid
     lane per occupied voxel, compacted to the front in (h1, h2) order;
-    invalid lanes zeroed.  The segment sums are ``index_add_`` over the
+    invalid lanes zeroed.  The segment sums are ``index_add`` over the
     sorted lanes, so a centroid may differ from another summation order's
     in the last bits; masks and lane order are exact."""
     n = xyz.shape[0]
@@ -110,14 +110,14 @@ def voxel_downsample_centroid(xyz: torch.Tensor, mask: torch.Tensor, res,
         (h1s[1:] != h1s[:-1]) | (h2s[1:] != h2s[:-1])])[:n]
     seg_id = torch.cumsum(new_run.to(torch.int64), dim=0) - 1
     w = mask[order].to(xyz.dtype)
-    cnts = torch.zeros((n,), dtype=xyz.dtype, device=xyz.device).index_add_(
+    cnts = torch.zeros((n,), dtype=xyz.dtype, device=xyz.device).index_add(
         0, seg_id, w)
     safe = torch.clamp_min(cnts, 1.0)
     out_mask = cnts > 0.0
 
     def seg_mean(a):
         col = (slice(None),) + (None,) * (a.dim() - 1)
-        s = torch.zeros_like(a).index_add_(0, seg_id, a * w[col])
+        s = torch.zeros_like(a).index_add(0, seg_id, a * w[col])
         return torch.where(out_mask[col], s / safe[col], 0.0)
 
     return (seg_mean(xyz[order]), out_mask) + tuple(
@@ -140,7 +140,7 @@ def voxel_downsample_scatter_reference(xyz: torch.Tensor, mask: torch.Tensor,
     slot = torch.where(mask, slot, T)  # masked lanes claim a spare slot
     lane = torch.arange(n, dtype=torch.int32, device=xyz.device)
     claims = torch.full((T + 1,), _INT_MAX, dtype=torch.int32,
-                        device=xyz.device).scatter_reduce_(
+                        device=xyz.device).scatter_reduce(
                             0, slot, lane, "amin")
     return mask & (claims[slot] == lane)
 
@@ -154,7 +154,7 @@ def voxel_downsample_scatter(xyz: torch.Tensor, mask: torch.Tensor, res,
         if not isinstance(res, torch.Tensor):
             res = torch.full((), float(res), dtype=xyz.dtype,
                              device=xyz.device)
-        return kernels.voxel_claim(
+        return kernel_ops.voxel_claim(
             xyz.contiguous(), mask.contiguous(),
             res.to(device=xyz.device, dtype=xyz.dtype),
             _claim_table_bits(xyz.shape[0], table_bits))

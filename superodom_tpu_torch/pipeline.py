@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from superodom_tpu_torch import kernels
 from superodom_tpu_torch.config import MapConfig, PipelineConfig, RuntimeParams
 from superodom_tpu_torch.frontend import (
     ImuWindow,
@@ -67,6 +68,7 @@ from superodom_tpu_torch.mapstate import (
     evict_far,
     insert,
 )
+from superodom_tpu_torch.ops import invariant as inv
 from superodom_tpu_torch.registration import IcpStats, PosePrior, icp_register
 
 # PredictionSource enum (reference LidarSlam.h:50-52)
@@ -285,8 +287,10 @@ def _select_prediction(cfg: PipelineConfig, state: OdomState,
 def _adjust_voxel_size(cfg: PipelineConfig, rt: RuntimeParams, xyz, mask):
     """Scene-scale adaptive resolutions (laserMapping.cpp:600-651)."""
     w = mask.to(xyz.dtype)
-    n = torch.clamp_min(torch.sum(w), 1.0)
-    avg = torch.sum(torch.abs(xyz) * w[:, None], dim=0) / n
+    # ops.invariant's sum: an instance's bits under vmap do not depend on
+    # the batch
+    n = torch.clamp_min(inv.reduce_sum(w), 1.0)
+    avg = inv.reduce_sum(torch.abs(xyz) * w[:, None], 0) / n
     average_distance = avg[0] * avg[1] * avg[2]
     if not cfg.auto_voxel_size:
         return rt, average_distance
@@ -347,7 +351,14 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
     extraction ahead of it and the inertial smoother after it).  ``vio``
     (an external 6-DoF pose path over the sweep) is read only with
     ``cfg.use_vio_undistortion``; without a window the flag is ignored, as
-    in the JAX package."""
+    in the JAX package.  Under ``torch.func.vmap`` (a fleet,
+    ``parallel.make_batched_step``) the step reads nothing on the host:
+    the map cadence is decided per instance on the device, and ICP early
+    exit must be off."""
+    batched = kernels.under_vmap(state.frame_count)
+    if batched and cfg.registration.icp_early_exit:
+        raise ValueError("the batched step runs fixed-count ICP: turn "
+                         "icp_early_exit off")
     use_vio_path = cfg.use_vio_undistortion and vio is not None
     dtype, dev = scan.xyz.dtype, scan.xyz.device
     sensor = cfg.sensor
@@ -541,27 +552,43 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
     # ---------------- map update ------------------------------------------
     # insert and evict on their cadences (the first 8 frames always insert,
     # to seed the map).  Eager code skips the work outright: one host read
-    # of the frame count decides, made only where a cadence is not 1
+    # of the frame count decides, made only where a cadence is not 1.  The
+    # batched step decides per instance on the device instead: both
+    # branches run and torch.where picks (JAX's lax.cond under vmap)
     stage("map_update")
     do_update_map = (not cfg.localization.enabled) \
         or cfg.localization.update_map
+    ic, ec = cfg.map.insert_cadence, cfg.map.evict_cadence
     do_insert = do_evict = True
-    if cfg.map.insert_cadence != 1 or cfg.map.evict_cadence != 1:
+    if batched:
+        frame = state.frame_count
+        if ic != 1:
+            do_insert = (frame % ic == 0) | (frame < 8)
+        if ec != 1:
+            do_evict = frame % ec == 0
+    elif ic != 1 or ec != 1:
         frame = int(state.frame_count)
-        do_insert = (cfg.map.insert_cadence == 1
-                     or frame % cfg.map.insert_cadence == 0 or frame < 8)
-        do_evict = frame % cfg.map.evict_cadence == 0
-    surf_map, edge_map = state.surf_map, state.edge_map
-    if do_insert:
-        surf_map = insert(surf_map, cfg.map, pose.apply(surf_pts),
-                          surf_mask & do_update_map, rt.plane_res)
-        if cfg.use_edge_features:
-            edge_map = insert(edge_map, cfg.map, pose.apply(edge_pts),
-                              edge_mask & do_update_map, rt.line_res)
-    if do_evict:
-        surf_map = evict_far(surf_map, cfg.map, pose.t)
-        if cfg.use_edge_features:
-            edge_map = evict_far(edge_map, cfg.map, pose.t)
+        do_insert = ic == 1 or frame % ic == 0 or frame < 8
+        do_evict = frame % ec == 0
+
+    def cadenced(do, update, m: VoxelHashMap) -> VoxelHashMap:
+        if isinstance(do, bool):
+            return update(m) if do else m
+        return tree_map(lambda new, old: torch.where(do, new, old),
+                        update(m), m)
+
+    surf_map = cadenced(do_insert, lambda m: insert(
+        m, cfg.map, pose.apply(surf_pts), surf_mask & do_update_map,
+        rt.plane_res), state.surf_map)
+    surf_map = cadenced(do_evict, lambda m: evict_far(m, cfg.map, pose.t),
+                        surf_map)
+    edge_map = state.edge_map
+    if cfg.use_edge_features:
+        edge_map = cadenced(do_insert, lambda m: insert(
+            m, cfg.map, pose.apply(edge_pts), edge_mask & do_update_map,
+            rt.line_res), edge_map)
+        edge_map = cadenced(do_evict, lambda m: evict_far(m, cfg.map,
+                                                          pose.t), edge_map)
 
     # ---------------- inertial smoother -----------------------------------
     stage("smoother")

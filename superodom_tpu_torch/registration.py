@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from superodom_tpu_torch import kernels
+from superodom_tpu_torch import kernel_ops
 from superodom_tpu_torch.config import MapConfig, RegistrationConfig, RuntimeParams
 from superodom_tpu_torch.geometry import (
     Pose,
@@ -48,6 +48,7 @@ from superodom_tpu_torch.mapstate import (
     reduce_candidates,
     select_knn_reduced,
 )
+from superodom_tpu_torch.ops import invariant as inv
 from superodom_tpu_torch.ops.eigh3 import eigh3
 from superodom_tpu_torch.ops.smallsolve import inv6_spd, solve6_spd
 
@@ -257,7 +258,8 @@ def gate_margin_lanes(neigh, sq, nvalid, w_pt, q, normal, d, plane_res,
 def plane_fit(neigh, sq, nvalid, mask, w_pt, q, plane_res):
     """K3: see :func:`plane_fit_reference` for the contract."""
     if neigh.is_cuda:
-        return kernels.plane_fit(neigh, sq, nvalid, mask, w_pt, q, plane_res)
+        return kernel_ops.plane_fit(neigh, sq, nvalid, mask, w_pt, q,
+                                    plane_res)
     if neigh.device.type == "cpu":
         return plane_fit_reference(neigh, sq, nvalid, mask, w_pt, q,
                                    plane_res)
@@ -391,8 +393,9 @@ def edge_fit(neigh, sq, nvalid, mask, line_res, min_neighbors: int,
              max_dist_inlier: float):
     """K11b: see :func:`edge_fit_reference` for the contract."""
     if neigh.is_cuda:
-        return kernels.edge_fit(neigh, sq, nvalid, mask, line_res,
-                                min_neighbors, max_dist_inlier)
+        return kernel_ops.edge_fit(neigh, sq, nvalid, mask, line_res,
+                                   int(min_neighbors),
+                                   float(max_dist_inlier))
     if neigh.device.type == "cpu":
         return edge_fit_reference(neigh, sq, nvalid, mask, line_res,
                                   min_neighbors, max_dist_inlier)
@@ -460,8 +463,10 @@ def normal_system_reference(p_body, normal, d, coeff, valid, q, t, a_sq,
     r = _dot(normal, wp) + d
     J = torch.cat([normal, _cross(wp, normal)], dim=-1)
     w = valid.to(p_body.dtype) * coeff * _tukey_weight(r * r, a_sq)
-    H = torch.einsum("m,mi,mj->ij", w, J, J)
-    g = torch.einsum("m,mi,m->i", w, J, r)
+    # ops.invariant's einsums: an instance's bits under vmap do not
+    # depend on the batch
+    H = inv.einsum("m,mi,mj->ij", w, J, J)
+    g = inv.einsum("m,mi,m->i", w, J, r)
     cost = torch.sum(w * r * r)
     if edges is not None:
         e_p, e_a, e_b, e_c, e_v = edges
@@ -472,11 +477,11 @@ def normal_system_reference(p_body, normal, d, coeff, valid, q, t, a_sq,
         L = skew(-d_ab / d_norm)
         eye = torch.eye(3, dtype=we.dtype, device=we.device)
         Jw = torch.cat([eye.expand(L.shape), -skew(we)], dim=-1)
-        J_e = torch.einsum("mij,mjk->mik", L, Jw)
+        J_e = inv.einsum("mij,mjk->mik", L, Jw)
         sq_e = _dot(r_e, r_e)
         w_e = e_v.to(we.dtype) * e_c * _tukey_weight(sq_e, a_sq_e)
-        H = H + torch.einsum("m,mri,mrj->ij", w_e, J_e, J_e)
-        g = g + torch.einsum("m,mri,mr->i", w_e, J_e, r_e)
+        H = H + inv.einsum("m,mri,mrj->ij", w_e, J_e, J_e)
+        g = g + inv.einsum("m,mri,mr->i", w_e, J_e, r_e)
         cost = cost + torch.sum(w_e * sq_e)
     return H, g, cost
 
@@ -486,8 +491,10 @@ def normal_system(p_body, normal, d, coeff, valid, q, t, a_sq, edges=None,
     """K4 (n_iters = 0 mode): see :func:`normal_system_reference` for the
     contract."""
     if p_body.is_cuda:
-        return kernels.normal_system(p_body, normal, d, coeff, valid, q, t,
-                                     a_sq, edges, a_sq_e)
+        out = kernel_ops.normal_system(
+            p_body, normal, d, coeff, valid, q, t, a_sq,
+            *(edges if edges is not None else (None,) * 5), a_sq_e)
+        return out[:36].reshape(6, 6), out[36:42], out[42]
     if p_body.device.type == "cpu":
         return normal_system_reference(p_body, normal, d, coeff, valid, q, t,
                                        a_sq, edges, a_sq_e)
@@ -576,24 +583,25 @@ def gauss_newton_solve(pose: Pose, planes: PlaneCorrs, edges,
     """Fixed-count damped Gauss-Newton on SE(3) with IRLS robust weights
     and the per-axis match-count hold (see the JAX package's docstring).
     Returns (pose, converged_in_one).  On CUDA tensors all ``n_iters``
-    iterations run in one launch of K4 (``kernels.gn_solve``), the lines'
+    iterations run in one launch of K4 (``kernel_ops.gn_solve``), the lines'
     rows (``use_edges``) beside the planes'; on the CPU the plain
     :func:`gauss_newton_solve_reference`."""
     if pose.t.is_cuda:
-        q, t, first_small = kernels.gn_solve(
+        qt, first_small = kernel_ops.gn_solve(
             planes.p_body.contiguous(), planes.normal.contiguous(),
             planes.d.contiguous(), planes.coeff.contiguous(),
             planes.valid.contiguous(), planes.obs_bins.contiguous(),
             pose.q.contiguous(), pose.t.contiguous(),
-            _tukey_support(rt.plane_res, a_mult, pose.t), n_iters, damping,
-            None if prior is None else tuple(
+            _tukey_support(rt.plane_res, a_mult, pose.t), int(n_iters),
+            float(damping),
+            *((None,) * 4 if prior is None else (
                 x.contiguous() for x in (prior.pose.q, prior.pose.t,
-                                         prior.information, prior.enabled)),
-            axis_hold_min, axis_hold_frac, hold_enabled,
-            _edge_rows(edges) if use_edges else None,
+                                         prior.information, prior.enabled))),
+            int(axis_hold_min), float(axis_hold_frac), hold_enabled,
+            *(_edge_rows(edges) if use_edges else (None,) * 5),
             _tukey_support(rt.line_res, a_mult, pose.t) if use_edges
             else None)
-        return Pose(q, t), first_small
+        return Pose(qt[:4], qt[4:]), first_small
     if pose.t.device.type == "cpu":
         return gauss_newton_solve_reference(
             pose, planes, edges, rt, n_iters, prior, damping, use_edges,
@@ -629,9 +637,11 @@ def gauss_newton_solve_reference(pose: Pose, planes: PlaneCorrs, edges,
         delta = -solve6_spd(Hd, g)
         delta = torch.where(torch.isfinite(delta), delta, 0.0)
         if hold is not None:
-            # remove the translation along held BODY axes (delta is world)
+            # remove the translation along held BODY axes (delta is world);
+            # ops.invariant's products keep an instance's bits under vmap
             axes = _body_axes(p.q)
-            dt = delta[:3] - axes.T @ (hold.to(dtype) * (axes @ delta[:3]))
+            dt = delta[:3] - inv.matmul(
+                axes.T, hold.to(dtype) * inv.matmul(axes, delta[:3]))
             delta = torch.cat([dt, delta[3:]])
         p = apply_se3_update(p, delta)
         step_small = torch.linalg.norm(delta) < 1e-6

@@ -19,7 +19,11 @@ chunked replay repeated at chunk sizes 20 and 4, preloaded and streamed,
 and one chunk against its four steps; a SuperLoc replay (VIO and a
 frozen prior map) repeated the same way; ``query_knn`` and
 ``gather_candidates`` against their CPU composition on a warm ship map;
-and the wrappers' input checks.  Needs a CUDA device and nvcc; elsewhere every
+the wrappers' input checks; every entry over three instances through
+its vmap rule, each instance bit for bit its single launch (with one
+tensor shared), the batched launches at n = 1 and at any instance
+stride, a launch under vmap without its rule refused, and a batched
+replay of two instances against their single replays.  Needs a CUDA device and nvcc; elsewhere every
 test skips.
 
 Run on the GPU machine (no JAX there, so without the JAX conftest):
@@ -34,7 +38,8 @@ torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
 
-from superodom_tpu_torch import frontend, kernels, mapstate  # noqa: E402
+from superodom_tpu_torch import frontend, kernel_ops, kernels  # noqa: E402
+from superodom_tpu_torch import mapstate  # noqa: E402
 from superodom_tpu_torch import registration  # noqa: E402
 from superodom_tpu_torch.config import MapConfig, RuntimeParams  # noqa: E402
 from superodom_tpu_torch.config import parity_config, ship_config  # noqa: E402
@@ -336,12 +341,12 @@ def test_plane_fit_and_normal_system_match_plain(dev):
                           torch.zeros((4, 17), dtype=torch.bool, device=dev),
                           mask[:4].contiguous(), q[:4].contiguous(),
                           pose.q.contiguous(), res)
-    H_k, g_k, c_k = kernels.normal_system(*args4)
+    H_k, g_k, c_k = registration.normal_system(*args4)
     H_r, g_r, c_r = registration.normal_system_reference(*args4)
     scale = float(H_r.abs().max())
     assert float((H_k - H_r).abs().max()) <= 1e-5 * scale
     assert float((g_k - g_r).abs().max()) <= 1e-5 * float(g_r.abs().max())
-    assert torch.equal(H_k, kernels.normal_system(*args4)[0])  # no atomics
+    assert torch.equal(H_k, registration.normal_system(*args4)[0])  # no atomics
 
 
 GN_TOL = 1e-5  # pose: metres and quaternion components
@@ -411,12 +416,12 @@ def test_gn_solve_matches_plain(dev, m):
     args = (planes.p_body, planes.normal, planes.d, planes.coeff,
             planes.valid, pose0.q.contiguous(), pose0.t.contiguous(),
             3.0 * rt.plane_res)
-    H_k, g_k, c_k = kernels.normal_system(*args)
+    H_k, g_k, c_k = registration.normal_system(*args)
     H_r, g_r, c_r = registration.normal_system_reference(*args)
     scale = float(H_r.abs().max())
     assert float((H_k - H_r).abs().max()) <= 1e-5 * scale
     assert float((g_k - g_r).abs().max()) <= 1e-5 * scale
-    assert torch.equal(H_k, kernels.normal_system(*args)[0])
+    assert torch.equal(H_k, registration.normal_system(*args)[0])
 
 
 def test_gn_solve_hold_prior_and_guard(dev):
@@ -669,7 +674,7 @@ def test_wrappers_check_inputs_and_count(dev):
         kernels.normal_system(z, z, s, s, b, *qt, s[0])
     # 20,000 rows: more than the 48 KB of shared memory a block gets unasked
     z, b, s = z[:20000], b[:20000], s[:20000]
-    H, _, _ = kernels.normal_system(z, z, s, s, b, *qt, s[0] + 1.0)
+    H, _, _ = registration.normal_system(z, z, s, s, b, *qt, s[0] + 1.0)
     assert kernels.launch_counts["normal_system"] == \
         before["normal_system"] + 1 and float(H.abs().max()) == 0.0
     with pytest.raises(ValueError):
@@ -918,13 +923,13 @@ def _gn_edges_both(pose0, planes, lines, rt, **kw):
             3.0 * rt.plane_res, tuple(x.contiguous() for x in (
                 lines.p_body, lines.a, lines.b, lines.coeff, lines.valid)),
             3.0 * rt.line_res)
-    H_k, g_k, c_k = kernels.normal_system(*args)
+    H_k, g_k, c_k = registration.normal_system(*args)
     H_r, g_r, c_r = registration.normal_system_reference(*args)
     scale = float(H_r.abs().max())
     assert float((H_k - H_r).abs().max()) <= 1e-5 * scale
     assert float((g_k - g_r).abs().max()) <= 1e-5 * scale
     assert abs(float(c_k - c_r)) <= 1e-5 * float(c_r.abs()) + 1e-12
-    assert torch.equal(H_k, kernels.normal_system(*args)[0])
+    assert torch.equal(H_k, registration.normal_system(*args)[0])
     return pk, pr, H_r
 
 
@@ -1144,3 +1149,137 @@ def test_query_knn_matches_the_cpu_composition(dev):
     for a, b in zip(mapstate.gather_candidates(m, cfg.map, q),
                     mapstate.gather_candidates(m_cpu, cfg.map, q.cpu())):
         assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------------- many instances at once
+
+
+def _same(a, b):
+    """Equal to the bit, NaN where NaN."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        ((a == b) | ((a != a) & (b != b))).all())
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("name", kernels.KERNELS)
+def test_batched_entries_match_single_launches(dev, name):
+    """Each entry's custom operator vmapped over three instances (three
+    maps, poses, clouds): every instance's outputs equal its own single
+    launch to the bit, from one launch (instance dimension, flattened) or
+    one a instance (per-instance loop); again with the first tensor
+    shared by the instances (a stride of 0), and repeated runs equal."""
+    from test_torch_kernel_ops import kernel_instances
+
+    per = [a[name] for a in kernel_instances(dev, 3)]
+    op = getattr(kernel_ops, name)
+    single = [_tuple(op(*a)) for a in per]
+    dims = tuple(0 if isinstance(x, torch.Tensor) else None for x in per[0])
+    args = [torch.stack([p[i] for p in per]) if d == 0 else x
+            for i, (x, d) in enumerate(zip(per[0], dims))]
+    before = kernels.launch_counts[name]
+    got = _tuple(torch.func.vmap(op, in_dims=dims)(*args))
+    again = _tuple(torch.func.vmap(op, in_dims=dims)(*args))
+    loop = kernel_ops.ROUTE[name] == "per-instance loop"
+    assert kernels.launch_counts[name] == before + 2 * (3 if loop else 1)
+    for b in range(3):
+        assert all(_same(g[b], s) for g, s in zip(got, single[b])), b
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    first = dims.index(0)
+    shared = list(args)
+    shared[first] = per[0][first]
+    got = _tuple(torch.func.vmap(op, in_dims=dims[:first] + (None,)
+                                 + dims[first + 1:])(*shared))
+    for b in range(3):
+        want = _tuple(op(*(per[0][i] if i == first else x
+                           for i, x in enumerate(per[b]))))
+        assert all(_same(g[b], w) for g, w in zip(got, want)), b
+
+
+def test_batched_launches_take_any_instance_stride(dev):
+    """K1-K4 and K9a called directly with n instances: n = 1 is the
+    single entry, and instances a gap apart (every other row of a larger
+    stack) or one table shared with a stride of 0 give each instance its
+    single launch's bits."""
+    from test_torch_kernel_ops import kernel_instances
+
+    inst = kernel_instances(dev, 4)
+    cases = {
+        "octant_lookup": (kernels.octant_lookup, kernels.octant_lookup_batched),
+        "knn_select": (kernels.knn_select, kernels.knn_select_batched),
+        "reduce_candidates": (kernels.reduce_candidates,
+                              kernels.reduce_candidates_batched),
+        "plane_fit": (kernels.plane_fit, kernels.plane_fit_batched),
+    }
+    for name, (one, many) in cases.items():
+        per = [a[name] for a in inst]
+        t = [i for i, x in enumerate(per[0]) if isinstance(x, torch.Tensor)]
+        lone = _tuple(one(*per[0]))
+        assert all(_same(a[0], b) for a, b in zip(
+            _tuple(many(*(x[None] if i in t else x
+                          for i, x in enumerate(per[0])))), lone))
+        gap = [torch.stack([p[i] for p in per])[::2] if i in t else x
+               for i, x in enumerate(per[0])]
+        assert gap[t[0]].stride(0) == 2 * per[0][t[0]].numel()
+        got = _tuple(many(*gap))
+        for b, j in enumerate((0, 2)):
+            assert all(_same(g[b], w) for g, w in zip(got, _tuple(one(
+                *per[j]))))
+        zero = list(gap)
+        zero[t[0]] = per[0][t[0]].expand((2,) + per[0][t[0]].shape)
+        got = _tuple(many(*zero))
+        for b, j in enumerate((0, 2)):
+            want = _tuple(one(*(per[0][i] if i == t[0] else x
+                                for i, x in enumerate(per[j]))))
+            assert all(_same(g[b], w) for g, w in zip(got, want))
+    # K4: both modes, two instances a gap apart against single launches
+    per = [a["gn_solve"] for a in inst]
+    rows = [torch.stack([p[i] for p in per])[::2] for i in range(9)]
+    prior = tuple(torch.stack([p[i] for p in per])[::2]
+                  for i in range(11, 15))
+    hold = torch.stack([p[17] for p in per])[::2]
+    out, small = kernels.gn_solve_batched(*rows, 4, 1e-4, prior, 10, 0.005,
+                                          hold)
+    ns = kernels.normal_system_batched(*rows[:5], *rows[6:9])
+    for b, j in enumerate((0, 2)):
+        p = per[j]
+        qt, s = kernels.gn_solve(*p[:9], 4, 1e-4, p[11:15], 10, 0.005, p[17])
+        assert torch.equal(out[b], qt) and bool(small[b]) == bool(s)
+        assert torch.equal(ns[b], kernels.normal_system(*p[:5], *p[6:9]))
+
+
+def test_a_kernel_under_vmap_without_its_rule_raises(dev):
+    """``kernels``' launch functions take no tensor under vmap: only the
+    custom operators' rules reach them so."""
+    from test_torch_kernel_ops import kernel_instances
+
+    per = [a["octant_lookup"] for a in kernel_instances(dev, 2)]
+    keys = torch.stack([p[0] for p in per])
+    q = torch.stack([p[1] for p in per])
+    n = kernels.launch_counts["octant_lookup"]
+    with pytest.raises(RuntimeError, match="without its rule"):
+        torch.func.vmap(lambda k, x: kernels.octant_lookup(k, x, 1.0))(keys, q)
+    assert kernels.launch_counts["octant_lookup"] == n
+
+
+def test_batched_replay_matches_single_replays(dev):
+    """``parallel.replay_batched`` on the card: two instances on two
+    datasets (16 OS1-128 scans each, chunks of 4) give each dataset's
+    B = 1 replay to the bit, with K1-K4 launched as often as at B = 1."""
+    from superodom_tpu_torch.io.datasets import bench_dataset
+    from superodom_tpu_torch.parallel import replay_batched
+
+    cfg = ship_config("os1")
+    data = [bench_dataset(16, cfg.sensor.max_points, s) for s in (7, 8)]
+    kernels.reset_counts()
+    pair = replay_batched(cfg, data, chunk=4, device=dev)
+    counts = dict(kernels.launch_counts)
+    for b, ds in enumerate(data):
+        kernels.reset_counts()
+        one = replay_batched(cfg, [ds], chunk=4, device=dev)
+        assert dict(kernels.launch_counts) == counts
+        np.testing.assert_array_equal(pair.poses_t[:, b], one.poses_t[:, 0])
+        np.testing.assert_array_equal(pair.poses_q[:, b], one.poses_q[:, 0])
+    assert counts["gn_solve"] == 2 * 17 and np.isfinite(pair.poses_t).all()
