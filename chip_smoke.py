@@ -48,7 +48,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ATE below the reference's 10 cm bar, and on path E every scan must
    extract edges.
 3. The first scans of each path through the plain PyTorch path on the
-   CPU: the GPU trajectory must agree with it.
+   CPU: the GPU trajectory must agree with it.  These CPU replays, and
+   phase 4's, run in the worker process of phases 5 and 6 while the card
+   runs phase 2.
 4. The chunked replay (``run_dataset_chunked``: all IMU ingested first,
    every input on the card before the timer, one discarded warm-up step
    of scan 0) over the same datasets: the ship path at chunk = n (the
@@ -128,10 +130,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    maps) at B = 2 over 24 scans of two datasets, each instance against its
    B = 1 replay; the per-instance-loop kernels launched B times as often.
 
+8. The fleet over a mesh on the one card (``parallel.make_mesh``; ranks
+   and shards share the card, a placement that is printed).  8a: K1 with
+   a shard window on phase 7a's first warm ship map and its 2,048
+   queries, the table cut into M = 2 and 4 windows: each window bit for
+   bit its windowed plain version, merged by a maximum the whole table's
+   K1 and plain lookup; one window's device time and bound.  8b: the
+   maps split in M shards (``replay_batched`` with a one-rank mesh): 7b's
+   B = 4 ship fleet at M = 2 and 4 and 7d's path E pair at M = 2, every
+   pose and the final maps (whole) equal to the unsplit runs' to the bit,
+   K1 launched M times as often and every other kernel as often.  8c:
+   two rank processes (``replay_mesh``, a ``gloo`` group) at B = 8 over
+   the datasets' first 20 scans with unsplit maps and with M = 2, and the
+   same fleet in one process, each instance's poses equal to the first of
+   its dataset's 7b single replay's to the bit, each rank's launches the
+   one-process fleet's; aggregate scans/s, step p50 /
+   p90, each rank's placement and peak memory.
+
 Output: a ``{"kernels": [...]}`` line (each entry with ``batched``: its
-route under vmap and its time at B = 4, 16 and 64), the nvidia-smi line,
-then the last line ``{"ok": true, "device": {...}}``.  Imports nothing of
-JAX.
+route under vmap and its time at B = 4, 16 and 64; and an
+``octant_lookup_window`` entry, K1 with a shard window), the nvidia-smi
+line, then the last line ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -201,6 +221,12 @@ BATCH_MAP_SCANS = 30
 BATCH_W = 16
 EDGE_Q = 512
 BATCH_PATH_SCANS = 24
+# phase 8: the fleet over a mesh on the one card: the maps split in M
+# shards, and rank processes
+MESH_SHARDS = (2, 4)
+MESH_RANKS = 2
+MESH_BATCH = 8
+MESH_SCANS = 20  # 8c replays the first 20 of phase 7's 40 scans
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1080,17 +1106,33 @@ def phase_main(name, cfg, ds, torch, dev, out_dir, card, phase="2"):
     return res, counts, summary
 
 
-def phase_cpu_agree(name, cfg, ds, res_gpu, torch):
-    """Phase 3: the plain PyTorch path on the CPU over the first scans."""
-    import numpy as np
+def cpu_first_scans(n_threads, jobs):
+    """Phases 3 and 4's CPU plain path, in the worker process beside the
+    card's runs: each job (label, configuration, dataset cut to its first
+    scans, chunked) replayed per scan, or chunked in one chunk.  Returns
+    {label: (poses_t, poses_q)}."""
+    import torch
 
     from superodom_tpu_torch.runner import OdometryRunner
 
-    n = min(CPU_SCANS, len(ds.scans))
-    small = first_scans(ds, n)
-    res_cpu = OdometryRunner(cfg, device="cpu").run_dataset(small)
-    dt = float(np.abs(res_cpu.poses_t - res_gpu.poses_t[:n]).max())
-    dq = float(np.abs(res_cpu.poses_q - res_gpu.poses_q[:n]).max())
+    torch.set_num_threads(n_threads)
+    out = {}
+    for label, cfg, ds, chunked in jobs:
+        runner = OdometryRunner(cfg, device="cpu")
+        res = (runner.run_dataset_chunked(ds, chunk=len(ds.scans))
+               if chunked else runner.run_dataset(ds))
+        out[label] = (res.poses_t, res.poses_q)
+    return out
+
+
+def phase_cpu_agree(name, cpu, res_gpu):
+    """Phase 3: the plain PyTorch path on the CPU over the first scans
+    (``cpu``: its poses, from :func:`cpu_first_scans`)."""
+    import numpy as np
+
+    n = len(cpu[0])
+    dt = float(np.abs(cpu[0] - res_gpu.poses_t[:n]).max())
+    dq = float(np.abs(cpu[1] - res_gpu.poses_q[:n]).max())
     log(f"phase 3 [{name}]: first {n} scans, GPU vs CPU plain path: max "
         f"|dt| {dt:.3e} m, max |dq| {dq:.3e}")
     if not (dt <= CPU_AGREE_M and dq <= CPU_AGREE_M):
@@ -1161,20 +1203,15 @@ def phase_chunked(name, cfg, ds, torch, dev, out_dir, card, runs):
     return out
 
 
-def phase_chunked_cpu_agree(cfg, ds, res_gpu):
+def phase_chunked_cpu_agree(cpu, res_gpu):
     """Phase 4: the ship path's first scans replayed chunked on the CPU
-    (the same truncated dataset, the full IMU stream) against the card's
-    chunked replay."""
+    (the same truncated dataset, the full IMU stream; ``cpu``: its poses,
+    from :func:`cpu_first_scans`) against the card's chunked replay."""
     import numpy as np
 
-    from superodom_tpu_torch.runner import OdometryRunner
-
-    n = min(CPU_SCANS, len(ds.scans))
-    small = first_scans(ds, n)
-    res_cpu = OdometryRunner(cfg, device="cpu").run_dataset_chunked(
-        small, chunk=n)
-    dt = float(np.abs(res_cpu.poses_t - res_gpu.poses_t[:n]).max())
-    dq = float(np.abs(res_cpu.poses_q - res_gpu.poses_q[:n]).max())
+    n = len(cpu[0])
+    dt = float(np.abs(cpu[0] - res_gpu.poses_t[:n]).max())
+    dq = float(np.abs(cpu[1] - res_gpu.poses_q[:n]).max())
     log(f"phase 4 [ship]: first {n} scans chunked, GPU vs CPU plain path: "
         f"max |dt| {dt:.3e} m, max |dq| {dq:.3e}")
     if not (dt <= CPU_AGREE_M and dq <= CPU_AGREE_M):
@@ -2193,23 +2230,29 @@ def phase_batched_kernels(cfg, datasets, torch, dev, card):
         if not all(checks.values()):
             raise SystemExit(f"phase 7a: {name} batched disagrees with its "
                              f"single launches")
-    return out
+    return out, inst[0][0]["octant_lookup"]
 
 
-def replay_fleet(cfg, fleet, torch, dev, tag, card):
-    """One batched replay (``parallel.replay_batched``) with the launch
+def replay_fleet(cfg, fleet, torch, dev, tag, card, mesh=None,
+                 keep_state=False):
+    """One batched replay (``parallel.replay_batched``; with a mesh of one
+    rank, its maps split over the rank's shard devices) with the launch
     counts reset just before and read just after, its peak memory, and
-    each instance's ATE."""
+    each instance's ATE.  The fleet's final state is kept (copied to the
+    host, so that it holds no device memory) only with ``keep_state``."""
     import numpy as np
 
     from superodom_tpu_torch import kernels
     from superodom_tpu_torch.io.datasets import ate_rmse
     from superodom_tpu_torch.parallel import replay_batched
+    from superodom_tpu_torch.pipeline import tree_map
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    res = replay_batched(cfg, fleet, BATCH_CHUNK, dev)
+    res = replay_batched(cfg, fleet, BATCH_CHUNK, dev, mesh=mesh)
     counts = dict(kernels.launch_counts)
+    res.state = (tree_map(lambda x: x.cpu(), res.state) if keep_state
+                 else None)
     step_ms = np.asarray(res.chunk_ms) / BATCH_CHUNK
     ates = [ate_rmse(res.poses_t[:, b], ds.gt_poses_t)
             for b, ds in enumerate(fleet)]
@@ -2272,7 +2315,9 @@ def phase_batched(cfg, torch, dev, card):
     data = [make_ship_dataset(cfg, BATCH_SCANS, seed) for seed in BATCH_SEEDS]
     log(f"phase 7: datasets of seeds {BATCH_SEEDS} in "
         f"{time.perf_counter() - t0:.1f} s")
-    out = {"kernels": phase_batched_kernels(cfg, data, torch, dev, card)}
+    out = {}
+    out["kernels"], k1_args = phase_batched_kernels(cfg, data, torch, dev,
+                                                    card)
 
     # 7b: four instances on four datasets against each one's B = 1 replay
     singles = [replay_fleet(cfg, [d], torch, dev,
@@ -2282,7 +2327,7 @@ def phase_batched(cfg, torch, dev, card):
     if any(s[1]["launches"] != counts1 for s in singles):
         raise SystemExit("phase 7b: the single replays launch differently")
     res4, sum4 = replay_fleet(cfg, data, torch, dev, "phase 7b [B=4]",
-                              card)
+                              card, keep_state=True)
     out["b4_vs_single"] = hold_fleet("phase 7b [B=4]", res4,
                                      [s[0] for s in singles],
                                      sum4["launches"], counts1)
@@ -2326,6 +2371,9 @@ def phase_batched(cfg, torch, dev, card):
     out["fleets"] = {B: {k: v for k, v in f.items()}
                      for B, f in sorted(fleets.items())}
 
+    # what phase 8 holds its mesh runs against
+    keep = {"data": data, "singles": [sg[0] for sg in singles], "b4": res4,
+            "b4_launches": sum4["launches"], "k1_args": k1_args}
     # 7d: the other kernels under batching, two instances on two datasets
     edges = dataclasses.replace(parity_config("os1"), use_edge_features=True)
     vlp = ship_config("vlp16")
@@ -2338,15 +2386,207 @@ def phase_batched(cfg, torch, dev, card):
                             f"seed {s}]", card)
                for s, d in zip(BATCH_SEEDS, pair)]
         res2, sum2 = replay_fleet(c, pair, torch, dev,
-                                  f"phase 7d [{name}, B=2]", card)
+                                  f"phase 7d [{name}, B=2]", card,
+                                  keep_state=name == "edges")
         out[f"{name}_b2"] = dict(sum2, **hold_fleet(
             f"phase 7d [{name}, B=2]", res2, [o[0] for o in one],
             sum2["launches"], one[0][1]["launches"], loop))
         if name == "edges" and not all(
                 s["edge_stack"] > 0 for st in res2.stats for s in st):
             raise SystemExit("phase 7d: a scan of path E extracted no edge")
+        if name == "edges":
+            keep.update(e_cfg=c, e_pair=pair, e_b2=res2,
+                        e_launches=sum2["launches"])
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 7: {out['seconds']:.1f} s")
+    return out, keep
+
+
+def same_maps(a, b, torch):
+    """Both maps of two states (either form, on the host) equal to the
+    bit, whole."""
+    from superodom_tpu_torch.pipeline import unshard_state
+
+    a, b = unshard_state(a), unshard_state(b)
+    return all(torch.equal(getattr(getattr(a, m), f),
+                           getattr(getattr(b, m), f))
+               for m in ("surf_map", "edge_map") for f in ("keys", "pts",
+                                                           "cnt"))
+
+
+def phase_k1_window(k1_args, torch, card):
+    """Phase 8a: K1 with a shard window on phase 7a's first instance (a
+    warm ship map, 512 buckets of 128, and its 2,048 queries), the table
+    cut into M windows: each window's launch bit for bit its windowed
+    plain version, and merged by a maximum the whole table's K1 and plain
+    lookup.  Device time and bound of one window's launch (shard 0)."""
+    import functools
+
+    from superodom_tpu_torch import kernels, mapstate
+
+    keys, q, cs = k1_args
+    nb, B = keys.shape
+    nq = q.shape[0]
+    whole_k = kernels.octant_lookup(keys, q, cs)
+    whole_r = mapstate.octant_lookup_reference(keys, q, cs)
+    buckets = mapstate._bucket_of(mapstate.octant_cells(q, cs).reshape(-1),
+                                  nb)
+    out = {}
+    for M in MESH_SHARDS:
+        nbl = nb // M
+        shards = [keys[j * nbl:(j + 1) * nbl].contiguous() for j in range(M)]
+        got_k = [kernels.octant_lookup(sh, q, cs, j * nbl, nb)
+                 for j, sh in enumerate(shards)]
+        got_r = [mapstate.octant_lookup_reference(sh, q, cs, j * nbl, nb)
+                 for j, sh in enumerate(shards)]
+        torch.cuda.synchronize()
+        merged = functools.reduce(torch.maximum, got_k)
+        ok = (all(torch.equal(a, b) for a, b in zip(got_k, got_r))
+              and torch.equal(merged, whole_k)
+              and torch.equal(merged, whole_r))
+        inside = buckets < nbl  # shard 0's window
+        n_in = int(inside.sum())
+        touched = torch.unique(buckets[inside]).numel()
+        out[M] = dict(
+            err=float((merged - whole_r).abs().max()),
+            ms=device_ms(lambda: kernels.octant_lookup(
+                shards[0], q, cs, 0, nb), torch),
+            plain_ms=device_ms(lambda: mapstate.octant_lookup_reference(
+                shards[0], q, cs, 0, nb), torch),
+            # queries, the window's touched rows, the slot ids; the cell
+            # arithmetic, and the hash of every probe and B compares of
+            # the probes inside the window
+            bound=bound(nq * 12 + touched * B * 4 + nq * 32,
+                        nq * 12 + n_in * (15 + B) + (8 * nq - n_in) * 15),
+            probes_inside=n_in)
+        log(f"phase 8a [K1, M={M}] ({card}): each window bit-identical to "
+            f"its plain version and merged to the whole table's: {ok}; "
+            f"shard 0: {out[M]['ms'] * 1e3:.2f} us (plain "
+            f"{out[M]['plain_ms'] * 1e3:.2f} us, bound "
+            f"{out[M]['bound'][0] * 1e3:.4f} us {out[M]['bound'][1]}), "
+            f"{n_in} of {8 * nq} probes inside; the whole table "
+            f"{int((whole_r >= 0).sum())} slots found")
+        if not ok:
+            raise SystemExit(f"phase 8a: K1 with a shard window (M={M}) "
+                             f"disagrees")
+    return out
+
+
+def hold_exact(tag, res, singles, fleet, data):
+    """Each instance's poses equal, to the bit, the first scans of its
+    dataset's B = 1 replay (``singles[j]`` for ``fleet[b] is data[j]``):
+    a replay of a dataset's first scans gives that replay's first poses."""
+    import numpy as np
+
+    n = res.poses_t.shape[0]
+    which = [next(j for j, d in enumerate(data) if d is ds) for ds in fleet]
+    ok = all(np.array_equal(res.poses_t[:, b], singles[j].poses_t[:n, 0])
+             and np.array_equal(res.poses_q[:, b],
+                                singles[j].poses_q[:n, 0])
+             for b, j in enumerate(which))
+    log(f"{tag}: every instance's poses equal its single replay's: {ok}")
+    if not ok:
+        raise SystemExit(f"{tag}: an instance differs from its single "
+                         f"replay")
+
+
+def phase_mesh(cfg, keep, torch, dev, card):
+    """Phase 8: the fleet over a mesh on the one card
+    (``parallel.make_mesh``).  8a: K1 with a shard window.  8b: the maps
+    split in M shards (``replay_batched`` with a one-rank mesh): phase
+    7b's B = 4 ship fleet at M = 2 and 4 and phase 7d's path E pair at
+    M = 2, poses and final maps equal to the unsplit runs' to the bit,
+    K1 launched M times as often and every other kernel as often.  8c:
+    MESH_RANKS rank processes (``replay_mesh``) at B = MESH_BATCH over the
+    datasets' first MESH_SCANS scans, with unsplit maps and with M = 2,
+    and the same fleet in one process: each instance's poses equal the
+    first of its phase-7b single replay's."""
+    import numpy as np
+
+    from superodom_tpu_torch.io.datasets import ate_rmse
+    from superodom_tpu_torch.parallel import make_mesh, replay_mesh
+
+    t0 = time.perf_counter()
+    out = {"k1_window": phase_k1_window(keep["k1_args"], torch, card)}
+    data, singles = keep["data"], keep["singles"]
+    runs = ((cfg, data, keep["b4"], keep["b4_launches"], "B=4", MESH_SHARDS),
+            (keep["e_cfg"], keep["e_pair"], keep["e_b2"],
+             keep["e_launches"], "E, B=2", (2,)))
+    for c, fleet, whole, counts, label, shard_counts in runs:
+        for M in shard_counts:
+            tag = f"phase 8b [{label}, M={M}]"
+            res, summary = replay_fleet(c, fleet, torch, dev, tag, card,
+                                        mesh=make_mesh([dev], 1, M),
+                                        keep_state=True)
+            poses = (np.array_equal(res.poses_t, whole.poses_t)
+                     and np.array_equal(res.poses_q, whole.poses_q))
+            maps = same_maps(res.state, whole.state, torch)
+            want = {k: v * (M if k == "octant_lookup" else 1)
+                    for k, v in counts.items()}
+            log(f"{tag}: poses equal the unsplit fleet's {poses}, final "
+                f"maps (whole) equal {maps}; launches {summary['launches']}"
+                f", expected {want}")
+            if not (poses and maps and summary["launches"] == want):
+                raise SystemExit(f"{tag}: the split fleet differs from the "
+                                 f"unsplit one")
+            out[f"{label} M={M}"] = summary
+            del res
+
+    # 8c: rank processes, B = MESH_BATCH, the instances taking the four
+    # datasets' first MESH_SCANS scans in turn; the same fleet in this
+    # process first
+    cut = [first_scans(d, MESH_SCANS) for d in data]
+    fleet = [cut[b % len(cut)] for b in range(MESH_BATCH)]
+    res, out["one process"] = replay_fleet(
+        cfg, fleet, torch, dev, f"phase 8c [B={MESH_BATCH}, one process]",
+        card)
+    hold_exact(f"phase 8c [B={MESH_BATCH}, one process]", res, singles,
+               fleet, cut)
+    del res
+    for model in (1, 2):
+        tag = f"phase 8c [B={MESH_BATCH}, data={MESH_RANKS}, model={model}]"
+        mesh = make_mesh([dev], MESH_RANKS, model)
+        log(f"{tag}: placement " + "; ".join(
+            f"rank {p['rank']} on {', '.join(p['shards'])}"
+            for p in mesh.placement())
+            + f" ({torch.cuda.device_count()} card(s): ranks and shards "
+            f"share them)")
+        res = replay_mesh(cfg, fleet, mesh, BATCH_CHUNK)
+        hold_exact(tag, res, singles, fleet, cut)
+        # a rank's fleet launches as the one-process fleet of the same
+        # scans does (the ship path's kernels launch once a step whatever
+        # B), K1 once a shard
+        want = {k: v * (model if k == "octant_lookup" else 1)
+                for k, v in out["one process"]["launches"].items()}
+        step_ms = np.asarray(res.chunk_ms) / BATCH_CHUNK
+        ates = [ate_rmse(res.poses_t[:, b], ds.gt_poses_t)
+                for b, ds in enumerate(fleet)]
+        summary = {
+            "batch": MESH_BATCH, "data": MESH_RANKS, "model": model,
+            "aggregate_scans_per_sec": res.aggregate_scans_per_sec,
+            "p50_step_ms": float(np.percentile(step_ms, 50)),
+            "p90_step_ms": float(np.percentile(step_ms, 90)),
+            "ate_m": ates, "ranks": res.ranks}
+        log(f"{tag} ({card}): {res.aggregate_scans_per_sec:.3f} scans/s "
+            f"aggregate (one process at B={MESH_BATCH}: "
+            f"{out['one process']['aggregate_scans_per_sec']:.3f}), p50 / "
+            f"p90 {summary['p50_step_ms']:.1f} / "
+            f"{summary['p90_step_ms']:.1f} ms; ranks: " + "; ".join(
+                f"rank {r['rank']} ({r['instances']} instances, shards on "
+                f"{', '.join(r['shards'])}): {r['scans_per_sec']:.3f} "
+                f"scans/s, peak {r['peak_mem_mb']:.0f} MB"
+                for r in res.ranks)
+            + f"; ATE per instance max {max(ates):.6f} m")
+        if any(r["launches"] != want for r in res.ranks):
+            raise SystemExit(f"{tag}: a rank's launches "
+                             f"{[r['launches'] for r in res.ranks]} are not "
+                             f"the one-process fleet's {want}")
+        if not max(ates) < ATE_BAR_M:
+            raise SystemExit(f"{tag}: an instance's ATE {max(ates):.4f} m "
+                             f"is not below {ATE_BAR_M} m")
+        out[f"data={MESH_RANKS} model={model}"] = summary
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 8: {out['seconds']:.1f} s")
     return out
 
 
@@ -2425,70 +2665,78 @@ def main(argv=None):
         (("VLP-16", cfg_vlp, ds_vlp), ("OS1-128", cfg, ds)), torch, dev)
     kres["vlp16"]["voxel_claim"] = claim["VLP-16"]
 
-    # phase 2
-    runs = {name: phase_main(name, c, d, torch, dev, args.out, smi)
-            for name, (c, d, _) in paths.items()}
-    launches = {k: runs[name][1][k] for k, name in path_of.items()}
-    if min(launches.values()) <= 0:
-        raise SystemExit(f"a kernel was launched no time on its path: "
-                         f"{launches}")
-    for name, (_, d, _) in paths.items():
-        for k, r in kres[name].items():
-            if runs[name][1][k] <= 0:
-                raise SystemExit(f"{k} was held at the {name} path's shapes "
-                                 f"but that path did not launch it")
-            log(f"  {k} [{name}]: kernel {r['ms'] * 1e3:.2f} us, plain "
-                f"{r['plain_ms'] * 1e3:.2f} us, bound "
-                f"{r['bound'][0] * 1e3:.4f} us ({r['bound'][1]}), launch "
-                f"floor {floor_ms * 1e3:.2f} us, "
-                f"{runs[name][1][k] / len(d.scans):.3f} launches a scan "
-                f"({smi})")
-
-    # phase 3
-    for name, (c, d, _) in paths.items():
-        phase_cpu_agree(name, c, d, runs[name][0], torch)
-
-    # phase 4: the chunked replay
-    n = len(ds.scans)
-    cfg_livox = ship_config("livox")
-    t0 = time.perf_counter()
-    ds_livox = make_ship_dataset(cfg_livox, N_SCANS)
-    log(f"dataset Livox: {N_SCANS} scans of {cfg_livox.sensor.max_points} "
-        f"points in {time.perf_counter() - t0:.1f} s")
-    chunked = {
-        "ship": phase_chunked("ship", cfg, ds, torch, dev, args.out, smi, {
-            "chunk=n": dict(chunk=n),
-            "chunk=16": dict(chunk=CHUNK, time_chunks=True),
-            "chunk=16 streamed": dict(chunk=CHUNK, preload=False,
-                                      high_rate=True)}),
-        "parity": phase_chunked("parity", paths["parity"][0], ds, torch,
-                                dev, args.out, smi, {
-                                    "chunk=n": dict(chunk=n),
-                                    "chunk=16": dict(chunk=CHUNK,
-                                                     time_chunks=True)}),
-        "livox": phase_chunked("livox", cfg_livox, ds_livox, torch, dev,
-                               args.out, smi, {"chunk=n": dict(chunk=n)}),
-    }
-    chunked_cpu = phase_chunked_cpu_agree(
-        cfg, ds, chunked["ship"]["chunk=n"]["result"])
-    for name, per in chunked.items():
-        ref = runs[name][2] if name in runs else None
-        log(f"phase 4 [{name}] ({smi}): chunked " + "; ".join(
-            f"{label} {r['scans_per_sec']:.3f} scans/s, p50 / p90 "
-            f"{r['p50_step_ms']:.2f} / {r['p90_step_ms']:.2f} ms, ATE "
-            f"{r['ate_m']:.6f} m" for label, r in per.items())
-            + (f" | per scan (phase 2) {ref['scans_per_sec']:.3f} scans/s, "
-               f"p50 / p90 {ref['p50_step_ms']:.2f} / "
-               f"{ref['p90_step_ms']:.2f} ms, ATE {ref['ate_m']:.6f} m"
-               if ref else ""))
-
-    # phases 5 and 6 hold the card's runs against the CPU plain path's,
-    # computed meanwhile in one spawned worker process, stopped on the way
-    # out
+    # phases 3 to 6 hold the card's runs against the CPU plain path's,
+    # computed meanwhile in one spawned worker process (started after
+    # phase 1, whose host times it would disturb), stopped on the way out
     import multiprocessing
 
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
+        # phases 3 and 4's CPU replays of the first scans
+        cpu_first = pool.apply_async(cpu_first_scans, (
+            CPU_WORKER_THREADS,
+            [(name, c, first_scans(d, CPU_SCANS), False)
+             for name, (c, d, _) in paths.items()]
+            + [("ship chunked", cfg, first_scans(ds, CPU_SCANS), True)]))
+        # phase 2
+        runs = {name: phase_main(name, c, d, torch, dev, args.out, smi)
+                for name, (c, d, _) in paths.items()}
+        launches = {k: runs[name][1][k] for k, name in path_of.items()}
+        if min(launches.values()) <= 0:
+            raise SystemExit(f"a kernel was launched no time on its path: "
+                             f"{launches}")
+        for name, (_, d, _) in paths.items():
+            for k, r in kres[name].items():
+                if runs[name][1][k] <= 0:
+                    raise SystemExit(f"{k} was held at the {name} path's "
+                                     f"shapes but that path did not launch "
+                                     f"it")
+                log(f"  {k} [{name}]: kernel {r['ms'] * 1e3:.2f} us, plain "
+                    f"{r['plain_ms'] * 1e3:.2f} us, bound "
+                    f"{r['bound'][0] * 1e3:.4f} us ({r['bound'][1]}), launch "
+                    f"floor {floor_ms * 1e3:.2f} us, "
+                    f"{runs[name][1][k] / len(d.scans):.3f} launches a scan "
+                    f"({smi})")
+
+        # phase 3
+        first = cpu_first.get(timeout=CPU_WORKER_TIMEOUT_S)
+        for name in paths:
+            phase_cpu_agree(name, first[name], runs[name][0])
+
+        # phase 4: the chunked replay
+        n = len(ds.scans)
+        cfg_livox = ship_config("livox")
+        t0 = time.perf_counter()
+        ds_livox = make_ship_dataset(cfg_livox, N_SCANS)
+        log(f"dataset Livox: {N_SCANS} scans of {cfg_livox.sensor.max_points} "
+            f"points in {time.perf_counter() - t0:.1f} s")
+        chunked = {
+            "ship": phase_chunked("ship", cfg, ds, torch, dev, args.out, smi, {
+                "chunk=n": dict(chunk=n),
+                "chunk=16": dict(chunk=CHUNK, time_chunks=True),
+                "chunk=16 streamed": dict(chunk=CHUNK, preload=False,
+                                          high_rate=True)}),
+            "parity": phase_chunked("parity", paths["parity"][0], ds, torch,
+                                    dev, args.out, smi, {
+                                        "chunk=n": dict(chunk=n),
+                                        "chunk=16": dict(chunk=CHUNK,
+                                                         time_chunks=True)}),
+            "livox": phase_chunked("livox", cfg_livox, ds_livox, torch, dev,
+                                   args.out, smi, {"chunk=n": dict(chunk=n)}),
+        }
+        chunked_cpu = phase_chunked_cpu_agree(
+            first["ship chunked"], chunked["ship"]["chunk=n"]["result"])
+        for name, per in chunked.items():
+            ref = runs[name][2] if name in runs else None
+            log(f"phase 4 [{name}] ({smi}): chunked " + "; ".join(
+                f"{label} {r['scans_per_sec']:.3f} scans/s, p50 / p90 "
+                f"{r['p50_step_ms']:.2f} / {r['p90_step_ms']:.2f} ms, ATE "
+                f"{r['ate_m']:.6f} m" for label, r in per.items())
+                + (f" | per scan (phase 2) {ref['scans_per_sec']:.3f} "
+                   f"scans/s, p50 / p90 {ref['p50_step_ms']:.2f} / "
+                   f"{ref['p90_step_ms']:.2f} ms, ATE {ref['ate_m']:.6f} m"
+                   if ref else ""))
+
         # phase 5: the SuperLoc path
         superloc, k4_prior = phase_superloc(pool, torch, dev, args.out, smi)
         # phase 6: recorded sensors
@@ -2500,7 +2748,10 @@ def main(argv=None):
         pool.join()
 
     # phase 7: many instances on one card
-    batched = phase_batched(cfg, torch, dev, smi)
+    batched, keep = phase_batched(cfg, torch, dev, smi)
+    # phase 8: the fleet over a mesh
+    mesh = phase_mesh(cfg, keep, torch, dev, smi)
+    del keep
 
     # every number but ``launches`` and ``bound_ms`` is of the path under
     # ``path``; ``by_path`` has the same fields for every path that runs
@@ -2523,6 +2774,19 @@ def main(argv=None):
             B: batched["kernels"][k][B]["ms"] * 1e3
             for B in BATCH_SIZES if B > 1}},
     } for k in kernels.KERNELS]
+    # K1 with a shard window: its launches in phase 8b's fleet whose maps
+    # lie in two shards, its time at the ship shapes (8a, shard 0 of 2)
+    entries.append({
+        "name": "octant_lookup_window",
+        "route": "cuda",
+        "source": "superodom_tpu_torch/csrc/octant_lookup.cu",
+        "replaces": REPLACES["octant_lookup"],
+        "launches": mesh["B=4 M=2"]["launches"]["octant_lookup"],
+        "path": "ship fleet, B=4, maps in 2 shards (phase 8b)",
+        **measured(mesh["k1_window"][2]),
+        "library_ms": None,
+        "by_shards": {M: measured(r) for M, r in mesh["k1_window"].items()},
+    })
     record = {"card": smi, "kernels": entries, "main_path": runs["ship"][2],
               "paths": {p: runs[p][2] for p in paths},
               "launch_floor_ms": floor_ms,
@@ -2538,7 +2802,8 @@ def main(argv=None):
               "superloc": superloc,
               "gn_solve_vio_prior_on_corridor": measured(k4_prior),
               "recorded": recorded,
-              "batched": batched}
+              "batched": batched,
+              "mesh": mesh}
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"kernels": entries}))

@@ -5,7 +5,10 @@ The estimator state is one tree of NamedTuples (``pipeline.OdomState``).
 A checkpoint is the JAX package's npz: ``leaf_%04d`` for each leaf in
 NamedTuple field order, depth first (the order of JAX's ``tree_flatten``
 over the same tree), and a ``superodom_state_meta`` entry with the leaf
-count.  A checkpoint written by either package loads in the other.
+count.  A checkpoint written by either package loads in the other.  A
+state whose maps are split over shards (``mapstate.ShardedMap``) is
+written whole, in the same layout, and ``load_state(..., mesh=...)``
+splits it again.
 
 The prior map is a PCD file of the surface map's stored points; loading it
 inserts the points into the surface map in batches of 65,536
@@ -21,7 +24,13 @@ import numpy as np
 import torch
 
 from superodom_tpu_torch.config import PipelineConfig
-from superodom_tpu_torch.pipeline import OdomState, init_state, tree_map
+from superodom_tpu_torch.pipeline import (
+    OdomState,
+    init_state,
+    shard_state,
+    tree_map,
+    unshard_state,
+)
 
 _META = "superodom_state_meta"
 PRIOR_BATCH = 65536  # points inserted a call by insert_prior_points
@@ -41,8 +50,8 @@ def _flatten(tree) -> List[torch.Tensor]:
 
 
 def save_state(path: str, state: OdomState) -> None:
-    """Write an OdomState to an npz archive."""
-    flat = _flatten(state)
+    """Write an OdomState to an npz archive (sharded maps whole)."""
+    flat = _flatten(unshard_state(state))
     arrays = {f"leaf_{i:04d}": x.detach().cpu().numpy()
               for i, x in enumerate(flat)}
     arrays[_META] = np.frombuffer(
@@ -51,10 +60,11 @@ def save_state(path: str, state: OdomState) -> None:
 
 
 def load_state(path: str, cfg: PipelineConfig, device="cuda",
-               dtype=torch.float32) -> OdomState:
+               dtype=torch.float32, mesh=None, rank: int = 0) -> OdomState:
     """Read an OdomState onto ``device``.  The tree, and each leaf's dtype
     and shape, come from ``init_state(cfg)``: the configuration must be the
-    one the state was saved under."""
+    one the state was saved under.  With a mesh (``parallel.make_mesh``)
+    both maps are split over rank ``rank``'s shard devices."""
     template = init_state(cfg, dtype, torch.device(device))
     ref_leaves = _flatten(template)
     leaves = []
@@ -77,7 +87,9 @@ def load_state(path: str, cfg: PipelineConfig, device="cuda",
             leaves.append(torch.from_numpy(np.array(arr)).to(
                 device=ref.device, dtype=ref.dtype))
     it = iter(leaves)
-    return tree_map(lambda _: next(it), template)
+    state = tree_map(lambda _: next(it), template)
+    return state if mesh is None else shard_state(state,
+                                                  mesh.rank_devices(rank))
 
 
 def save_prior_map(path: str, state: OdomState) -> None:
@@ -99,7 +111,7 @@ def insert_prior_points(cfg: PipelineConfig, state: OdomState,
     from superodom_tpu_torch.mapstate import insert
 
     surf = state.surf_map
-    dev = surf.keys.device
+    dev = state.pose.t.device
     res = cfg.sensor.default_plane_res
     xyz = np.asarray(xyz, np.float32)
     for i in range(0, len(xyz), PRIOR_BATCH):

@@ -42,6 +42,14 @@
 // its queries istride[1] floats after, its slot ids at i * Q * 8.  Each
 // instance computes exactly what a launch on its own inputs computes, and
 // n_inst = 1 is the single launch.
+//
+// Shard window: the table may be one shard of a table of nb_total buckets
+// (superodom_tpu_torch/mapstate.py ShardedMap), holding its nb consecutive
+// buckets [bucket_lo, bucket_lo + nb).  The bucket is then the scramble
+// masked to nb_total; a probe whose bucket lies outside the window reads
+// nothing and answers -1, and a hit answers the GLOBAL slot b * B + lane, so
+// the shards' answers merge by an elementwise maximum.  bucket_lo = 0 and
+// nb_total = nb is the whole table, the launch without a window.
 #include "common.cuh"
 
 // lanes that share one (query, octant) probe, and threads a block
@@ -62,7 +70,7 @@ static __device__ __forceinline__ uint32_t so_bucket_scramble(uint32_t h) {
 // aligned (kernels.octant_lookup refuses another) and is read as int4.
 template <int NV>
 __global__ void __launch_bounds__(OL_THREADS) octant_lookup_kernel(
-    const int* __restrict__ keys, int nb, int B,
+    const int* __restrict__ keys, int nb, int B, int bucket_lo, int nb_total,
     const float* __restrict__ queries, int nq, float cell_size,
     int* __restrict__ out, long long keys_is, long long queries_is) {
   constexpr int L = OL_LANES;
@@ -87,8 +95,13 @@ __global__ void __launch_bounds__(OL_THREADS) octant_lookup_kernel(
     const int nc = c + ((o >> (2 - a)) & 1) * side;
     packed |= ((uint32_t)nc & 1023u) << (10 * a);
   }
-  const uint32_t b = so_bucket_scramble(packed) & (uint32_t)(nb - 1);
-  const int4* row = reinterpret_cast<const int4*>(keys + (size_t)b * B);
+  const uint32_t b = so_bucket_scramble(packed) & (uint32_t)(nb_total - 1);
+  // the same for every lane of the probe: a probe outside the window loads
+  // nothing and still takes part in the reduction below
+  const uint32_t local = b - (uint32_t)bucket_lo;
+  const bool inside = local < (uint32_t)nb;
+  const int4* row =
+      reinterpret_cast<const int4*>(keys + (size_t)(inside ? local : 0) * B);
   const int key = (int)packed;
   const int nvec = B >> 2;  // 16-byte vectors in the row
   const int per_lane = NV > 0 ? NV : (nvec + L - 1) / L;
@@ -102,7 +115,7 @@ __global__ void __launch_bounds__(OL_THREADS) octant_lookup_kernel(
 #pragma unroll(NV > 0 ? NV : 4)
   for (int v = 0; v < per_lane; ++v) {
     const int vi = v * L + sub;
-    if (NV > 0 || vi < nvec) {
+    if (inside && (NV > 0 || vi < nvec)) {
       const int4 kv = row[vi];
       const uint32_t at = (uint32_t)vi * 4u;
       uint32_t hit = kv.w == key ? at + 3u : OL_NONE;
@@ -119,6 +132,7 @@ __global__ void __launch_bounds__(OL_THREADS) octant_lookup_kernel(
 
 template <int NV>
 static void so_launch_octant_lookup(const int* keys, int nb, int B,
+                                    int bucket_lo, int nb_total,
                                     const float* queries, int nq,
                                     float cell_size, int* out, int n_inst,
                                     const long long* istride,
@@ -127,25 +141,30 @@ static void so_launch_octant_lookup(const int* keys, int nb, int B,
   const dim3 blocks((unsigned)((threads + OL_THREADS - 1) / OL_THREADS),
                     (unsigned)n_inst);
   octant_lookup_kernel<NV><<<blocks, OL_THREADS, 0, stream>>>(
-      keys, nb, B, queries, nq, cell_size, out, istride[0], istride[1]);
+      keys, nb, B, bucket_lo, nb_total, queries, nq, cell_size, out,
+      istride[0], istride[1]);
 }
 
-// nb a power of two, B a multiple of 4, every instance's keys 16-byte
-// aligned; istride (host) = {keys, queries} instance strides in elements.
-extern "C" int so_octant_lookup(const int* keys, int nb, int B,
-                                const float* queries, int nq, float cell_size,
-                                int* out, int n_inst,
+// nb and nb_total powers of two, the window [bucket_lo, bucket_lo + nb)
+// inside [0, nb_total) and every global slot an int, B a multiple of 4,
+// every instance's keys 16-byte aligned; istride (host) = {keys, queries}
+// instance strides in elements.
+extern "C" int so_octant_lookup(const int* keys, int nb, int B, int bucket_lo,
+                                int nb_total, const float* queries, int nq,
+                                float cell_size, int* out, int n_inst,
                                 const long long* istride, void* stream) {
-  if (nb < 1 || (nb & (nb - 1)) || B < 4 || (B & 3) ||
+  if (nb < 1 || (nb & (nb - 1)) || nb_total < nb || (nb_total & (nb_total - 1)) ||
+      bucket_lo < 0 || bucket_lo > nb_total - nb ||
+      (long long)nb_total * B > 2147483647LL || B < 4 || (B & 3) ||
       (reinterpret_cast<uintptr_t>(keys) & 15) || (istride[0] & 3) ||
       n_inst < 1 || n_inst > 65535)
     return (int)cudaErrorInvalidValue;
   if (nq > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (B == 128)  // 4 vectors a lane
-      so_launch_octant_lookup<128 / (4 * OL_LANES)>(keys, nb, B, queries, nq, cell_size, out, n_inst, istride, s);
+      so_launch_octant_lookup<128 / (4 * OL_LANES)>(keys, nb, B, bucket_lo, nb_total, queries, nq, cell_size, out, n_inst, istride, s);
     else
-      so_launch_octant_lookup<0>(keys, nb, B, queries, nq, cell_size, out, n_inst, istride, s);
+      so_launch_octant_lookup<0>(keys, nb, B, bucket_lo, nb_total, queries, nq, cell_size, out, n_inst, istride, s);
   }
   return (int)cudaGetLastError();
 }

@@ -101,14 +101,17 @@ def _group(*xs):
 
 
 @_op("octant_lookup")
-def octant_lookup(keys: Tensor, queries: Tensor, cell_size: float) -> Tensor:
-    return kernels.octant_lookup(keys, queries, cell_size)
+def octant_lookup(keys: Tensor, queries: Tensor, cell_size: float,
+                  bucket_lo: int = 0, nb_total: int = 0) -> Tensor:
+    return kernels.octant_lookup(keys, queries, cell_size, bucket_lo,
+                                 nb_total)
 
 
 @octant_lookup.register_vmap
-def _(info, in_dims, keys, queries, cell_size):
+def _(info, in_dims, keys, queries, cell_size, bucket_lo=0, nb_total=0):
     return kernels.octant_lookup_batched(
-        *_fronts(info, in_dims, keys, queries), cell_size), 0
+        *_fronts(info, in_dims, keys, queries), cell_size, bucket_lo,
+        nb_total), 0
 
 
 @_op("knn_select")

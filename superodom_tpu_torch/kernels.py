@@ -133,7 +133,8 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.so_octant_lookup.argtypes = [vp, ci, ci, vp, ci, cf, vp, ci, vp, vp]
+    lib.so_octant_lookup.argtypes = [vp, ci, ci, ci, ci, vp, ci, cf, vp, ci,
+                                    vp, vp]
     lib.so_knn_select.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, ci,
                                   vp, vp]
     lib.so_plane_fit.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
@@ -220,16 +221,21 @@ def _launched(name: str, rc: int) -> None:
 
 
 def octant_lookup(keys: torch.Tensor, queries: torch.Tensor,
-                  cell_size: float) -> torch.Tensor:
+                  cell_size: float, bucket_lo: int = 0,
+                  nb_total: int = 0) -> torch.Tensor:
     """K1 on the card: int32[Q, 8] slot ids (see csrc/octant_lookup.cu)."""
-    return octant_lookup_batched(keys[None], queries[None], cell_size)[0]
+    return octant_lookup_batched(keys[None], queries[None], cell_size,
+                                 bucket_lo, nb_total)[0]
 
 
 def octant_lookup_batched(keys: torch.Tensor, queries: torch.Tensor,
-                          cell_size: float) -> torch.Tensor:
+                          cell_size: float, bucket_lo: int = 0,
+                          nb_total: int = 0) -> torch.Tensor:
     """K1 over n instances in one launch: key tables ``[n, NB, B]``,
     queries ``[n, Q, 3]`` -> int32[n, Q, 8], each instance's slot ids into
-    its own table."""
+    its own table.  A shard window: the tables are buckets
+    ``[bucket_lo, bucket_lo + NB)`` of tables of ``nb_total`` buckets (0:
+    the tables are whole), the slot ids global, -1 outside the window."""
     n = queries.shape[0]
     dev = queries.device
     nq = queries.shape[1] if queries.dim() == 3 else -1
@@ -244,10 +250,20 @@ def octant_lookup_batched(keys: torch.Tensor, queries: torch.Tensor,
         raise ValueError("octant_lookup: every key table must start on a "
                          "16-byte line (its rows are read as 16-byte "
                          "vectors)")
-    out = torch.empty((n, nq, 8), dtype=torch.int32, device=dev)
-    rc = load().so_octant_lookup(_p(keys), nb, B, _p(queries), nq,
-                                 float(cell_size), _p(out), n,
-                                 _strides(ks, qs), _stream(dev))
+    nb_total = nb_total or nb
+    if nb_total & (nb_total - 1) or not 0 <= bucket_lo <= nb_total - nb \
+            or nb_total * B >= 2 ** 31:
+        raise ValueError(f"octant_lookup: the window of {nb} buckets at "
+                         f"{bucket_lo} does not fit a power-of-two table of "
+                         f"{nb_total} buckets of {B} slots")
+    # a shard's table may lie on another card than the current one: the
+    # launch goes to the card of its tensors and stream
+    with torch.cuda.device(dev):
+        out = torch.empty((n, nq, 8), dtype=torch.int32, device=dev)
+        rc = load().so_octant_lookup(_p(keys), nb, B, bucket_lo, nb_total,
+                                     _p(queries), nq, float(cell_size),
+                                     _p(out), n, _strides(ks, qs),
+                                     _stream(dev))
     _launched("octant_lookup", rc)
     return out
 

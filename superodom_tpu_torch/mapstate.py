@@ -25,11 +25,21 @@ Hand-written CUDA kernels carry the read side (``csrc/``):
 Each has a plain PyTorch version here (``*_reference``) with the JAX
 package's layout; CPU tensors take it, CUDA tensors take the kernel.
 All functions are pure: they return new tensors and never modify the map.
+
+A table may be split over M shards (:class:`ShardedMap`, the JAX
+package's ``model`` axis): shard j holds buckets ``[j*NB/M, (j+1)*NB/M)``
+and their slots, each shard on a device of its own.  The map functions
+take either form.  A sharded lookup is K1 with a shard window on every
+shard, merged by an elementwise maximum; the ICP rounds read a compact
+candidate table gathered once a scan (:func:`candidate_view`), so K2, K9a
+and K11b's candidates run on it unchanged; an insert decides everything on
+the device of its points and routes each write to the shard that owns its
+row.  Either form gives the unsplit table's results to the bit.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,33 +123,132 @@ def empty_map(cfg: MapConfig, dtype=torch.float32, device=None) -> VoxelHashMap:
     )
 
 
-def _lookup_keys(keys: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+class ShardedMap(NamedTuple):
+    """One voxel-hash table split over M shards (M a power of two dividing
+    NB), the JAX package's split of a map over its ``model`` axis
+    (``parallel._state_pspec``): shard j is a :class:`VoxelHashMap` of the
+    NB/M consecutive buckets from ``j*NB/M`` and of their slots, so the
+    global bucket b and its slots ``b*B + lane`` live on shard
+    ``b // (NB/M)``.  Each shard may lie on its own device."""
+
+    shards: Tuple[VoxelHashMap, ...]
+
+    @property
+    def cell_capacity(self) -> int:
+        return self.shards[0].cell_capacity
+
+
+def shard_map_table(m: VoxelHashMap, devices: Sequence) -> ShardedMap:
+    """Split ``m`` (any leading instance dimensions) into one shard a
+    device of ``devices``; :func:`unshard` is its inverse."""
+    M = len(devices)
+    nb, B = m.keys.shape[-2:]
+    if M < 1 or M & (M - 1) or nb % M:
+        raise ValueError(f"a table of {nb} buckets does not split into {M} "
+                         f"shards (a power of two dividing the buckets)")
+    nbl = nb // M
+    return ShardedMap(tuple(VoxelHashMap(
+        keys=m.keys.narrow(-2, j * nbl, nbl).to(d).contiguous(),
+        pts=m.pts.narrow(-2, j * nbl * B, nbl * B).to(d).contiguous(),
+        cnt=m.cnt.narrow(-2, j * nbl, nbl).to(d).contiguous())
+        for j, d in enumerate(devices)))
+
+
+def unshard(m) -> VoxelHashMap:
+    """The whole table of a :class:`ShardedMap`, on shard 0's device (a
+    :class:`VoxelHashMap` as it is)."""
+    if isinstance(m, VoxelHashMap):
+        return m
+    home = m.shards[0].keys.device
+    return VoxelHashMap(*(torch.cat([getattr(s, f).to(home)
+                                     for s in m.shards], dim=-2)
+                          for f in VoxelHashMap._fields))
+
+
+def _shards(m) -> Tuple[VoxelHashMap, ...]:
+    return m.shards if isinstance(m, ShardedMap) else (m,)
+
+
+def _merged(m, home, fn) -> torch.Tensor:
+    """``fn(shard, bucket_lo, nb_total)`` (global slots, -1 where none) on
+    every shard with its window, merged by an elementwise maximum on
+    ``home``; on a whole table ``fn(m, 0, 0)``."""
+    shards = _shards(m)
+    nbl = shards[0].keys.shape[-2]
+    nb_total = nbl * len(shards) if len(shards) > 1 else 0
+    out = None
+    for j, sh in enumerate(shards):
+        got = fn(sh, j * nbl, nb_total).to(home)
+        out = got if out is None else torch.maximum(out, got)
+    return out
+
+
+def _take(tables, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """Rows ``idx`` (in ``[0, M*rows)``) of a table split into M pieces of
+    ``rows`` rows (``tables``, piece j holding rows ``[j*rows,
+    (j+1)*rows)``), gathered from their owners onto ``idx``'s device."""
+    if len(tables) == 1:
+        return tables[0][idx]
+    owner = idx // rows
+    out = None
+    for j, t in enumerate(tables):
+        mine = owner == j
+        got = t[torch.where(mine, idx - j * rows, 0).to(t.device)].to(
+            idx.device)
+        out = got if out is None else torch.where(
+            mine.reshape(mine.shape + (1,) * (got.dim() - mine.dim())),
+            got, out)
+    return out
+
+
+def _local(idx: torch.Tensor, j: int, rows: int) -> torch.Tensor:
+    """Global rows ``idx`` (-1: none) -> shard j's own rows; ``rows``, the
+    shard's trash row, for -1 and for rows of other shards."""
+    return torch.where((idx >= 0) & (idx // rows == j), idx - j * rows, rows)
+
+
+def _lookup_keys(keys: torch.Tensor, packed: torch.Tensor,
+                 bucket_lo: int = 0, nb_total: int = 0) -> torch.Tensor:
+    """The slot of each packed key in a key table: the first matching lane
+    of its bucket row, -1 if absent.  A shard window: ``keys`` holds
+    buckets ``[bucket_lo, bucket_lo + NB)`` of a table of ``nb_total``
+    (0: the table is whole); a key hashed outside the window gives -1, a
+    hit its global slot."""
     nb, B = keys.shape
-    bucket = _bucket_of(packed, nb)
-    match = keys[bucket] == packed[:, None]  # [Q, B] bucket-row gather
+    bucket = _bucket_of(packed, nb_total or nb)
+    local = bucket - bucket_lo
+    inside = (local >= 0) & (local < nb)
+    # [Q, B] bucket-row gather
+    match = (keys[torch.clamp(local, 0, nb - 1)] == packed[:, None]) \
+        & inside[:, None]
     lane = torch.argmax(match.to(torch.int32), dim=-1).to(torch.int32)
     return torch.where(torch.any(match, dim=-1), bucket * B + lane, -1)
 
 
-def lookup_packed(m: VoxelHashMap, packed: torch.Tensor) -> torch.Tensor:
+def lookup_packed(m, packed: torch.Tensor) -> torch.Tensor:
     """Packed cell keys [Q] -> flat slot index [Q] (bucket*B + lane), -1 if
-    absent: the first matching lane of the key's bucket row."""
-    return _lookup_keys(m.keys, packed)
+    absent: the first matching lane of the key's bucket row.  On a
+    :class:`ShardedMap` each shard looks up its window and the answers
+    merge on the device of ``packed``."""
+    return _merged(m, packed.device, lambda s, lo, nbt: _lookup_keys(
+        s.keys, packed.to(s.keys.device), lo, nbt))
 
 
-def lookup(m: VoxelHashMap, cfg: MapConfig, cells: torch.Tensor
+def lookup(m, cfg: MapConfig, cells: torch.Tensor
            ) -> torch.Tensor:
     """Integer cell coords [Q,3] -> flat slot [Q] or -1."""
     return lookup_packed(m, pack_cells(cells))
 
 
 def octant_lookup_reference(keys: torch.Tensor, queries: torch.Tensor,
-                            cell_size: float) -> torch.Tensor:
+                            cell_size: float, bucket_lo: int = 0,
+                            nb_total: int = 0) -> torch.Tensor:
     """Plain version of K1: slot ids int32[Q, 8] of the 2x2x2 block of cells
-    nearest each query (the lookup half of ``gather_candidates``)."""
+    nearest each query (the lookup half of ``gather_candidates``); with a
+    shard window as :func:`_lookup_keys` has it."""
     nq = queries.shape[0]
-    return _lookup_keys(keys, octant_cells(queries, cell_size).reshape(-1)
-                        ).reshape(nq, 8)
+    return _lookup_keys(keys, octant_cells(queries, cell_size).reshape(-1),
+                        bucket_lo, nb_total).reshape(nq, 8)
 
 
 def octant_cells(queries: torch.Tensor, cell_size: float) -> torch.Tensor:
@@ -158,13 +267,42 @@ def octant_cells(queries: torch.Tensor, cell_size: float) -> torch.Tensor:
 
 
 def octant_lookup(keys: torch.Tensor, queries: torch.Tensor,
-                  cell_size: float) -> torch.Tensor:
-    """K1: slot ids int32[Q, 8] of the octant cells nearest each query."""
+                  cell_size: float, bucket_lo: int = 0,
+                  nb_total: int = 0) -> torch.Tensor:
+    """K1: slot ids int32[Q, 8] of the octant cells nearest each query
+    (with a shard window: see :func:`octant_lookup_reference`)."""
     if queries.is_cuda:
-        return kernel_ops.octant_lookup(keys, queries, float(cell_size))
+        return kernel_ops.octant_lookup(keys, queries, float(cell_size),
+                                        bucket_lo, nb_total)
     if queries.device.type == "cpu":
-        return octant_lookup_reference(keys, queries, cell_size)
+        return octant_lookup_reference(keys, queries, cell_size, bucket_lo,
+                                       nb_total)
     raise ValueError(f"octant_lookup: unsupported device {queries.device}")
+
+
+def candidate_view(m, queries: torch.Tensor, cell_size: float):
+    """The point table and the octant slots int32[Q, 8] (K1) that K2, K9a
+    and K11b's candidates read for ``queries``: on a whole table its own
+    point table and slots, no copy.  On a :class:`ShardedMap`, K1 with a
+    shard window on every shard, merged, and a compact table on the
+    queries' device gathered from the owning shards: row 0 the global
+    table's row 0 (which a missing slot reads), row ``1 + 8q + o`` the
+    row of query q's octant o, the slots remapped to those rows (-1 stays
+    -1).  The candidates' lanes keep their numbering, so the selections
+    on the view are the whole table's to the bit."""
+    if isinstance(m, VoxelHashMap):
+        return m.pts, octant_lookup(m.keys, queries, cell_size)
+    home = queries.device
+    slots = _merged(m, home, lambda sh, lo, nbt: octant_lookup(
+        sh.keys, queries.to(sh.keys.device), cell_size, lo, nbt))
+    nq = slots.shape[0]
+    rows = _take([sh.pts for sh in m.shards],
+                 torch.clamp_min(slots.reshape(-1), 0),
+                 m.shards[0].pts.shape[-2])
+    pts = torch.cat([m.shards[0].pts[:1].to(home), rows])
+    view = torch.arange(1, 8 * nq + 1, dtype=torch.int32,
+                        device=home).reshape(nq, 8)
+    return pts, torch.where(slots >= 0, view, -1)
 
 
 def _nearest_lanes(planes, valid: torch.Tensor, queries: torch.Tensor,
@@ -233,7 +371,7 @@ def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
     raise ValueError(f"knn_select: unsupported device {queries.device}")
 
 
-def query_knn(m: VoxelHashMap, cfg: MapConfig, queries: torch.Tensor,
+def query_knn(m, cfg: MapConfig, queries: torch.Tensor,
               k: int):
     """K nearest stored points per query among the 2x2x2 block of cells
     nearest it (the reference's per-block octree KNN, LocalMap.h:481-525):
@@ -241,20 +379,19 @@ def query_knn(m: VoxelHashMap, cfg: MapConfig, queries: torch.Tensor,
     the card, their plain versions on the CPU.
 
     Returns ``(pts f32[Q,k,3], sqdist f32[Q,k], valid bool[Q,k])``."""
-    slots = octant_lookup(m.keys, queries, cfg.cell_size)
-    pts, sq, valid, _ = knn_select(m.pts, slots, queries, k)
+    pts, sq, valid, _ = knn_select(*candidate_view(m, queries, cfg.cell_size),
+                                   queries, k)
     return pts, sq, valid
 
 
-def gather_candidates(m: VoxelHashMap, cfg: MapConfig,
+def gather_candidates(m, cfg: MapConfig,
                       queries: torch.Tensor):
     """The candidate point sets of a batch of queries: the 2x2x2 block of
     cells nearest each query (slots from K1 :func:`octant_lookup`).
     Returns (cand f32[Q,8,3C] — one coordinate-planar slot row per octant
     cell — and valid bool[Q,8*C]); a missing cell reads row 0 and is not
     valid."""
-    return _candidate_rows(m.pts, octant_lookup(m.keys, queries,
-                                                cfg.cell_size))
+    return _candidate_rows(*candidate_view(m, queries, cfg.cell_size))
 
 
 class ReducedCandidates(NamedTuple):
@@ -319,19 +456,29 @@ def _run_start(flag: torch.Tensor) -> torch.Tensor:
     return torch.cummax(torch.where(flag, idx, 0), dim=0).values
 
 
-def insert(m: VoxelHashMap, cfg: MapConfig, xyz: torch.Tensor,
-           mask: torch.Tensor, min_dist, max_writes: int = 0) -> VoxelHashMap:
+def insert(m, cfg: MapConfig, xyz: torch.Tensor, mask: torch.Tensor,
+           min_dist, max_writes: int = 0):
     """Insert world-frame points, keeping stored points >= ``min_dist``
     apart.  Same sequence of stable sorts, allocation and prefix cap as the
     JAX package's insert, so the map matches it bit for bit.  Where the
     JAX code parks dropped lanes on out-of-range rows (``mode="drop"``),
     this code writes them to one trash row appended to each table, which is
-    sliced off again: no index is ever out of range."""
-    nb, B = m.keys.shape
+    sliced off again: no index is ever out of range.
+
+    On a :class:`ShardedMap` every decision is taken on the device of
+    ``xyz`` as for a whole table (the sorts, the thinning, the allocation,
+    the distance gate and the insert-width cap, a prefix in hash order that
+    spans every shard): the key rows, counts and cell rows are read from
+    their owners, and each key, point and count write goes to the shard
+    that owns its row (the others' to their trash rows).  The result is the
+    whole table's insert, split."""
+    shards = _shards(m)
+    nbl, B = shards[0].keys.shape
+    nb = nbl * len(shards)
+    R = nbl * B  # slots a shard; row R of each shard is its trash row
     C = m.cell_capacity
     n = xyz.shape[0]
     dev = xyz.device
-    trash = nb * B
     lane_ids = torch.arange(n, dtype=torch.int32, device=dev)
     min_dist = torch.as_tensor(min_dist, dtype=xyz.dtype, device=dev)
 
@@ -357,7 +504,7 @@ def insert(m: VoxelHashMap, cfg: MapConfig, xyz: torch.Tensor,
 
     # resolve / allocate slots: each new cell takes the rank-th empty lane
     # of its bucket, rank = its position among its bucket's new cells
-    slot = _lookup_keys(m.keys, packed_s)
+    slot = lookup_packed(m, packed_s)
     rep = new_run & mask_s & (slot < 0)
     bucket = _bucket_of(packed_s, nb)
     rep_bucket = torch.where(rep, bucket, _INT_MAX)
@@ -369,14 +516,15 @@ def insert(m: VoxelHashMap, cfg: MapConfig, xyz: torch.Tensor,
     rank = torch.zeros_like(border, dtype=torch.int32).scatter(
         0, border, (idx - _run_start(is_start)).to(torch.int32))
 
-    empty_cum = torch.cumsum((m.keys == _EMPTY).to(torch.int32), dim=1)
-    hit = empty_cum[bucket] == (rank + 1)[:, None]  # [N, B]
+    # the empty lanes counted along each lane's bucket row
+    empty_cum = torch.cumsum((_take([sh.keys for sh in shards], bucket, nbl)
+                              == _EMPTY).to(torch.int32), dim=1)  # [N, B]
+    hit = empty_cum == (rank + 1)[:, None]
     got = rep & torch.any(hit, dim=-1)  # rank < #empty lanes, else drop
     elane = torch.argmax(hit.to(torch.int32), dim=-1).to(torch.int32)
-    slot = torch.where(got, bucket * B + elane, slot)
-    keys = torch.cat([m.keys.reshape(-1), m.keys.new_full((1,), _EMPTY)])
-    keys[torch.where(got, bucket * B + elane, trash)] = packed_s
-    keys = keys[:trash].reshape(nb, B)
+    new_slot = bucket * B + elane
+    slot = torch.where(got, new_slot, slot)
+    key_w = torch.where(got, new_slot, -1)  # the key writes' slots
 
     # every lane of a cell run takes the slot found at the run's first lane
     slot = torch.maximum(slot, torch.where(new_run, slot, -1)[run_start])
@@ -384,9 +532,8 @@ def insert(m: VoxelHashMap, cfg: MapConfig, xyz: torch.Tensor,
     safe_slot = torch.clamp_min(slot, 0)
 
     # distance gate vs. existing cell contents
-    cnt_flat = m.cnt.reshape(nb * B)
-    cell_pts = m.pts[safe_slot]  # [N, 3C]
-    cell_cnt = cnt_flat[safe_slot]
+    cell_pts = _take([sh.pts for sh in shards], safe_slot, R)  # [N, 3C]
+    cell_cnt = _take([sh.cnt.reshape(R) for sh in shards], safe_slot, R)
     exist = torch.arange(C, dtype=torch.int32, device=dev)[None, :] \
         < cell_cnt[:, None]
     d2 = ((cell_pts[:, 0:C] - xyz_s[:, 0:1]) ** 2
@@ -409,26 +556,37 @@ def insert(m: VoxelHashMap, cfg: MapConfig, xyz: torch.Tensor,
         write = write & (w_rank < w_ins)
         sel_keys = torch.where(write, n - lane_ids, 0)
         sel = torch.sort(sel_keys, descending=True, stable=True).indices[:w_ins]
-        row_w = torch.where(write[sel], safe_slot[sel], trash)
+        row_w = torch.where(write[sel], safe_slot[sel], -1)
         col_w = torch.clamp_max(dest[sel], C - 1)
         xyz_w = xyz_s[sel]
     else:
-        row_w = torch.where(write, safe_slot, trash)
+        row_w = torch.where(write, safe_slot, -1)
         col_w = torch.clamp_max(dest, C - 1)
         xyz_w = xyz_s
-    pts = torch.cat([m.pts, m.pts.new_full((1, 3 * C), BIG)])
-    pts[torch.cat([row_w, row_w, row_w]).long(),
-        torch.cat([col_w, col_w + C, col_w + 2 * C]).long()] = torch.cat(
-            [xyz_w[:, 0], xyz_w[:, 1], xyz_w[:, 2]])
-    pts = pts[:trash]
+    cols3 = torch.cat([col_w, col_w + C, col_w + 2 * C]).long()
+    vals3 = torch.cat([xyz_w[:, 0], xyz_w[:, 1], xyz_w[:, 2]])
 
     seg_id = torch.cumsum(new_run.to(torch.int64), dim=0) - 1
     adds = torch.zeros((n,), dtype=torch.int32, device=dev).index_add(
-        0, seg_id, write.to(torch.int32))
+        0, seg_id, write.to(torch.int32))[seg_id]
     rep_lane = new_run & (slot >= 0) & mask_s
-    cnt = torch.cat([cnt_flat, cnt_flat.new_zeros((1,))]).index_add(
-        0, torch.where(rep_lane, safe_slot, trash).long(), adds[seg_id])
-    return VoxelHashMap(keys=keys, pts=pts, cnt=cnt[:trash].reshape(nb, B))
+    cnt_w = torch.where(rep_lane, safe_slot, -1)
+
+    # each shard takes the writes to its own rows
+    out = []
+    for j, sh in enumerate(shards):
+        d = sh.keys.device
+        keys = torch.cat([sh.keys.reshape(-1), sh.keys.new_full((1,), _EMPTY)])
+        keys[_local(key_w, j, R).to(d)] = packed_s.to(d)
+        rows = _local(row_w, j, R).to(d)
+        pts = torch.cat([sh.pts, sh.pts.new_full((1, 3 * C), BIG)])
+        pts[torch.cat([rows, rows, rows]).long(), cols3.to(d)] = vals3.to(d)
+        cnt = torch.cat([sh.cnt.reshape(-1), sh.cnt.new_zeros((1,))]
+                        ).index_add(0, _local(cnt_w, j, R).to(d).long(),
+                                    adds.to(d))
+        out.append(VoxelHashMap(keys=keys[:R].reshape(nbl, B), pts=pts[:R],
+                                cnt=cnt[:R].reshape(nbl, B)))
+    return out[0] if isinstance(m, VoxelHashMap) else ShardedMap(tuple(out))
 
 
 def _wrapped_cell_delta(keys: torch.Tensor, center_cell: torch.Tensor):
@@ -437,10 +595,20 @@ def _wrapped_cell_delta(keys: torch.Tensor, center_cell: torch.Tensor):
     return torch.where(d >= _COORD_PERIOD // 2, d - _COORD_PERIOD, d)
 
 
-def evict_far(m: VoxelHashMap, cfg: MapConfig,
-              center: torch.Tensor) -> VoxelHashMap:
+def _summed(m, home, fn) -> torch.Tensor:
+    """An int32 count ``fn(shard)`` summed over the shards on ``home``."""
+    if isinstance(m, VoxelHashMap):
+        return fn(m)
+    return torch.sum(torch.stack([fn(sh).to(home) for sh in m.shards])
+                     ).to(torch.int32)
+
+
+def evict_far(m, cfg: MapConfig, center: torch.Tensor):
     """Drop cells farther than ``evict_radius`` from ``center`` and restore
-    the BIG sentinel on their point lanes."""
+    the BIG sentinel on their point lanes (shard by shard)."""
+    if isinstance(m, ShardedMap):
+        return ShardedMap(tuple(evict_far(sh, cfg, center.to(sh.keys.device))
+                                for sh in m.shards))
     center_cell = torch.floor(true_div(center, cfg.cell_size)).to(torch.int32)
     d = _wrapped_cell_delta(m.keys, center_cell).to(m.pts.dtype) * cfg.cell_size
     far = (m.keys != _EMPTY) & (torch.sum(d * d, dim=-1)
@@ -452,10 +620,15 @@ def evict_far(m: VoxelHashMap, cfg: MapConfig,
     )
 
 
-def census_box(m: VoxelHashMap, cfg: MapConfig, center: torch.Tensor,
+def census_box(m, cfg: MapConfig, center: torch.Tensor,
                half_extent: torch.Tensor) -> torch.Tensor:
     """Stored points whose cell center lies inside the box around
-    ``center`` (reference get5x5LocalMapFeatureSize)."""
+    ``center`` (reference get5x5LocalMapFeatureSize), on ``center``'s
+    device."""
+    if isinstance(m, ShardedMap):
+        return _summed(m, center.device, lambda sh: census_box(
+            sh, cfg, center.to(sh.keys.device),
+            half_extent.to(sh.keys.device)))
     center_cell = torch.floor(true_div(center, cfg.cell_size)).to(torch.int32)
     d = (_wrapped_cell_delta(m.keys, center_cell).to(m.pts.dtype) + 0.5) \
         * cfg.cell_size
@@ -464,14 +637,22 @@ def census_box(m: VoxelHashMap, cfg: MapConfig, center: torch.Tensor,
     return torch.sum(torch.where(inside, m.cnt, 0)).to(torch.int32)
 
 
-def total_points(m: VoxelHashMap) -> torch.Tensor:
-    """Stored points over the whole table."""
+def total_points(m) -> torch.Tensor:
+    """Stored points over the whole table (on shard 0's device)."""
+    if isinstance(m, ShardedMap):
+        return _summed(m, m.shards[0].keys.device, total_points)
     return torch.sum(torch.where(m.keys != _EMPTY, m.cnt, 0)).to(torch.int32)
 
 
-def extract_points(m: VoxelHashMap):
+def extract_points(m):
     """Every slot lane of the table as points [NB*B*C, 3] and their
-    validity mask (a stored point of a live cell), flattened slot-major."""
+    validity mask (a stored point of a live cell), flattened slot-major
+    (on shard 0's device)."""
+    if isinstance(m, ShardedMap):
+        home = m.shards[0].keys.device
+        parts = [extract_points(sh) for sh in m.shards]
+        return tuple(torch.cat([p[i].to(home) for p in parts])
+                     for i in range(2))
     nb, B = m.keys.shape
     C = m.cell_capacity
     lanes = torch.arange(C, dtype=torch.int32, device=m.keys.device)

@@ -67,6 +67,8 @@ from superodom_tpu_torch.mapstate import (
     empty_map,
     evict_far,
     insert,
+    shard_map_table,
+    unshard,
 )
 from superodom_tpu_torch.ops import invariant as inv
 from superodom_tpu_torch.registration import IcpStats, PosePrior, icp_register
@@ -90,8 +92,8 @@ class OdomState(NamedTuple):
     frame_count: torch.Tensor
     last_time: torch.Tensor
     rt: RuntimeParams
-    edge_map: VoxelHashMap
-    surf_map: VoxelHashMap
+    edge_map: VoxelHashMap  # or a mapstate.ShardedMap
+    surf_map: VoxelHashMap  # or a mapstate.ShardedMap
     smoother: SmootherState
     degenerate: torch.Tensor
     uncertainty: torch.Tensor
@@ -162,7 +164,11 @@ def edge_map_config(cfg: PipelineConfig) -> MapConfig:
 
 
 def init_state(cfg: PipelineConfig, dtype=torch.float32,
-               device=None) -> OdomState:
+               device=None, shard_devices=None) -> OdomState:
+    """The state before the first scan on ``device``; with
+    ``shard_devices`` both maps split over them (:func:`shard_state`)."""
+    if shard_devices is not None:
+        return shard_state(init_state(cfg, dtype, device), shard_devices)
     loc = cfg.localization
     if loc.enabled:
         q0 = quat_from_rpy(*[_scalar(v, dtype, device)
@@ -194,6 +200,26 @@ def init_state(cfg: PipelineConfig, dtype=torch.float32,
         vio_available=_scalar(False, torch.bool, device),
         prev_imu=empty_imu_window(cfg.imu.max_imu_per_scan, dtype, device),
     )
+
+
+def shard_state(state: OdomState, devices) -> OdomState:
+    """``state`` (one instance's or a fleet's) with both maps split over
+    ``devices``, one shard a device (``mapstate.shard_map_table``; a
+    single device takes the whole table), every other leaf where it is."""
+    def split(m):
+        m = unshard(m)
+        if len(devices) == 1:
+            return tree_map(lambda x: x.to(devices[0]), m)
+        return shard_map_table(m, devices)
+
+    return state._replace(surf_map=split(state.surf_map),
+                          edge_map=split(state.edge_map))
+
+
+def unshard_state(state: OdomState) -> OdomState:
+    """``state`` with both maps whole, each on its shard 0's device."""
+    return state._replace(surf_map=unshard(state.surf_map),
+                          edge_map=unshard(state.edge_map))
 
 
 OBS_EMA_DECAY = 0.8  # per-accepted-frame decay of the observability EMA
@@ -571,11 +597,11 @@ def step(cfg: PipelineConfig, state: OdomState, scan: Scan, imu: ImuWindow,
         do_insert = ic == 1 or frame % ic == 0 or frame < 8
         do_evict = frame % ec == 0
 
-    def cadenced(do, update, m: VoxelHashMap) -> VoxelHashMap:
+    def cadenced(do, update, m):
         if isinstance(do, bool):
             return update(m) if do else m
-        return tree_map(lambda new, old: torch.where(do, new, old),
-                        update(m), m)
+        return tree_map(lambda new, old: torch.where(do.to(new.device), new,
+                                                     old), update(m), m)
 
     surf_map = cadenced(do_insert, lambda m: insert(
         m, cfg.map, pose.apply(surf_pts), surf_mask & do_update_map,

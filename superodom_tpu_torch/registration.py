@@ -1,7 +1,7 @@
 """Scan-to-map registration (counterpart of ``superodom_tpu.registration``).
 
 Correspondences: the octant slots of every feature are looked up once at
-the predicted pose (K1, :func:`mapstate.octant_lookup`); each ICP round
+the predicted pose (K1, :func:`mapstate.candidate_view`); each ICP round
 re-selects the k nearest map points at the current pose (K2,
 :func:`mapstate.knn_select`) and fits planes to them (K3,
 :func:`plane_fit`) and, with edges on (``use_edges``), lines to the edge
@@ -43,8 +43,8 @@ from superodom_tpu_torch.geometry import (
 from superodom_tpu_torch.mapstate import (
     ReducedCandidates,
     VoxelHashMap,
+    candidate_view,
     knn_select,
-    octant_lookup,
     reduce_candidates,
     select_knn_reduced,
 )
@@ -769,20 +769,20 @@ def icp_register(
     edge_pts = edge_pts.contiguous()
 
     w_pt0 = pose0.apply(surf_pts).contiguous()
-    slots = octant_lookup(surf_map.keys, w_pt0, map_cfg.cell_size)
+    surf_tab, slots = candidate_view(surf_map, w_pt0, map_cfg.cell_size)
     if use_edges:
         e_pt0 = pose0.apply(edge_pts).contiguous()
-        e_slots = octant_lookup(edge_map.keys, e_pt0, map_cfg.cell_size)
+        edge_tab, e_slots = candidate_view(edge_map, e_pt0, map_cfg.cell_size)
 
     def correspondences(pose: Pose, w_pt, e_pt):
         """Full-width extraction; ``w_pt`` / ``e_pt`` = the features at
         ``pose``."""
-        neigh, sq, nvalid, _ = knn_select(surf_map.pts, slots, w_pt,
+        neigh, sq, nvalid, _ = knn_select(surf_tab, slots, w_pt,
                                           reg.plane_knn)
         planes = _plane_fit(neigh, sq, nvalid, reg, pose, surf_pts, surf_mask,
                             rt.plane_res, w_pt)
         lines = edge_correspondences_from_candidates(
-            edge_map.pts, e_slots, reg, pose, edge_pts, edge_mask,
+            edge_tab, e_slots, reg, pose, edge_pts, edge_mask,
             rt.line_res, e_pt) if use_edges else None
         return planes, lines
 
@@ -834,10 +834,10 @@ def icp_register(
         e_pt = c.pose.apply(edge_pts).contiguous() if use_edges else None
         if reg.refresh_width > 0:
             if red is None:
-                red = reduce_candidates(surf_map.pts, slots, w_pt,
+                red = reduce_candidates(surf_tab, slots, w_pt,
                                         reg.refresh_width)
                 if use_edges:
-                    red_e = reduce_candidates(edge_map.pts, e_slots, e_pt, ew)
+                    red_e = reduce_candidates(edge_tab, e_slots, e_pt, ew)
             planes = plane_correspondences_from_reduced(
                 red, reg, c.pose, surf_pts, surf_mask, rt.plane_res, w_pt)
             lines = edge_correspondences_from_reduced(

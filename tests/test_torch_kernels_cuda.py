@@ -228,6 +228,43 @@ def test_octant_lookup_boundary_queries(dev, cell_size):
     assert (s >= 0).any() and (s < 0).any()
 
 
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("B", [32, 128])
+def test_octant_lookup_shard_window(dev, B, M):
+    """K1 with a shard window (``mapstate.ShardedMap``): each of M shards
+    of a table bit for bit its windowed plain version (global slots, -1
+    outside the window), directly and through the vmap rule over three
+    instances; merged by a maximum, the whole table's lookup; and a
+    window that does not fit its table refused."""
+    nb = 64
+    rng = np.random.default_rng(B + M)
+    keys = _keys_table(rng.integers(-7, 8, size=(1500, 3)), nb, B, dev)
+    q = torch.from_numpy(rng.uniform(-8.0, 8.0, (700, 3)).astype(
+        np.float32)).to(dev)
+    whole = _lookup_both(keys, q, 1.0)
+    nbl = nb // M
+    merged = torch.full_like(whole, -1)
+    for j in range(M):
+        sh = keys[j * nbl:(j + 1) * nbl].contiguous()
+        args = (sh, q, 1.0, j * nbl, nb)
+        s_k = kernels.octant_lookup(*args)
+        s_r = mapstate.octant_lookup_reference(*args)
+        three = torch.func.vmap(kernel_ops.octant_lookup,
+                                in_dims=(None, 0, None, None, None))(
+            sh, torch.stack([q, q + 0.5, q - 0.25]), 1.0, j * nbl, nb)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, s_r)
+        assert torch.equal(three[0], s_k)
+        for i, d in ((1, 0.5), (2, -0.25)):
+            assert torch.equal(three[i], mapstate.octant_lookup_reference(
+                sh, (q + d).contiguous(), 1.0, j * nbl, nb))
+        assert torch.all(s_k[s_k >= 0] // (nbl * B) == j)
+        merged = torch.maximum(merged, s_k)
+    assert torch.equal(merged, whole)
+    with pytest.raises(ValueError, match="window"):
+        kernels.octant_lookup(keys[:nbl].contiguous(), q, 1.0, nb, nb)
+
+
 def _plane_fit_args(dev, k, nq, offset=False, seed=5):
     """K3's inputs from the plain K1 and K2 over the map of walls.  With
     ``offset`` every per-row tensor is a contiguous view that starts one
@@ -1283,3 +1320,51 @@ def test_batched_replay_matches_single_replays(dev):
         np.testing.assert_array_equal(pair.poses_t[:, b], one.poses_t[:, 0])
         np.testing.assert_array_equal(pair.poses_q[:, b], one.poses_q[:, 0])
     assert counts["gn_solve"] == 2 * 17 and np.isfinite(pair.poses_t).all()
+
+
+def test_mesh_over_every_card(dev):
+    """The fleet over a mesh on every card there is
+    (``parallel.make_mesh()``): four OS1-128 instances with their maps
+    split into M shards (M = 4 where there are four cards, else 2; shard j
+    on card j % cards) give the unsplit fleet's poses and final maps to
+    the bit, K1 launched M times as often; and two rank processes with
+    2-shard maps (rank r's shards on cards 2r, 2r + 1 of four) give its
+    poses to the bit.  On one card the shards and ranks share it; only a
+    machine with several cards moves the candidate rows and the insert's
+    writes between cards."""
+    from superodom_tpu_torch.io.datasets import bench_dataset
+    from superodom_tpu_torch.parallel import (
+        make_mesh,
+        replay_batched,
+        replay_mesh,
+    )
+    from superodom_tpu_torch.pipeline import tree_map, unshard_state
+
+    cfg = ship_config("os1")
+    data = [bench_dataset(12, cfg.sensor.max_points, s)
+            for s in (7, 8, 9, 10)]
+    kernels.reset_counts()
+    whole = replay_batched(cfg, data, chunk=4, device=dev)
+    counts = dict(kernels.launch_counts)
+    M = 4 if torch.cuda.device_count() >= 4 else 2
+    mesh = make_mesh(data=1, model=M)
+    kernels.reset_counts()
+    split = replay_batched(cfg, data, chunk=4, device=mesh.devices[0],
+                           mesh=mesh)
+    assert dict(kernels.launch_counts) == dict(
+        counts, octant_lookup=M * counts["octant_lookup"])
+    assert [str(sh.keys.device) for sh in split.state.surf_map.shards] == \
+        [str(d) for d in mesh.rank_devices(0)]
+    np.testing.assert_array_equal(split.poses_t, whole.poses_t)
+    np.testing.assert_array_equal(split.poses_q, whole.poses_q)
+    host = [tree_map(lambda x: x.cpu(), unshard_state(r.state))
+            for r in (split, whole)]
+    for m in ("surf_map", "edge_map"):
+        for f in ("keys", "pts", "cnt"):
+            assert torch.equal(getattr(getattr(host[0], m), f),
+                               getattr(getattr(host[1], m), f))
+    ranks = replay_mesh(cfg, data, make_mesh(data=2, model=2), chunk=4)
+    np.testing.assert_array_equal(ranks.poses_t, whole.poses_t)
+    np.testing.assert_array_equal(ranks.poses_q, whole.poses_q)
+    assert [r["launches"]["octant_lookup"] for r in ranks.ranks] == \
+        [2 * counts["octant_lookup"]] * 2
