@@ -18,7 +18,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same ``first_small``, repeat runs bit-identical) on each path; K9a
    reduce_candidates and K9b select_reduced on the reference-envelope
    path's warm map (W = 16, k = 5; ``valid`` and every valid lane
-   identical).  Path E (edges): K11a curvature_edges bit for bit on a
+   identical).  K2's gathered mode (the library's ``select_knn``, on no
+   replay path) on the ship path's warm map: its gathered rows with their
+   slot mask and with a lane-granular one, every output identical, and
+   one library ``compute_plane_correspondences`` launching K1, it and K3
+   once each to K3's planes.  Path E (edges): K11a curvature_edges bit for bit on a
    full-width replay scan (its ring all zeros, so the stencil wraps) and
    on a ring-major sweep of a room with poles (128 rings x 1,024
    azimuths); on path E's own warm edge map K1, K2 at k = 10, K9a at
@@ -235,6 +239,7 @@ F32_OPS_PER_S = 67e12
 REPLACES = {
     "octant_lookup": "superodom_tpu/mapstate.py:365",
     "knn_select": "superodom_tpu/mapstate.py:406",
+    "knn_select_gathered": "superodom_tpu/mapstate.py:406",
     "plane_fit": "superodom_tpu/registration.py:212",
     "gn_solve": "superodom_tpu/registration.py:530",
     "normal_system": "superodom_tpu/registration.py:463",
@@ -563,6 +568,10 @@ def phase_kernels(name, cfg, ds, torch, dev):
         # neighbourhoods, mask, points, pose; six outputs; ~450 operations
         # a correspondence (PCA, trigonometric eigensolver, gates, bins)
         bound=bound(nq * k * 17 + nq * 13 + 20 + nq * 37, nq * 450))
+    if name == "ship":
+        results["knn_select_gathered"] = hold_select_gathered(
+            m, cfg.map, reg, pose, pts, mask, res, s_r, queries, out_r,
+            timer, torch)
 
     # K4, n_iters = 0 mode (the final normal system): within 1e-5 of |H|
     a_sq = (3.0 * res).contiguous()
@@ -653,6 +662,63 @@ def phase_kernels(name, cfg, ds, torch, dev):
                                       ref.apply(pts).contiguous(), W, k,
                                       timer, torch))
     return results
+
+
+def hold_select_gathered(m, map_cfg, reg, pose, pts, mask, res, s_r,
+                         queries, fit, timer, torch):
+    """K2's gathered mode (the library's ``select_knn``) on the path's
+    warm map at its shapes: the gathered rows with their slot mask (then
+    also equal to the slot mode's outputs) and with a lane-granular mask,
+    every output bit for bit against its plain version; its launches in
+    one call of the library's ``compute_plane_correspondences`` (counts
+    set to 0 just before), whose normals and offsets must be K3's on the
+    slot mode's neighbours (``fit``)."""
+    from superodom_tpu_torch import kernels, mapstate, registration
+
+    k = reg.plane_knn
+    nq, C = queries.shape[0], m.pts.shape[1] // 3
+    cand, cvalid = mapstate._candidate_rows(m.pts, s_r)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    lanes = (torch.rand(cvalid.shape, generator=g) < 0.67).to(cvalid.device)
+    slot_mode = kernels.knn_select(m.pts, s_r, queries, k)
+    ok = True
+    for label, cv in (("slot mask", cvalid), ("lane mask", cvalid & lanes)):
+        out_k = kernels.knn_select_gathered(cand, cv, queries, k)
+        out_r = mapstate.select_knn_reference(cand, cv, queries, k)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(out_k, out_r)]
+        as_slots = (label == "lane mask" or all(
+            torch.equal(a, b) for a, b in zip(out_k, slot_mode)))
+        log(f"K2 knn_select_gathered ({label}, k = {k}): neighbours, sq, "
+            f"valid, lane equal {same}, equal to the slot mode "
+            f"{as_slots}, {int(out_r[2].sum())} of {out_r[2].numel()} "
+            f"neighbours valid, {int(cv.sum())} of {cv.numel()} lanes set")
+        ok = ok and all(same) and as_slots
+    if not ok:
+        raise SystemExit("K2 knn_select_gathered disagrees with its plain "
+                         "version")
+    kernels.reset_counts()
+    lib = registration.compute_plane_correspondences(m, map_cfg, reg, pose,
+                                                     pts, mask, res)
+    torch.cuda.synchronize()
+    launched = {k_: v for k_, v in kernels.launch_counts.items() if v}
+    log(f"library compute_plane_correspondences: launches {launched}, "
+        f"{int(lib.valid.sum())} valid planes")
+    if launched != {"octant_lookup": 1, "knn_select_gathered": 1,
+                    "plane_fit": 1} or not (
+            torch.equal(lib.normal, fit[0]) and torch.equal(lib.d, fit[1])):
+        raise SystemExit("compute_plane_correspondences did not run K1, "
+                         "K2's gathered mode and K3 to K3's planes")
+    return dict(
+        err=0.0, launches=launched["knn_select_gathered"],
+        ms=timer(lambda: kernels.knn_select_gathered(cand, cvalid, queries,
+                                                     k)),
+        plain_ms=timer(lambda: mapstate.select_knn_reference(
+            cand, cvalid, queries, k)),
+        # the gathered rows and lane mask, the queries; the outputs; 8
+        # operations a candidate distance
+        bound=bound(nq * 8 * 3 * C * 4 + nq * 8 * C + nq * 12
+                    + nq * k * (12 + 4 + 1 + 8), nq * 8 * C * 8))
 
 
 def pole_world_case(cfg, torch, dev, n_edges, n_planes, seed=3):
@@ -1047,6 +1113,8 @@ def expected_launches(cfg, stats):
         "voxel_claim": n * ((cfg.sensor.scan_thin_mode == "voxel") + edges),
         "curvature_edges": n if edges else 0,
         "edge_fit": rounds if edges else 0,
+        # K2's gathered mode serves only the library's select_knn
+        "knn_select_gathered": 0,
     }
 
 
@@ -2664,6 +2732,9 @@ def main(argv=None):
     claim = phase_voxel_claim(
         (("VLP-16", cfg_vlp, ds_vlp), ("OS1-128", cfg, ds)), torch, dev)
     kres["vlp16"]["voxel_claim"] = claim["VLP-16"]
+    # K2's gathered mode runs on no replay path: held at the ship path's
+    # shapes, its launches those of one library call
+    gathered = kres["ship"].pop("knn_select_gathered")
 
     # phases 3 to 6 hold the card's runs against the CPU plain path's,
     # computed meanwhile in one spawned worker process (started after
@@ -2786,6 +2857,22 @@ def main(argv=None):
         **measured(mesh["k1_window"][2]),
         "library_ms": None,
         "by_shards": {M: measured(r) for M, r in mesh["k1_window"].items()},
+    })
+    # K2's gathered mode: launched by the library's correspondence
+    # functions only (0 a scan on every path), held and timed at the ship
+    # path's shapes, its launches those of one compute_plane_correspondences
+    entries.append({
+        "name": "knn_select_gathered",
+        "route": "cuda",
+        "source": "superodom_tpu_torch/csrc/knn_select.cu",
+        "replaces": REPLACES["knn_select_gathered"],
+        "launches": gathered["launches"],
+        "path": "library: registration.compute_plane_correspondences at "
+                "the ship path's shapes (no replay path launches it)",
+        **measured(gathered),
+        "library_ms": None,
+        "launches_per_scan": {p: runs[p][1]["knn_select_gathered"] / len(
+            paths[p][1].scans) for p in paths},
     })
     record = {"card": smi, "kernels": entries, "main_path": runs["ship"][2],
               "paths": {p: runs[p][2] for p in paths},

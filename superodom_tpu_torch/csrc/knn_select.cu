@@ -53,15 +53,35 @@
 // outputs follow at i * Q * k (times 3 for the neighbours).  Each instance
 // computes exactly what a launch on its own inputs computes, and
 // n_inst = 1 is the single launch.
+//
+// Gathered mode (so_knn_select_gathered): the same selection over
+// candidates the caller has already gathered — the JAX package's public
+// select_knn(cand, cvalid, queries, k) (superodom_tpu/mapstate.py:406-429,
+// the removed Pallas kernel's contract).  cand f32[Q,8,3C] holds each
+// query's 8 octant rows contiguously, so it is read as a table of Q*8 rows
+// whose row for (query q, octant o) is q*8 + o; cvalid bool[Q,8C] is a
+// lane mask that need not be constant over an octant's C lanes, so every
+// lane reads its own flag, and a lane whose flag is false has distance BIG
+// (where a slot-mode lane is BIG only when its whole slot is missing).
+// Everything else — the sort, the k rounds, the (distance, lane) order
+// with the lower lane winning a tie, the outputs — is K2's code.  Plain
+// version: mapstate.select_knn_reference.  Only the library's
+// correspondence functions call it; no replay path launches it.  What
+// bounds it: bytes, as K2, but more of them — each query reads its own 8
+// gathered rows (8 x 192 B at C = 16) and 8C mask bytes, shared with no
+// other query, where K2 reads rows that neighbouring queries share in L2.
 #include "common.cuh"
 
 #define KNN_THREADS 128
 
 // PLANAR false (K2): o0 = neighbours [Q,k,3], o1 = sq [Q,k], lane_out set.
 // PLANAR true (K9a): o0, o1, o2 = x, y, z [Q,k]; lane_out unused.
-template <int P, bool VEC, bool PLANAR>
+// GATHERED (with PLANAR false): pts = cand [Q*8, 3C], slots unused, the
+// lane mask cvalid [Q, 8C].
+template <int P, bool VEC, bool PLANAR, bool GATHERED>
 __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
     const float* __restrict__ pts, int C, const int* __restrict__ slots,
+    const unsigned char* __restrict__ cvalid,
     const float* __restrict__ queries, int nq, int k,
     float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
     unsigned char* __restrict__ valid_out, long long* __restrict__ lane_out,
@@ -81,8 +101,13 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
   const int lane = threadIdx.x & 31;
   if (qi >= nq) return;  // uniform per warp
   const int o = lane >> 2, c0 = (lane & 3) * P;
-  const int own = lane < 8 ? slots[qi * 8 + lane] : 0;
-  const int slot = __shfl_sync(0xffffffffu, own, o);
+  int slot;
+  if constexpr (GATHERED) {
+    slot = qi * 8 + o;  // the query's own gathered row of octant o
+  } else {
+    const int own = lane < 8 ? slots[qi * 8 + lane] : 0;
+    slot = __shfl_sync(0xffffffffu, own, o);
+  }
   const float qx = queries[qi * 3 + 0];
   const float qy = queries[qi * 3 + 1];
   const float qz = queries[qi * 3 + 2];
@@ -125,7 +150,9 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
     for (int j = 0; j < P; ++j) {
       if (c0 + j < C) {
         const float dx = x[j] - qx, dy = y[j] - qy, dz = z[j] - qz;
-        const float d = (dx * dx + dy * dy) + dz * dz;
+        float d = (dx * dx + dy * dy) + dz * dz;
+        if constexpr (GATHERED)
+          if (!cvalid[(size_t)qi * 8 * C + o * C + c0 + j]) d = SO_BIG;
         key[j] = ((unsigned long long)__float_as_uint(d) << 32) |
                  (unsigned)(o * C + c0 + j);
       }
@@ -191,24 +218,26 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
   }
 }
 
-template <int P, bool VEC, bool PLANAR>
+template <int P, bool VEC, bool PLANAR, bool GATHERED>
 static void launch_knn(const float* pts, int C, const int* slots,
-                       const float* queries, int nq, int k, float* o0,
-                       float* o1, float* o2, unsigned char* valid,
-                       long long* lane, int n_inst, const long long* istride,
-                       cudaStream_t stream) {
+                       const unsigned char* cvalid, const float* queries,
+                       int nq, int k, float* o0, float* o1, float* o2,
+                       unsigned char* valid, long long* lane, int n_inst,
+                       const long long* istride, cudaStream_t stream) {
   const int per_block = KNN_THREADS / 32;
   const dim3 blocks((unsigned)((nq + per_block - 1) / per_block),
                     (unsigned)n_inst);
-  knn_select_kernel<P, VEC, PLANAR><<<blocks, KNN_THREADS, 0, stream>>>(
-      pts, C, slots, queries, nq, k, o0, o1, o2, valid, lane, istride[0],
-      istride[1], istride[2]);
+  knn_select_kernel<P, VEC, PLANAR, GATHERED>
+      <<<blocks, KNN_THREADS, 0, stream>>>(
+          pts, C, slots, cvalid, queries, nq, k, o0, o1, o2, valid, lane,
+          istride[0], istride[1], istride[2]);
 }
 
 // C in 1..32 (P = ceil(C/4) points a lane), 1 <= k <= min(32, 8*C);
 // istride (host) = {pts, slots, queries} instance strides in elements.
-template <bool PLANAR>
+template <bool PLANAR, bool GATHERED = false>
 static int knn_dispatch(const float* pts, int C, const int* slots,
+                        const unsigned char* cvalid,
                         const float* queries, int nq, int k, float* o0,
                         float* o1, float* o2, unsigned char* valid,
                         long long* lane, int n_inst, const long long* istride,
@@ -223,7 +252,7 @@ static int knn_dispatch(const float* pts, int C, const int* slots,
                      (reinterpret_cast<uintptr_t>(pts) & 15) == 0 &&
                      (istride[0] & 3) == 0;
 #define KNN_GO(P, V) \
-  launch_knn<P, V, PLANAR>(pts, C, slots, queries, nq, k, o0, o1, o2, valid, lane, n_inst, istride, s)
+  launch_knn<P, V, PLANAR, GATHERED>(pts, C, slots, cvalid, queries, nq, k, o0, o1, o2, valid, lane, n_inst, istride, s)
     switch ((C + 3) / 4) {
       case 1: KNN_GO(1, false); break;
       case 2: KNN_GO(2, false); break;
@@ -250,8 +279,24 @@ extern "C" int so_knn_select(const float* pts, int C, const int* slots,
                              float* sq, unsigned char* valid, long long* lane,
                              int n_inst, const long long* istride,
                              void* stream) {
-  return knn_dispatch<false>(pts, C, slots, queries, nq, k, neigh, sq, nullptr,
-                             valid, lane, n_inst, istride, stream);
+  return knn_dispatch<false>(pts, C, slots, nullptr, queries, nq, k, neigh,
+                             sq, nullptr, valid, lane, n_inst, istride,
+                             stream);
+}
+
+// Gathered mode: cand f32[Q,8,3C], cvalid bool[Q,8C], queries f32[Q,3] ->
+// K2's outputs for one instance.
+extern "C" int so_knn_select_gathered(const float* cand, int C,
+                                      const unsigned char* cvalid,
+                                      const float* queries, int nq, int k,
+                                      float* neigh, float* sq,
+                                      unsigned char* valid, long long* lane,
+                                      void* stream) {
+  if ((long long)nq * 8 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long none[3] = {0, 0, 0};
+  return knn_dispatch<false, true>(cand, C, nullptr, cvalid, queries, nq, k,
+                                   neigh, sq, nullptr, valid, lane, 1, none,
+                                   stream);
 }
 
 // K9a: the W nearest candidates as planes x, y, z f32[Q,W], valid bool[Q,W].
@@ -260,6 +305,6 @@ extern "C" int so_reduce_candidates(const float* pts, int C, const int* slots,
                                     float* x, float* y, float* z,
                                     unsigned char* valid, int n_inst,
                                     const long long* istride, void* stream) {
-  return knn_dispatch<true>(pts, C, slots, queries, nq, w, x, y, z, valid,
-                            nullptr, n_inst, istride, stream);
+  return knn_dispatch<true>(pts, C, slots, nullptr, queries, nq, w, x, y, z,
+                            valid, nullptr, n_inst, istride, stream);
 }

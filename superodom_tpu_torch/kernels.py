@@ -23,7 +23,10 @@ makes the batched launch.  The dispatching wrappers
 ``frontend.curvature_edge_extraction``, ``registration.plane_fit``,
 ``registration.edge_fit``, ``registration.normal_system``,
 ``registration.gauss_newton_solve``) call those operators for CUDA
-tensors and send CPU tensors to the plain versions.
+tensors and send CPU tensors to the plain versions.  K2's gathered mode
+(:func:`knn_select_gathered`, counted as ``knn_select_gathered``) serves
+only the library's ``mapstate.select_knn``, which calls it directly: it
+has no instance dimension and no operator, and under vmap it raises.
 """
 
 from __future__ import annotations
@@ -52,7 +55,11 @@ HEADERS = ("common.cuh", "eigh3.cuh")
 KERNELS = ("octant_lookup", "knn_select", "plane_fit", "gn_solve",
            "normal_system", "reduce_candidates", "select_reduced",
            "voxel_claim", "curvature_edges", "edge_fit")
-SOURCE_OF = {"gn_solve": "normal_system", "reduce_candidates": "knn_select"}
+# K2's gathered mode: the library's select_knn over candidates the caller
+# gathered (mapstate.select_knn); counted apart, launched by no replay path
+LIBRARY_KERNELS = ("knn_select_gathered",)
+SOURCE_OF = {"gn_solve": "normal_system", "reduce_candidates": "knn_select",
+             "knn_select_gathered": "knn_select"}
 # --threads 0: the sources compile side by side, one thread a core
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -64,7 +71,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GN_BLOCKS = 8
 GN_MAX_ROW_BYTES = 216 * 1024
 
-launch_counts = {name: 0 for name in KERNELS}
+launch_counts = {name: 0 for name in KERNELS + LIBRARY_KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -143,6 +150,8 @@ def load() -> ctypes.CDLL:
                                 vp, vp, vp, vp, vp, ci, cf, cf, ci,
                                 vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp,
                                 vp]
+    lib.so_knn_select_gathered.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp,
+                                           vp, vp, vp]
     lib.so_reduce_candidates.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp,
                                          vp, ci, vp, vp]
     lib.so_select_reduced.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci, vp, vp,
@@ -152,7 +161,8 @@ def load() -> ctypes.CDLL:
     lib.so_edge_fit.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf, vp, vp,
                                 vp, vp, vp, vp]
     lib.so_launch_floor.argtypes = [vp]
-    for fn in (lib.so_octant_lookup, lib.so_knn_select, lib.so_plane_fit,
+    for fn in (lib.so_octant_lookup, lib.so_knn_select,
+               lib.so_knn_select_gathered, lib.so_plane_fit,
                lib.so_gn_solve, lib.so_reduce_candidates,
                lib.so_select_reduced, lib.so_voxel_claim,
                lib.so_curvature_edges, lib.so_edge_fit, lib.so_launch_floor):
@@ -308,6 +318,33 @@ def knn_select_batched(pts: torch.Tensor, slots: torch.Tensor,
                               _p(neigh), _p(sq), _p(valid), _p(lane), n,
                               strides, _stream(dev))
     _launched("knn_select", rc)
+    return neigh, sq, valid, lane
+
+
+def knn_select_gathered(cand: torch.Tensor, cvalid: torch.Tensor,
+                        queries: torch.Tensor, k: int):
+    """K2's gathered mode on the card: the k nearest of the candidates
+    ``cand`` f32[Q,8,3C] whose lane mask ``cvalid`` bool[Q,8C] is set ->
+    (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k], lane
+    int64[Q,k]) (see csrc/knn_select.cu)."""
+    dev = queries.device
+    nq = queries.shape[0] if queries.dim() == 2 else -1
+    _check("queries", queries, torch.float32, (nq, 3))
+    _check("cand", cand, torch.float32, device=dev)
+    C = cand.shape[-1] // 3 if cand.dim() == 3 else 0
+    _check("cvalid", cvalid, torch.bool, (nq, 8 * C), dev)
+    if tuple(cand.shape) != (nq, 8, 3 * C) or not 1 <= C <= 32 \
+            or not 1 <= k <= min(32, 8 * C) or nq * 8 >= 2 ** 31:
+        raise ValueError(f"knn_select_gathered: unsupported candidates "
+                         f"{tuple(cand.shape)} for {nq} queries, or k {k}")
+    neigh = torch.empty((nq, k, 3), dtype=torch.float32, device=dev)
+    sq = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    valid = torch.empty((nq, k), dtype=torch.bool, device=dev)
+    lane = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    rc = load().so_knn_select_gathered(_p(cand), C, _p(cvalid), _p(queries),
+                                       nq, k, _p(neigh), _p(sq), _p(valid),
+                                       _p(lane), _stream(dev))
+    _launched("knn_select_gathered", rc)
     return neigh, sq, valid, lane
 
 

@@ -17,6 +17,9 @@ Hand-written CUDA kernels carry the read side (``csrc/``):
 * ``knn_select`` (K2) — the k nearest stored points among those 8 slot
   rows, read straight from the point table, ordered by (distance, lane)
   exactly as ``lax.top_k`` orders them.
+* K2's gathered mode — the same selection over candidate rows a caller
+  has gathered (``gather_candidates``) with any lane mask: the library's
+  ``select_knn``, which no replay path calls.
 * ``reduce_candidates`` (K9a) — K2's selection at k = W, materialised as
   planes ``[Q, W]`` once a scan; ``select_reduced`` (K9b) — the k nearest
   among those W lanes, for the ICP rounds after the first
@@ -44,7 +47,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from superodom_tpu_torch import kernel_ops
+from superodom_tpu_torch import kernel_ops, kernels
 from superodom_tpu_torch.config import MapConfig
 from superodom_tpu_torch.ops.voxel import (
     _composite_sort_order,
@@ -333,16 +336,22 @@ def _candidate_rows(pts: torch.Tensor, slots: torch.Tensor):
     return cand, cvalid
 
 
+def cand_planes(cand: torch.Tensor):
+    """Split gathered candidate rows ``cand`` f32[Q,8,3C] into coordinate
+    planes (x, y, z), each [Q, 8C]: candidate lane ``o*C + c`` is point
+    ``c`` of octant row ``o``."""
+    nq, eight, three_c = cand.shape
+    C = three_c // 3
+    return tuple(cand[:, :, a * C:(a + 1) * C].reshape(nq, eight * C)
+                 for a in range(3))
+
+
 def _candidate_planes(pts: torch.Tensor, slots: torch.Tensor):
     """The 8*C candidate lanes of each query's octant slots as coordinate
     planes (x, y, z), each [Q, 8C], and their validity (``gather_candidates``
-    + ``cand_planes``).  Candidate lane ``o*C + c`` is point ``c`` of octant
-    slot ``o``; a missing slot reads row 0 and is not valid."""
+    + ``cand_planes``); a missing slot reads row 0 and is not valid."""
     cand, cvalid = _candidate_rows(pts, slots)
-    nq, C = slots.shape[0], pts.shape[1] // 3
-    planes = tuple(cand[:, :, a * C:(a + 1) * C].reshape(nq, 8 * C)
-                   for a in range(3))
-    return planes, cvalid
+    return cand_planes(cand), cvalid
 
 
 def knn_select_reference(pts: torch.Tensor, slots: torch.Tensor,
@@ -369,6 +378,35 @@ def knn_select(pts: torch.Tensor, slots: torch.Tensor, queries: torch.Tensor,
     if queries.device.type == "cpu":
         return knn_select_reference(pts, slots, queries, k)
     raise ValueError(f"knn_select: unsupported device {queries.device}")
+
+
+def select_knn_reference(cand: torch.Tensor, cvalid: torch.Tensor,
+                         queries: torch.Tensor, k: int):
+    """Plain version of K2's gathered mode: the k nearest of the gathered
+    candidates ``cand`` f32[Q,8,3C] whose lane mask ``cvalid`` bool[Q,8C]
+    is set (any lane may be masked, not only whole octant rows), distance
+    BIG for a masked lane, in (distance, lane) order.  Returns
+    (neighbours f32[Q,k,3], sq f32[Q,k], valid bool[Q,k], lane
+    int64[Q,k])."""
+    near, sq, lane = _nearest_lanes(cand_planes(cand), cvalid, queries, k)
+    return torch.stack(near, dim=-1), sq, sq < BIG * 0.5, lane
+
+
+def select_knn(cand: torch.Tensor, cvalid: torch.Tensor,
+               queries: torch.Tensor, k: int):
+    """Top-k nearest among gathered candidates (the JAX package's
+    ``select_knn``): K2's gathered mode on the card, its plain version
+    :func:`select_knn_reference` on the CPU.  Returns ``(pts f32[Q,k,3],
+    sqdist f32[Q,k], valid bool[Q,k])``."""
+    if queries.is_cuda:
+        out = kernels.knn_select_gathered(cand.contiguous(),
+                                          cvalid.contiguous(),
+                                          queries.contiguous(), k)
+    elif queries.device.type == "cpu":
+        out = select_knn_reference(cand, cvalid, queries, k)
+    else:
+        raise ValueError(f"select_knn: unsupported device {queries.device}")
+    return out[:3]
 
 
 def query_knn(m, cfg: MapConfig, queries: torch.Tensor,

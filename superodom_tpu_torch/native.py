@@ -229,6 +229,16 @@ def synth_ring_time_reference(xyz: np.ndarray, n_scan_lines: int,
     return raw.xyz, raw.t_rel, raw.ring
 
 
+def available() -> bool:
+    """Whether the IMU library builds and loads on this host.  A query
+    only: the IMU buffer and the decoders raise on a failed build."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def voxel_downsample(xyz: np.ndarray, res: float) -> np.ndarray:
     """Per-voxel centroids of ``xyz`` at ``res`` (the prior map's host
     thinning): the native hash grid, or where the library cannot be built

@@ -39,11 +39,14 @@ several cards is exercised only where there are several.
     python -m superodom_tpu_torch.parallel --batch 4 [--scans 40]
         [--data D] [--model M] [--device cuda]
 
-replays the replay benchmark's world (``io.datasets.bench_dataset``,
-OS1-128 ship configuration) in chunks of :data:`CHUNK` scans, the
-instances taking the datasets of seeds 7-10 in turn, and prints one JSON
-line with ``aggregate_scans_per_sec_os1_128_x<B>`` (with a mesh also
-``data``, ``model`` and each rank's devices and peak memory).
+replays ``bench_batch``'s workload — the replay benchmark's world
+(``io.datasets.bench_dataset``, seed 7, OS1-128 ship configuration), one
+dataset broadcast to every instance — in chunks of :data:`CHUNK` scans
+and prints one JSON line with the aggregate scans/s under
+``bench_batch``'s name ``aggregate_scans_per_sec_os1_128_x<B>`` (another
+``--scans`` another name, :func:`fleet_metric`) and ``vs_baseline``
+(against 200 scans/s); with a mesh also ``data``, ``model`` and each
+rank's devices and peak memory.
 """
 
 from __future__ import annotations
@@ -75,6 +78,9 @@ from superodom_tpu_torch.pipeline import (
 from superodom_tpu_torch.runner import OdometryRunner
 
 CHUNK = 10  # scans a chunk (the JAX package's bench_batch)
+BENCH_SCANS = 40  # bench_batch's replay length
+BENCH_SEED = 7  # bench_batch's one dataset
+BASELINE_SCANS_PER_SEC = 200.0  # bench.py's north-star target
 RESULT_WAIT_S = 1.0  # how often replay_mesh looks at its ranks' health
 
 
@@ -443,6 +449,16 @@ def replay_mesh(cfg: PipelineConfig, datasets: Sequence, mesh: Mesh,
             p.join()
 
 
+def fleet_metric(batch: int, scans: int = BENCH_SCANS) -> str:
+    """The CLI's metric name.  Its workload is ``bench_batch``'s: one
+    seed-7 dataset broadcast to all B instances; at ``bench_batch``'s 40
+    scans it carries that function's name,
+    ``aggregate_scans_per_sec_os1_128_x<B>``, and another replay length
+    adds ``_<n>scans``, so that no name stands for two workloads."""
+    name = f"aggregate_scans_per_sec_os1_128_x{batch}"
+    return name if scans == BENCH_SCANS else f"{name}_{scans}scans"
+
+
 def main(argv=None) -> int:
     from superodom_tpu_torch.config import ship_config
     from superodom_tpu_torch.io.datasets import ate_rmse, bench_dataset
@@ -451,7 +467,7 @@ def main(argv=None) -> int:
                                  "of B odometry instances on one device, or "
                                  "over a data x model mesh.")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--scans", type=int, default=40)
+    ap.add_argument("--scans", type=int, default=BENCH_SCANS)
     ap.add_argument("--data", type=int, default=1,
                     help="ranks, one process each, splitting the instances")
     ap.add_argument("--model", type=int, default=1,
@@ -462,11 +478,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = ship_config("os1")
-    data = [bench_dataset(args.scans, cfg.sensor.max_points, seed)
-            for seed in range(7, 7 + min(args.batch, 4))]
-    fleet = [data[i % len(data)] for i in range(args.batch)]
+    fleet = [bench_dataset(args.scans, cfg.sensor.max_points,
+                           BENCH_SEED)] * args.batch
     dev = torch.device(args.device)
-    record = {"metric": f"aggregate_scans_per_sec_os1_128_x{args.batch}"}
+    record = {"metric": fleet_metric(args.batch, args.scans)}
     if args.data == 1 and args.model == 1:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -491,6 +506,7 @@ def main(argv=None) -> int:
     record.update({
         "value": res.aggregate_scans_per_sec,
         "unit": "scans/s",
+        "vs_baseline": res.aggregate_scans_per_sec / BASELINE_SCANS_PER_SEC,
         "device": name,
         "batch": args.batch,
         "scans": args.scans,

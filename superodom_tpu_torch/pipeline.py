@@ -704,6 +704,19 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def make_step_fn(cfg: PipelineConfig) -> Callable:
+    """The step with the configuration closed over (JAX: the ``jax.jit``
+    of it): ``(state, scan, imu, imu_available) -> (state, out)``, with a
+    trailing VioWindow when ``cfg.use_vio_undistortion``."""
+    if cfg.use_vio_undistortion:
+        def step_fn(state, scan, imu, imu_available, vio):
+            return step(cfg, state, scan, imu, imu_available, vio)
+    else:
+        def step_fn(state, scan, imu, imu_available):
+            return step(cfg, state, scan, imu, imu_available)
+    return step_fn
+
+
 def make_chunked_step_fn(cfg: PipelineConfig, high_rate: bool = False
                          ) -> Callable:
     """Replay of a chunk of scans (JAX: ``jax.jit`` of a ``lax.scan``):

@@ -1,5 +1,13 @@
 """Scan-to-map registration (counterpart of ``superodom_tpu.registration``).
 
+The library's correspondence functions under the JAX package's names and
+arguments (:func:`compute_plane_correspondences`,
+:func:`plane_correspondences_from_candidates`,
+:func:`compute_edge_correspondences`,
+:func:`edge_correspondences_from_candidates`) gather the candidate rows
+(K1) and select from them with K2's gathered mode
+(:func:`mapstate.select_knn`); the ICP rounds below do not call them.
+
 Correspondences: the octant slots of every feature are looked up once at
 the predicted pose (K1, :func:`mapstate.candidate_view`); each ICP round
 re-selects the k nearest map points at the current pose (K2,
@@ -44,8 +52,10 @@ from superodom_tpu_torch.mapstate import (
     ReducedCandidates,
     VoxelHashMap,
     candidate_view,
+    gather_candidates,
     knn_select,
     reduce_candidates,
+    select_knn,
     select_knn_reduced,
 )
 from superodom_tpu_torch.ops import invariant as inv
@@ -278,6 +288,35 @@ def _plane_fit(neigh, sq, nvalid, reg: RegistrationConfig, pose: Pose,
                       valid=valid, code=code, obs_bins=obs_bins)
 
 
+def compute_plane_correspondences(surf_map, map_cfg: MapConfig,
+                                  reg: RegistrationConfig, pose: Pose,
+                                  p_body, mask, plane_res) -> PlaneCorrs:
+    """Plane correspondences of every surface feature at ``pose``
+    (ComputePlaneDistanceParameters, LidarSlam.cpp:514-572): the
+    candidates gathered at the features' world points
+    (:func:`mapstate.gather_candidates`, K1), then
+    :func:`plane_correspondences_from_candidates`.  ``surf_map`` may be a
+    :class:`mapstate.ShardedMap`."""
+    cand, cvalid = gather_candidates(surf_map, map_cfg,
+                                     pose.apply(p_body).contiguous())
+    return plane_correspondences_from_candidates(cand, cvalid, reg, pose,
+                                                 p_body, mask, plane_res)
+
+
+def plane_correspondences_from_candidates(cand, cvalid,
+                                          reg: RegistrationConfig,
+                                          pose: Pose, p_body, mask,
+                                          plane_res) -> PlaneCorrs:
+    """Plane correspondences fitted against pre-gathered candidates
+    ``cand`` f32[Q,8,3C] with the lane mask ``cvalid`` bool[Q,8C]: the
+    ``plane_knn`` nearest (:func:`mapstate.select_knn`, K2's gathered
+    mode), then the plane fit (K3)."""
+    w_pt = pose.apply(p_body).contiguous()
+    neigh, sq, nvalid = select_knn(cand, cvalid, w_pt, reg.plane_knn)
+    return _plane_fit(neigh, sq, nvalid, reg, pose, p_body, mask, plane_res,
+                      w_pt)
+
+
 def plane_correspondences_from_reduced(red: ReducedCandidates,
                                        reg: RegistrationConfig, pose: Pose,
                                        p_body, mask, plane_res,
@@ -416,14 +455,38 @@ def _edge_fit(neigh, sq, nvalid, reg: RegistrationConfig, p_body, mask,
                      code=code)
 
 
-def edge_correspondences_from_candidates(pts, slots, reg: RegistrationConfig,
-                                         pose: Pose, p_body, mask, line_res,
-                                         w_pt=None) -> EdgeCorrs:
+def compute_edge_correspondences(edge_map, map_cfg: MapConfig,
+                                 reg: RegistrationConfig, pose: Pose,
+                                 p_body, mask, line_res) -> EdgeCorrs:
+    """Line correspondences of every edge feature at ``pose``
+    (ComputeLineDistanceParameters + the line-inlier selection of
+    nearestKSearchSpecificEdgePoint, LidarSlam.cpp:402-493,
+    LocalMap.h:377-474): the candidates gathered in the edge map (K1), then
+    :func:`edge_correspondences_from_candidates`."""
+    cand, cvalid = gather_candidates(edge_map, map_cfg,
+                                     pose.apply(p_body).contiguous())
+    return edge_correspondences_from_candidates(cand, cvalid, reg, pose,
+                                                p_body, mask, line_res)
+
+
+def edge_correspondences_from_candidates(cand, cvalid,
+                                         reg: RegistrationConfig,
+                                         pose: Pose, p_body, mask,
+                                         line_res) -> EdgeCorrs:
+    """Line correspondences fitted against pre-gathered candidates
+    ``cand`` f32[Q,8,3C] with the lane mask ``cvalid`` bool[Q,8C]: the
+    ``edge_knn`` nearest (K2's gathered mode), then the line fit (K11b)."""
+    w_pt = pose.apply(p_body).contiguous()
+    neigh, sq, nvalid = select_knn(cand, cvalid, w_pt, reg.edge_knn)
+    return _edge_fit(neigh, sq, nvalid, reg, p_body, mask, line_res)
+
+
+def _edge_correspondences_from_slots(pts, slots, reg: RegistrationConfig,
+                                     p_body, mask, line_res,
+                                     w_pt) -> EdgeCorrs:
     """Edge correspondences selected at full width from the octant slots
     ``slots`` of the edge map's point table ``pts`` (K2 at k = edge_knn);
-    ``w_pt`` = the features at ``pose`` where the caller has them."""
-    if w_pt is None:
-        w_pt = pose.apply(p_body).contiguous()
+    ``w_pt`` = the features at the round's pose (the ICP rounds)."""
     neigh, sq, nvalid, _ = knn_select(pts, slots, w_pt, reg.edge_knn)
     return _edge_fit(neigh, sq, nvalid, reg, p_body, mask, line_res)
 
@@ -781,9 +844,9 @@ def icp_register(
                                           reg.plane_knn)
         planes = _plane_fit(neigh, sq, nvalid, reg, pose, surf_pts, surf_mask,
                             rt.plane_res, w_pt)
-        lines = edge_correspondences_from_candidates(
-            edge_tab, e_slots, reg, pose, edge_pts, edge_mask,
-            rt.line_res, e_pt) if use_edges else None
+        lines = _edge_correspondences_from_slots(
+            edge_tab, e_slots, reg, edge_pts, edge_mask, rt.line_res,
+            e_pt) if use_edges else None
         return planes, lines
 
     rounds = torch.arange(max_it, device=dev)

@@ -45,7 +45,7 @@ from superodom_tpu_torch.pipeline import (
     empty_vio_window,
     init_state,
     make_chunked_step_fn,
-    step,
+    make_step_fn,
     tree_map,
 )
 
@@ -82,6 +82,7 @@ class OdometryRunner:
             and np.allclose(cfg.extrinsics.t(), 0.0, atol=1e-12))
         self.step_cfg = (dataclasses.replace(cfg, extrinsics=Extrinsics())
                          if self.condition_imu else cfg)
+        self.step_fn = make_step_fn(self.step_cfg)
         self.state = init_state(self.step_cfg, dtype, self.device)
         self.imu_buf = native.ImuBuffer(
             capacity=1 << 20,
@@ -254,7 +255,7 @@ class OdometryRunner:
 
     def process_scan(self, t_start, xyz, t_rel) -> StepOutput:
         inputs = self._to_device(self._host_inputs(t_start, xyz, t_rel))
-        self.state, out = step(self.step_cfg, self.state, *inputs)
+        self.state, out = self.step_fn(self.state, *inputs)
         self._last_window = inputs[1]
         return out
 
@@ -461,7 +462,7 @@ class OdometryRunner:
         """One discarded step of ``inputs`` (host leaves) on the current
         state, ahead of a timed loop.  The step is pure: the state is
         left as it was."""
-        step(self.step_cfg, self.state, *self._to_device(inputs))
+        self.step_fn(self.state, *self._to_device(inputs))
         self._sync()
 
     def run_dataset_chunked(self, dataset, use_imu: bool = True,
@@ -543,7 +544,7 @@ class OdometryRunner:
         for b in rest:
             t_scan0 = time.perf_counter()
             inp = self._to_device(b)
-            self.state, out = step(self.step_cfg, self.state, *inp)
+            self.state, out = self.step_fn(self.state, *inp)
             self._last_window = inp[1]
             out = to_numpy(out)
             scan_ms = (time.perf_counter() - t_scan0) * 1000.0

@@ -19,6 +19,9 @@ chunked replay repeated at chunk sizes 20 and 4, preloaded and streamed,
 and one chunk against its four steps; a SuperLoc replay (VIO and a
 frozen prior map) repeated the same way; ``query_knn`` and
 ``gather_candidates`` against their CPU composition on a warm ship map;
+K2's gathered mode bit for bit against its plain version (lane-granular
+masks, ties, short rows, its input checks) and the library's
+correspondence functions against the CPU;
 the wrappers' input checks; every entry over three instances through
 its vmap rule, each instance bit for bit its single launch (with one
 tensor shared), the batched launches at n = 1 and at any instance
@@ -1186,6 +1189,236 @@ def test_query_knn_matches_the_cpu_composition(dev):
     for a, b in zip(mapstate.gather_candidates(m, cfg.map, q),
                     mapstate.gather_candidates(m_cpu, cfg.map, q.cpu())):
         assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------- K2's gathered mode, the library
+
+
+def _gathered_both(cand, cvalid, q, k):
+    """K2's gathered mode and its plain version on the same inputs; every
+    output (neighbours, sq, valid, lane) equal to the bit.  Returns the
+    plain outputs."""
+    n = kernels.launch_counts["knn_select_gathered"]
+    out_k = kernels.knn_select_gathered(cand, cvalid, q, k)
+    assert kernels.launch_counts["knn_select_gathered"] == n + 1
+    out_r = mapstate.select_knn_reference(cand, cvalid, q, k)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_r):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return out_r
+
+
+@pytest.mark.parametrize("cap,k,nq", [(16, 5, 333), (16, 10, 2049),
+                                      (24, 10, 31), (32, 5, 1), (4, 12, 97)])
+def test_select_knn_gathered_matches_plain(dev, cap, k, nq):
+    """On a map filled by the insert: the gathered rows with their slot
+    mask (the gathered mode then gives the slot mode's outputs to the
+    bit) and with a lane-granular mask (about a third of the lanes of
+    live slots dropped, not whole octants)."""
+    cfg, m, q = _map(dev, cap, seed=cap + k, nq=nq)
+    slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
+    cand, cvalid = mapstate._candidate_rows(m.pts, slots)
+    out = _gathered_both(cand, cvalid, q, k)
+    for a, b in zip(out, kernels.knn_select(m.pts, slots, q, k)):
+        assert torch.equal(a, b)
+    g = torch.Generator(device="cpu").manual_seed(nq)
+    lanes = (torch.rand(cvalid.shape, generator=g) < 0.67).to(dev)
+    out = _gathered_both(cand, cvalid & lanes, q, k)
+    assert out[2].any()
+
+
+def test_select_knn_gathered_ties_and_short_rows(dev):
+    """Exact ties on an integer grid (the lower lane wins), rows with
+    fewer valid lanes than k and one with none, an empty (BIG) lane of
+    every row left valid, and no query at all."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    nq, C, k = 96, 4, 12
+    q = torch.randint(-4, 4, (nq, 3), generator=g).float()
+    cand = q[:, None, None, :] + torch.randint(-1, 2, (nq, 8, C, 3),
+                                               generator=g).float()
+    cand[:, :, C - 1] = mapstate.BIG
+    cand = cand.permute(0, 1, 3, 2).reshape(nq, 8, 3 * C)
+    cvalid = torch.rand((nq, 8 * C), generator=g) < 0.6
+    cvalid[:8] &= torch.arange(8 * C) < 5
+    cvalid[8] = False
+    cand, cvalid, q = (x.contiguous().to(dev) for x in (cand, cvalid, q))
+    out = _gathered_both(cand, cvalid, q, k)
+    assert (out[1][:, :-1] == out[1][:, 1:]).sum() > nq
+    assert not out[2][:9, 4:].any()
+    _gathered_both(cand[:0].contiguous(), cvalid[:0].contiguous(),
+                   q[:0].contiguous(), k)
+
+
+def test_select_knn_gathered_checks_inputs(dev):
+    """The entry refuses what the kernel does not take, and no launch is
+    counted then; a CUDA tensor reaches the kernel through the library's
+    ``select_knn`` (three outputs, JAX's), and under vmap it raises."""
+    cfg, m, q = _map(dev, 16, seed=9)
+    slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
+    cand, cvalid = mapstate._candidate_rows(m.pts, slots)
+    n = kernels.launch_counts["knn_select_gathered"]
+    for bad in ((cand[:, :, :-3].contiguous(), cvalid, q, 5),
+                (cand, cvalid[:, :-1].contiguous(), q, 5),
+                (cand, cvalid.to(torch.uint8), q, 5),
+                (cand, cvalid, q.t(), 5),
+                (cand, cvalid, q, 33),
+                (cand.cpu(), cvalid, q, 5)):
+        with pytest.raises(ValueError):
+            kernels.knn_select_gathered(*bad)
+    with pytest.raises(RuntimeError, match="without its rule"):
+        torch.func.vmap(lambda c, v, x: kernels.knn_select_gathered(
+            c, v, x, 5))(cand[None], cvalid[None], q[None])
+    assert kernels.launch_counts["knn_select_gathered"] == n
+    got = mapstate.select_knn(cand, cvalid, q, 5)
+    assert len(got) == 3
+    assert kernels.launch_counts["knn_select_gathered"] == n + 1
+    want = mapstate.select_knn(cand.cpu(), cvalid.cpu(), q.cpu(), 5)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def _rows_that_differ(got, want):
+    """bool[M]: the rows in which any of two sets of per-row outputs
+    differ (NaN equal to NaN), on the CPU."""
+    differ = None
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        ne = (a != b) & ~((a != a) & (b != b))
+        ne = ne if ne.dim() == 1 else ne.any(dim=1)
+        differ = ne if differ is None else differ | ne
+    return differ
+
+
+def _hold_corrs(got, fit, near, exact, cpu, cpu_near, tol_fields):
+    """A library function's correspondences ``got`` (on the card, the
+    features' field first) against the plain versions' fit of the same
+    neighbourhoods on the card (``fit``, the fields after the first): the
+    first ``exact`` of them equal to the bit on every row, the rest off
+    the rows at a gate margin (``near``); and against the same function
+    on the CPU (``cpu``): the decisions (validity, codes, bins) equal off
+    the rows at a gate margin of either, the fields ``tol_fields`` within
+    1e-5 where valid there (the CPU's transcendental functions round
+    otherwise)."""
+    near = near.cpu()
+    assert torch.equal(got[0].cpu(), cpu[0])
+    if exact:
+        assert not _rows_that_differ(got[1:1 + exact], fit[:exact]).any()
+    assert not (_rows_that_differ(got[1:], fit) & ~near).any()
+    far = ~(near | cpu_near)
+    for name in got._fields[1:]:
+        a, b = getattr(got, name).cpu(), getattr(cpu, name)
+        if name in tol_fields:
+            ok = far & cpu.valid
+            torch.testing.assert_close(a[ok], b[ok], rtol=0, atol=1e-5)
+        elif a.dtype != torch.float32:
+            assert torch.equal(a[far], b[far]), name
+    return far
+
+
+def test_correspondence_functions_on_the_card(dev):
+    """``compute_plane_correspondences`` (K1, K2's gathered mode, K3) on
+    a warm ship map (20 OS1-128 scans replayed on the card; features near
+    its stored points, seen from a pose of their own) and
+    ``plane_correspondences_from_candidates`` on its candidates;
+    ``compute_edge_correspondences`` and
+    ``edge_correspondences_from_candidates`` (K1, the gathered mode, K11b)
+    on a pole lattice: the launches each makes, the plain versions'
+    composition on the card, and the same function on the CPU."""
+    cfg = ship_config("os1")
+    runner = OdometryRunner(cfg, device=dev)
+    runner.run_dataset(_ship_dataset(20))
+    m = runner.state.surf_map
+    m_cpu = mapstate.VoxelHashMap(*(a.cpu() for a in m))
+    pts, valid = mapstate.extract_points(m)
+    stored = pts[valid]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    idx = torch.randint(0, stored.shape[0], (2048,), generator=g)
+    world = stored[idx.to(dev)] + 0.02 * torch.randn((2048, 3),
+                                                      generator=g).to(dev)
+    pose = Pose(quat_mul(so3_exp(torch.tensor([0.0, 0.0, 0.3], device=dev)),
+                         runner.state.pose.q),
+                runner.state.pose.t + torch.tensor([0.5, -0.2, 0.1],
+                                                   device=dev))
+    p_body = pose.inverse().apply(world).contiguous()
+    mask = torch.arange(p_body.shape[0], device=dev) % 9 != 0
+    res = torch.tensor(0.2, device=dev)
+    reg = cfg.registration
+
+    def on_cpu(pose):
+        return Pose(pose.q.cpu(), pose.t.cpu())
+
+    before = dict(kernels.launch_counts)
+    got = registration.compute_plane_correspondences(m, cfg.map, reg, pose,
+                                                     p_body, mask, res)
+    launched = {k: kernels.launch_counts[k] - before[k] for k in before}
+    assert {k: v for k, v in launched.items() if v} == {
+        "octant_lookup": 1, "knn_select_gathered": 1, "plane_fit": 1}
+    w_pt = pose.apply(p_body).contiguous()
+    cand, cvalid = mapstate.gather_candidates(m, cfg.map, w_pt)
+    neigh, sq, nvalid, _ = mapstate.select_knn_reference(cand, cvalid, w_pt,
+                                                         reg.plane_knn)
+    fit = registration.plane_fit_reference(neigh, sq, nvalid, mask, w_pt,
+                                           pose.q, res)
+    near = registration.gate_margin_lanes(neigh, sq, nvalid, w_pt, pose.q,
+                                          fit[0], fit[1], res)
+    cpu = registration.compute_plane_correspondences(
+        m_cpu, cfg.map, reg, on_cpu(pose), p_body.cpu(), mask.cpu(),
+        res.cpu())
+    w_c = on_cpu(pose).apply(p_body.cpu()).contiguous()
+    nc, sc, vc = mapstate.select_knn(
+        *mapstate.gather_candidates(m_cpu, cfg.map, w_c), w_c,
+        reg.plane_knn)
+    cpu_near = registration.gate_margin_lanes(nc, sc, vc, w_c, pose.q.cpu(),
+                                              cpu.normal, cpu.d, res.cpu())
+    far = _hold_corrs(got, fit, near, 2, cpu, cpu_near, ("normal", "d"))
+    assert far.float().mean() > 0.9
+    assert cpu.valid.sum() > 500 and (cpu.code != 0).sum() > 500
+    again = registration.plane_correspondences_from_candidates(
+        cand, cvalid, reg, pose, p_body, mask, res)
+    assert not _rows_that_differ(again, got).any()
+
+    pose0, _, _, rt, _ = _edge_case(dev, ne=512, npl=64)
+    rng = np.random.default_rng(3)
+    emap_cfg = MapConfig(cell_capacity=16)
+    pole = torch.from_numpy(pole_lattice(rng)).to(dev)
+    em = mapstate.empty_map(emap_cfg, device=dev)
+    for chunk in torch.split(pole, 1000):
+        em = mapstate.insert(em, emap_cfg, chunk.contiguous(),
+                             torch.ones(len(chunk), dtype=torch.bool,
+                                        device=dev),
+                             torch.tensor(0.03, device=dev))
+    e_body = pose0.inverse().apply(pole[::7][:512]).contiguous()
+    e_mask = torch.arange(e_body.shape[0], device=dev) % 13 != 0
+    before = dict(kernels.launch_counts)
+    got = registration.compute_edge_correspondences(
+        em, emap_cfg, reg, pose0, e_body, e_mask, rt.line_res)
+    launched = {k: kernels.launch_counts[k] - before[k] for k in before}
+    assert {k: v for k, v in launched.items() if v} == {
+        "octant_lookup": 1, "knn_select_gathered": 1, "edge_fit": 1}
+    e_w = pose0.apply(e_body).contiguous()
+    cand, cvalid = mapstate.gather_candidates(em, emap_cfg, e_w)
+    margin = (rt.line_res, reg.min_edge_neighbors, reg.edge_max_dist_inlier)
+    neigh, sq, nvalid, _ = mapstate.select_knn_reference(cand, cvalid, e_w,
+                                                         reg.edge_knn)
+    fit = registration.edge_fit_reference(neigh, sq, nvalid, e_mask,
+                                          *margin)
+    near = registration.edge_gate_margin_lanes(neigh, sq, nvalid, *margin)
+    em_cpu = mapstate.VoxelHashMap(*(a.cpu() for a in em))
+    cpu = registration.compute_edge_correspondences(
+        em_cpu, emap_cfg, reg, on_cpu(pose0), e_body.cpu(), e_mask.cpu(),
+        rt.line_res.cpu())
+    e_c = on_cpu(pose0).apply(e_body.cpu()).contiguous()
+    nc, sc, vc = mapstate.select_knn(
+        *mapstate.gather_candidates(em_cpu, emap_cfg, e_c), e_c,
+        reg.edge_knn)
+    cpu_near = registration.edge_gate_margin_lanes(
+        nc, sc, vc, rt.line_res.cpu(), *margin[1:])
+    far = _hold_corrs(got, fit, near, 0, cpu, cpu_near, ("a", "b", "coeff"))
+    assert far.float().mean() > 0.9 and cpu.valid.float().mean() > 0.5
+    again = registration.edge_correspondences_from_candidates(
+        cand, cvalid, reg, pose0, e_body, e_mask, rt.line_res)
+    assert not _rows_that_differ(again, got).any()
 
 
 # ------------------------------------------------- many instances at once
