@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, each of which fails the run (non-zero exit, no result line):
+Phases, each of which fails the run (non-zero exit, no result line),
+each logging its wall seconds as ``phase N: S s`` as it ends (kept in
+``result.json`` ``seconds`` with the total):
 
 0. Requires a CUDA device; prints the card's name and power limit, the
    torch and CUDA versions; builds the hand-written kernels from
@@ -54,15 +56,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. The first scans of each path through the plain PyTorch path on the
    CPU: the GPU trajectory must agree with it.  These CPU replays, and
    phase 4's, run in the worker process of phases 5 and 6 while the card
-   runs phase 2.
+   runs phase 2; phase 5's data follows there while the card runs
+   phases 2 to 4.
 4. The chunked replay (``run_dataset_chunked``: all IMU ingested first,
    every input on the card before the timer, one discarded warm-up step
    of scan 0) over the same datasets: the ship path at chunk = n (the
    replay benchmark's throughput replay), at chunk 16 with
    ``time_chunks`` (its latency percentiles) and at chunk 16 with
-   streamed inputs and the IMU-rate stream; path P at chunk = n and at
-   chunk 16; the Livox default path (``ship_config("livox")``, 24,576
-   points a scan, 4,096 plane rows in K4) at chunk = n.  Each replay's
+   streamed inputs and the IMU-rate stream; path P at chunk = n; the
+   first 32 scans of the Livox default path (``ship_config("livox")``,
+   24,576 points a scan, 4,096 plane rows in K4) at chunk = n.  Each replay's
    launches must equal ``expected_launches`` plus scan 0's once (the
    warm-up), its poses be finite with the ATE below the bar, and the
    replays of a path agree to the bit; the stream's times strictly
@@ -72,23 +75,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. The SuperLoc path at 131,072 points a scan (``ship_config("os1")``
    with each stress case's overrides, the port's copy of the stress
    battery, seed 7): ``vio_corridor`` (SLAM with VIO undistortion and the
-   VIO prior, 170 scans), ``superloc_corridor`` (localization against the
-   frozen corridor prior map, with VIO; per scan and chunked at chunk = n)
-   and ``localization_room`` (the room's prior map from a 0.3 m /
+   VIO prior, the first 100 of 170 scans), ``superloc_corridor`` (localization against the
+   frozen corridor prior map, with VIO; per scan, and its first 60 scans
+   chunked at chunk = n) and ``localization_room`` (the room's prior map from a 0.3 m /
    0.05 rad init offset, 50 scans).  Each run's launches must equal
    ``expected_launches`` (plus scan 0's, chunked), its poses be finite,
    its first scans agree with the CPU plain path, a VIO case run K4 with
    the prior enabled on at least one scan, and the case pass its ATE
    bound, ``check`` and ``post_check`` (the map frozen) -- or, for a case
    the reference fails at this density (REFERENCE_FAILS, C7 in
-   ROADMAP.md), give the CPU plain path's verdicts over the whole replay.
+   ROADMAP.md), give the CPU plain path's verdicts over the same
+   replay.
    K4 with the VIO prior enabled against the plain solve at a corridor
    scan's features on the prior map; checkpoint and resume on the card
    (bit-identical), the prior map saved and loaded back.
 6. Recorded sensors: phase 2's datasets written as rosbag2 recordings
    with the port's ``Rosbag2Writer`` into a temporary directory (each
    cloud recorded 0.12 s after its sweep starts, a 200 Hz IMU topic, a
-   ground-truth odometry topic).  6a: the OS1-128 dataset's 64 scans as
+   ground-truth odometry topic).  6a: the OS1-128 dataset's first 32
+   scans as
    ouster_ros ``PointCloud2`` (48-byte points in the Ouster frame, ns
    times) through ``cli.main(["--bag", ..., "--profile", "os1_128",
    "--ship", "--gt-topic", ...])``; 6b: the same bag streamed message by
@@ -112,15 +117,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    vmapped over the fleet, ICP at a fixed count, the map cadence decided
    per instance on the device; the JAX package's ``bench.bench_batch``).
    7a: every kernel entry through its custom operator's vmap rule at
-   B = 1, 4, 16 and 64 (four datasets of seeds 7-10, each its own warm
-   ship map of 30 scans; instance j on dataset j % 4 at its own perturbed
-   pose, its scan moved for each earlier copy, so that no two instances
-   share their inputs): each instance's outputs equal its single launch
-   bit for bit, one launch serves the fleet (B for the
-   per-instance-loop entries), the first tensor shared by four instances
-   (a stride of 0) too, repeats identical; the device time of the
-   batched launch at each B and its bound.  7b: ``replay_batched(ship_config("os1"))`` over 40 scans in
-   chunks of 10, four instances on the four datasets, against each
+   B = 1, 4, 16 and 64 (four datasets of seeds 7-10, 40 scans each, each
+   its own warm ship map of 30 scans; instance j on dataset j % 4 at its
+   own perturbed pose, its scan moved for each earlier copy, so that no
+   two instances share their inputs): each instance's outputs equal its
+   single launch bit for bit, one launch serves the fleet for every
+   entry, the first tensor shared by four instances (a stride of 0) too,
+   repeats identical; the device time of the batched launch at each B
+   and its bound.  7b: ``replay_batched(ship_config("os1"))`` over the
+   datasets' first 20 scans in chunks of 10, four instances on the four
+   datasets, against each
    dataset's B = 1 replay through the same function: every instance's
    poses within BATCH_AGREE_M, scan by scan; the ATE of each below the
    bar; K1-K4 launched as often as at B = 1.  7c: the same replay at
@@ -132,7 +138,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    instance's ATE.  7d: path V (``ship_config("vlp16")``,
    K10) and path E (path P with edges: K9a, K9b, K10, K11a, K11b on both
    maps) at B = 2 over 24 scans of two datasets, each instance against its
-   B = 1 replay; the per-instance-loop kernels launched B times as often.
+   B = 1 replay, every kernel launched as often as at B = 1.
 
 8. The fleet over a mesh on the one card (``parallel.make_mesh``; ranks
    and shards share the card, a placement that is printed).  8a: K1 with
@@ -145,14 +151,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    pose and the final maps (whole) equal to the unsplit runs' to the bit,
    K1 launched M times as often and every other kernel as often.  8c:
    two rank processes (``replay_mesh``, a ``gloo`` group) at B = 8 over
-   the datasets' first 20 scans with unsplit maps and with M = 2, and the
-   same fleet in one process, each instance's poses equal to the first of
-   its dataset's 7b single replay's to the bit, each rank's launches the
+   phase 7's 20 scans with unsplit maps and with M = 2, and the same
+   fleet in one process, each instance's poses equal to its dataset's 7b
+   single replay's to the bit, each rank's launches the
    one-process fleet's; aggregate scans/s, step p50 /
    p90, each rank's placement and peak memory.
 
 Output: a ``{"kernels": [...]}`` line (each entry with ``batched``: its
-route under vmap and its time at B = 4, 16 and 64; and an
+route under vmap and its time and bound at B = 4, 16 and 64; and an
 ``octant_lookup_window`` entry, K1 with a shard window), the nvidia-smi
 line, then the last line ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
@@ -187,9 +193,14 @@ SUPERLOC_SEED = 7
 # tools/stress_matrix.py --points 131072) fails at this density (C7,
 # ROADMAP.md); each is held to the CPU plain path's verdicts instead
 REFERENCE_FAILS = ("vio_corridor", "superloc_corridor")
-# phase 5's replays: (case, chunked)
-SUPERLOC_RUNS = (("vio_corridor", False), ("superloc_corridor", False),
-                 ("superloc_corridor", True), ("localization_room", False))
+# phase 5's replays: (case, chunked, scans: None for the case's whole
+# length).  vio_corridor replays its first 100 of 170 scans (its VIO
+# prior on at 8 of them, as over all 170), the chunked twin of the
+# per-scan superloc_corridor its first 60 (six with the prior on)
+SUPERLOC_RUNS = (("vio_corridor", False, 100),
+                 ("superloc_corridor", False, None),
+                 ("superloc_corridor", True, 60),
+                 ("localization_room", False, None))
 CPU_WORKER_THREADS = 4  # the CPU plain path's worker, beside the card runs
 CPU_WORKER_TIMEOUT_S = 600
 # phase 6: recorded sensors.  (label, sensor kind, scans) of each bag;
@@ -197,7 +208,7 @@ CPU_WORKER_TIMEOUT_S = 600
 # scans) of 6d's per-scan runs (LIO's CPU run covers every scan: the
 # prediction takes over once the smoother's window fills, at scan 10)
 BAG_SCANS = 32
-BAG_RUNS = (("ouster", "ouster", N_SCANS), ("livox", "livox", BAG_SCANS),
+BAG_RUNS = (("ouster", "ouster", BAG_SCANS), ("livox", "livox", BAG_SCANS),
             ("vlp16", "velodyne", BAG_SCANS))
 BAG_CLI_FLAGS = {"ouster": ["--profile", "os1_128", "--ship"],
                  "livox": ["--profile", "livox_mid360", "--ship"],
@@ -212,12 +223,13 @@ CLOUD_DELAY_S = 0.12  # a cloud is recorded after its 0.1 s sweep
 HR_MIN_RATE = 35.0  # IMU-rate stream samples a second of its span
 HR_MAX_STEP_M = 0.15
 # phase 7: many instances on one card.  The fleet sizes (64:
-# BASELINE.json's fleet), the bench_batch replay (40 scans in chunks of
-# 10) on the datasets of four seeds, each instance within BATCH_AGREE_M of
-# its single-instance replay; 7a's warm maps and its edge rows; 7d's
-# replays of paths V and E
+# BASELINE.json's fleet); bench_batch's datasets (40 scans) of four seeds,
+# the first BATCH_SCANS of them replayed in chunks of 10, each instance
+# within BATCH_AGREE_M of its single-instance replay; 7a's warm maps and
+# its edge rows; 7d's replays of paths V and E
 BATCH_SIZES = (1, 4, 16, 64)
-BATCH_SCANS = 40
+BATCH_DATA_SCANS = 40
+BATCH_SCANS = 20
 BATCH_CHUNK = 10
 BATCH_SEEDS = (7, 8, 9, 10)
 BATCH_AGREE_M = 1e-4
@@ -230,7 +242,6 @@ BATCH_PATH_SCANS = 24
 MESH_SHARDS = (2, 4)
 MESH_RANKS = 2
 MESH_BATCH = 8
-MESH_SCANS = 20  # 8c replays the first 20 of phase 7's 40 scans
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1344,47 +1355,55 @@ def superloc_run(case, cfg, ds, dev, chunked=False, n_scans=None):
     return runner, res, counts, ds
 
 
-def superloc_setup():
-    """Phase 5's cases, configurations and data: {name: (case, config,
-    dataset)} for every SUPERLOC_RUNS case.  The two corridor cases build
-    the same dataset from the same seed; it is built once."""
+def superloc_cases():
+    """Phase 5's cases and configurations: {name: (case, config)} for
+    every SUPERLOC_RUNS case."""
     import dataclasses
-
-    import numpy as np
 
     from superodom_tpu_torch.config import ship_config
     from superodom_tpu_torch.io import scenarios
 
     cases = {c.name: c for c in scenarios.stress_battery(
         points_per_scan=SUPERLOC_POINTS)}
-    corridor = cases["vio_corridor"].build(np.random.default_rng(
-        SUPERLOC_SEED))
-    room = cases["localization_room"].build(np.random.default_rng(
-        SUPERLOC_SEED))
     base = ship_config("os1")
     return {name: (cases[name],
-                   dataclasses.replace(base, **cases[name].cfg_overrides),
-                   room if name == "localization_room" else corridor)
-            for name, _ in SUPERLOC_RUNS}
+                   dataclasses.replace(base, **cases[name].cfg_overrides))
+            for name, _, _ in SUPERLOC_RUNS}
 
 
-def cpu_superloc(n_threads):
+def superloc_data():
+    """Phase 5's data, built in the worker process while the card runs
+    phases 2-4: {case name: dataset}.  The two corridor cases build the
+    same dataset from the same seed; it is built once."""
+    import numpy as np
+
+    built, data = {}, {}
+    for name, (case, _) in superloc_cases().items():
+        world = "room" if name == "localization_room" else "corridor"
+        if world not in built:
+            built[world] = case.build(np.random.default_rng(SUPERLOC_SEED))
+        data[name] = built[world]
+    return data
+
+
+def cpu_superloc(n_threads, data):
     """Phase 5's CPU plain path, in a worker process beside the card's
-    runs: each of SUPERLOC_RUNS replayed on the CPU, whole for a case the
-    reference fails at this density (its verdicts are the card's gate),
-    its first CPU_SCANS scans otherwise.  Returns {label: (first poses_t,
-    first poses_q, verdicts or None, settled ATE or None, seconds)}."""
+    runs: each of SUPERLOC_RUNS replayed on the CPU over ``data``, to its
+    depth for a case the reference fails at this density (its verdicts
+    are the card's gate), its first CPU_SCANS scans otherwise.  Returns
+    {label: (first poses_t, first poses_q, verdicts or None, settled ATE
+    or None, seconds)}."""
     import torch
 
     torch.set_num_threads(n_threads)
-    setup = superloc_setup()
+    cases = superloc_cases()
     out = {}
-    for name, chunked in SUPERLOC_RUNS:
-        case, cfg, ds = setup[name]
+    for name, chunked, depth in SUPERLOC_RUNS:
+        (case, cfg), ds = cases[name], data[name]
         whole = name in REFERENCE_FAILS
         t0 = time.perf_counter()
         runner, res, _, ds_n = superloc_run(
-            case, cfg, ds, "cpu", chunked, n_scans=None if whole
+            case, cfg, ds, "cpu", chunked, n_scans=depth if whole
             else CPU_SCANS)
         ate, verdicts, _ = (case_outcome(case, runner, res, ds_n) if whole
                             else (None, None, None))
@@ -1398,16 +1417,19 @@ def run_label(name, chunked):
     return name + (" chunked" if chunked else "")
 
 
-def phase_superloc_case(case, cfg, ds, dev, out_dir, card, chunked=False):
-    """Phase 5: one SuperLoc case on the card.  Gates here: finite poses;
-    launches equal to ``expected_launches`` (plus scan 0's once,
-    chunked); a VIO case has at least one scan with K4's pose prior
-    enabled (the VIO prediction source).  The gates against the CPU plain
-    path are :func:`superloc_cpu_gates`'."""
+def phase_superloc_case(case, cfg, ds, dev, out_dir, card, chunked=False,
+                        depth=None):
+    """Phase 5: one SuperLoc case on the card, over its first ``depth``
+    scans (None: all).  Gates here: finite poses; launches equal to
+    ``expected_launches`` (plus scan 0's once, chunked); a VIO case has at
+    least one scan with K4's pose prior enabled (the VIO prediction
+    source).  The gates against the CPU plain path are
+    :func:`superloc_cpu_gates`'."""
     import numpy as np
 
     tag = f"phase 5 [{run_label(case.name, chunked)}]"
-    runner, res, counts, _ = superloc_run(case, cfg, ds, dev, chunked)
+    runner, res, counts, ds = superloc_run(case, cfg, ds, dev, chunked,
+                                           n_scans=depth)
     expect = expected_launches(cfg, res.stats
                                + (res.stats[:1] if chunked else []))
     log(f"{tag}: launches {counts}, expected {expect}")
@@ -1630,26 +1652,29 @@ def phase_checkpoint(cfg, ds, torch, dev, out_dir):
     return summary
 
 
-def phase_superloc(pool, torch, dev, out_dir, card):
+def phase_superloc(pool, data_async, torch, dev, out_dir, card):
     """Phase 5: the SuperLoc path on the card at 131,072 points a scan
     (``ship_config("os1")`` with each case's overrides, the stress
-    battery's data, seed 7): ``vio_corridor`` (SLAM with VIO, 170 scans),
-    ``superloc_corridor`` (the frozen corridor prior map with VIO, 170
-    scans, per scan and chunked at chunk = n), ``localization_room`` (the
-    room's prior map from a 0.3 m / 0.05 rad offset, 50 scans); K4 with
-    the VIO prior at the corridor's shapes; checkpoint and resume.  The
-    CPU plain path's replays run meanwhile in the worker process of
-    ``pool`` (CPU_WORKER_THREADS threads)."""
-    cpu_async = pool.apply_async(cpu_superloc, (CPU_WORKER_THREADS,))
+    battery's data, seed 7): ``vio_corridor`` (SLAM with VIO, the first
+    100 of 170 scans), ``superloc_corridor`` (the frozen corridor prior
+    map with VIO, 170 scans per scan, its first 60 chunked at chunk = n),
+    ``localization_room`` (the room's prior map from a 0.3 m / 0.05 rad
+    offset, 50 scans); K4 with the VIO prior at the corridor's shapes;
+    checkpoint and resume.  The data comes from the worker process of
+    ``pool`` (``data_async``, built during phases 2-4), and the CPU plain
+    path's replays run there (CPU_WORKER_THREADS threads) beside the
+    card's."""
     t0 = time.perf_counter()
-    setup = superloc_setup()
-    log(f"phase 5: datasets ({SUPERLOC_POINTS} points a scan) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    cases, data = superloc_cases(), data_async.get(
+        timeout=CPU_WORKER_TIMEOUT_S)
+    log(f"phase 5: waited {time.perf_counter() - t0:.1f} s for the "
+        f"datasets ({SUPERLOC_POINTS} points a scan) from the worker")
+    cpu_async = pool.apply_async(cpu_superloc, (CPU_WORKER_THREADS, data))
     out, card_runs = {}, {}
-    for name, chunked in SUPERLOC_RUNS:
-        case, cfg, ds = setup[name]
+    for name, chunked, depth in SUPERLOC_RUNS:
+        (case, cfg), ds = cases[name], data[name]
         runner, res, summary = phase_superloc_case(
-            case, cfg, ds, dev, out_dir, card, chunked)
+            case, cfg, ds, dev, out_dir, card, chunked, depth)
         out[run_label(name, chunked)] = summary
         card_runs[run_label(name, chunked)] = res
         if name == "superloc_corridor" and not chunked:
@@ -1657,8 +1682,9 @@ def phase_superloc(pool, torch, dev, out_dir, card):
                      if st["pred_source"] == 2)
             k4 = phase_prior_k4(cfg, runner.state.surf_map, ds, i,
                                 res.stats[i - 1]["uncertainty"], torch, dev)
-    case, cfg, ds = setup["vio_corridor"]
-    out["checkpoint"] = phase_checkpoint(cfg, ds, torch, dev, out_dir)
+    out["checkpoint"] = phase_checkpoint(cases["vio_corridor"][1],
+                                         data["vio_corridor"], torch, dev,
+                                         out_dir)
     t0 = time.perf_counter()
     cpu = cpu_async.get(timeout=CPU_WORKER_TIMEOUT_S)
     log(f"phase 5: waited {time.perf_counter() - t0:.1f} s for the CPU "
@@ -2257,12 +2283,11 @@ def phase_batched_kernels(cfg, datasets, torch, dev, card):
             got = got if isinstance(got, tuple) else (got,)
             ok = all(same(g[b], s) for b, i in enumerate(idx)
                      for g, s in zip(got, single[i]))
-            want = B if kernel_ops.ROUTE[name] == "per-instance loop" else 1
             if B == 4:
                 again = torch.func.vmap(op, in_dims=dims)(*args)
                 again = again if isinstance(again, tuple) else (again,)
                 ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
-            checks[B] = ok and launches == want
+            checks[B] = ok and launches == 1
             ms = device_ms(lambda: torch.func.vmap(op, in_dims=dims)(*args),
                            torch)
             nbytes = sum(inst[i][1][name][0] for i in idx)
@@ -2344,26 +2369,23 @@ def replay_fleet(cfg, fleet, torch, dev, tag, card, mesh=None,
     return res, summary
 
 
-def hold_fleet(tag, res, singles, counts, single_counts, loop_kernels=()):
+def hold_fleet(tag, res, singles, counts, single_counts):
     """Each instance's poses within BATCH_AGREE_M of its single-instance
     replay (``singles[b]``), scan by scan; every kernel launched as often
-    as at B = 1 (the per-instance-loop kernels B times as often)."""
+    as at B = 1."""
     import numpy as np
 
-    B = res.poses_t.shape[1]
     dt = max(float(np.abs(res.poses_t[:, b] - s.poses_t[:, 0]).max())
              for b, s in enumerate(singles))
     dq = max(float(np.abs(res.poses_q[:, b] - s.poses_q[:, 0]).max())
              for b, s in enumerate(singles))
-    want = {k: v * (B if k in loop_kernels else 1)
-            for k, v in single_counts.items()}
     log(f"{tag}: each instance against its single replay: max |dt| "
         f"{dt:.3e} m, max |dq| {dq:.3e}; launches {counts}, expected "
-        f"{want}")
+        f"{single_counts}")
     if not (dt <= BATCH_AGREE_M and dq <= BATCH_AGREE_M):
         raise SystemExit(f"{tag}: an instance disagrees with its single "
                          f"replay")
-    if counts != want:
+    if counts != single_counts:
         raise SystemExit(f"{tag}: the batched launches are not the single "
                          f"replay's")
     return {"max_dt_m": dt, "max_dq": dq}
@@ -2380,12 +2402,14 @@ def phase_batched(cfg, torch, dev, card):
     from superodom_tpu_torch.runner import OdometryRunner
 
     t0 = time.perf_counter()
-    data = [make_ship_dataset(cfg, BATCH_SCANS, seed) for seed in BATCH_SEEDS]
+    whole = [make_ship_dataset(cfg, BATCH_DATA_SCANS, seed)
+             for seed in BATCH_SEEDS]
     log(f"phase 7: datasets of seeds {BATCH_SEEDS} in "
         f"{time.perf_counter() - t0:.1f} s")
     out = {}
-    out["kernels"], k1_args = phase_batched_kernels(cfg, data, torch, dev,
+    out["kernels"], k1_args = phase_batched_kernels(cfg, whole, torch, dev,
                                                     card)
+    data = [first_scans(d, BATCH_SCANS) for d in whole]
 
     # 7b: four instances on four datasets against each one's B = 1 replay
     singles = [replay_fleet(cfg, [d], torch, dev,
@@ -2445,9 +2469,7 @@ def phase_batched(cfg, torch, dev, card):
     # 7d: the other kernels under batching, two instances on two datasets
     edges = dataclasses.replace(parity_config("os1"), use_edge_features=True)
     vlp = ship_config("vlp16")
-    for name, c, loop in (("vlp16", vlp, ("voxel_claim",)),
-                          ("edges", edges, ("voxel_claim", "curvature_edges",
-                                            "edge_fit"))):
+    for name, c in (("vlp16", vlp), ("edges", edges)):
         pair = [make_ship_dataset(c, BATCH_PATH_SCANS, seed)
                 for seed in BATCH_SEEDS[:2]]
         one = [replay_fleet(c, [d], torch, dev, f"phase 7d [{name}, B=1, "
@@ -2458,7 +2480,7 @@ def phase_batched(cfg, torch, dev, card):
                                   keep_state=name == "edges")
         out[f"{name}_b2"] = dict(sum2, **hold_fleet(
             f"phase 7d [{name}, B=2]", res2, [o[0] for o in one],
-            sum2["launches"], one[0][1]["launches"], loop))
+            sum2["launches"], one[0][1]["launches"]))
         if name == "edges" and not all(
                 s["edge_stack"] > 0 for st in res2.stats for s in st):
             raise SystemExit("phase 7d: a scan of path E extracted no edge")
@@ -2565,10 +2587,10 @@ def phase_mesh(cfg, keep, torch, dev, card):
     7b's B = 4 ship fleet at M = 2 and 4 and phase 7d's path E pair at
     M = 2, poses and final maps equal to the unsplit runs' to the bit,
     K1 launched M times as often and every other kernel as often.  8c:
-    MESH_RANKS rank processes (``replay_mesh``) at B = MESH_BATCH over the
-    datasets' first MESH_SCANS scans, with unsplit maps and with M = 2,
-    and the same fleet in one process: each instance's poses equal the
-    first of its phase-7b single replay's."""
+    MESH_RANKS rank processes (``replay_mesh``) at B = MESH_BATCH over
+    phase 7b's datasets, with unsplit maps and with M = 2, and the same
+    fleet in one process: each instance's poses equal its phase-7b single
+    replay's."""
     import numpy as np
 
     from superodom_tpu_torch.io.datasets import ate_rmse
@@ -2601,15 +2623,13 @@ def phase_mesh(cfg, keep, torch, dev, card):
             del res
 
     # 8c: rank processes, B = MESH_BATCH, the instances taking the four
-    # datasets' first MESH_SCANS scans in turn; the same fleet in this
-    # process first
-    cut = [first_scans(d, MESH_SCANS) for d in data]
-    fleet = [cut[b % len(cut)] for b in range(MESH_BATCH)]
+    # datasets in turn; the same fleet in this process first
+    fleet = [data[b % len(data)] for b in range(MESH_BATCH)]
     res, out["one process"] = replay_fleet(
         cfg, fleet, torch, dev, f"phase 8c [B={MESH_BATCH}, one process]",
         card)
     hold_exact(f"phase 8c [B={MESH_BATCH}, one process]", res, singles,
-               fleet, cut)
+               fleet, data)
     del res
     for model in (1, 2):
         tag = f"phase 8c [B={MESH_BATCH}, data={MESH_RANKS}, model={model}]"
@@ -2620,7 +2640,7 @@ def phase_mesh(cfg, keep, torch, dev, card):
             + f" ({torch.cuda.device_count()} card(s): ranks and shards "
             f"share them)")
         res = replay_mesh(cfg, fleet, mesh, BATCH_CHUNK)
-        hold_exact(tag, res, singles, fleet, cut)
+        hold_exact(tag, res, singles, fleet, data)
         # a rank's fleet launches as the one-process fleet of the same
         # scans does (the ship path's kernels launch once a step whatever
         # B), K1 once a shard
@@ -2666,6 +2686,7 @@ def measured(r):
 
 
 def main(argv=None):
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
                                                   "chip_smoke"))
@@ -2680,6 +2701,14 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this smoke test runs on the GPU")
     os.makedirs(args.out, exist_ok=True)
+    seconds, t_phase = {}, [t_start]
+
+    def phase_done(label):
+        """Log the wall seconds since the last phase ended."""
+        now = time.perf_counter()
+        seconds[label] = now - t_phase[0]
+        t_phase[0] = now
+        log(f"phase {label}: {seconds[label]:.1f} s")
 
     # phase 0: the card and the build
     smi = nvidia_smi_line()
@@ -2722,6 +2751,7 @@ def main(argv=None):
     path_of = {k: name for name, p in paths.items() for k in p[2]}
     if set(path_of) != set(kernels.KERNELS):
         raise SystemExit("a kernel is reported from no path")
+    phase_done("0")
 
     # phase 1: on every path's own map and features
     floor_ms = device_ms(lambda: kernels.launch_floor(dev), torch)
@@ -2735,6 +2765,7 @@ def main(argv=None):
     # K2's gathered mode runs on no replay path: held at the ship path's
     # shapes, its launches those of one library call
     gathered = kres["ship"].pop("knn_select_gathered")
+    phase_done("1")
 
     # phases 3 to 6 hold the card's runs against the CPU plain path's,
     # computed meanwhile in one spawned worker process (started after
@@ -2743,12 +2774,14 @@ def main(argv=None):
 
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
-        # phases 3 and 4's CPU replays of the first scans
+        # phases 3 and 4's CPU replays of the first scans, then phase 5's
+        # data, while the card runs phases 2 to 4
         cpu_first = pool.apply_async(cpu_first_scans, (
             CPU_WORKER_THREADS,
             [(name, c, first_scans(d, CPU_SCANS), False)
              for name, (c, d, _) in paths.items()]
             + [("ship chunked", cfg, first_scans(ds, CPU_SCANS), True)]))
+        superloc_async = pool.apply_async(superloc_data)
         # phase 2
         runs = {name: phase_main(name, c, d, torch, dev, args.out, smi)
                 for name, (c, d, _) in paths.items()}
@@ -2768,11 +2801,13 @@ def main(argv=None):
                     f"floor {floor_ms * 1e3:.2f} us, "
                     f"{runs[name][1][k] / len(d.scans):.3f} launches a scan "
                     f"({smi})")
+        phase_done("2")
 
         # phase 3
         first = cpu_first.get(timeout=CPU_WORKER_TIMEOUT_S)
         for name in paths:
             phase_cpu_agree(name, first[name], runs[name][0])
+        phase_done("3")
 
         # phase 4: the chunked replay
         n = len(ds.scans)
@@ -2788,12 +2823,12 @@ def main(argv=None):
                 "chunk=16 streamed": dict(chunk=CHUNK, preload=False,
                                           high_rate=True)}),
             "parity": phase_chunked("parity", paths["parity"][0], ds, torch,
-                                    dev, args.out, smi, {
-                                        "chunk=n": dict(chunk=n),
-                                        "chunk=16": dict(chunk=CHUNK,
-                                                         time_chunks=True)}),
-            "livox": phase_chunked("livox", cfg_livox, ds_livox, torch, dev,
-                                   args.out, smi, {"chunk=n": dict(chunk=n)}),
+                                    dev, args.out, smi,
+                                    {"chunk=n": dict(chunk=n)}),
+            "livox": phase_chunked("livox", cfg_livox,
+                                   first_scans(ds_livox, BAG_SCANS), torch,
+                                   dev, args.out, smi,
+                                   {"chunk=n": dict(chunk=BAG_SCANS)}),
         }
         chunked_cpu = phase_chunked_cpu_agree(
             first["ship chunked"], chunked["ship"]["chunk=n"]["result"])
@@ -2807,13 +2842,17 @@ def main(argv=None):
                    f"scans/s, p50 / p90 {ref['p50_step_ms']:.2f} / "
                    f"{ref['p90_step_ms']:.2f} ms, ATE {ref['ate_m']:.6f} m"
                    if ref else ""))
+        phase_done("4")
 
         # phase 5: the SuperLoc path
-        superloc, k4_prior = phase_superloc(pool, torch, dev, args.out, smi)
+        superloc, k4_prior = phase_superloc(pool, superloc_async, torch,
+                                            dev, args.out, smi)
+        phase_done("5")
         # phase 6: recorded sensors
         recorded = phase_recorded(pool, {"ouster": ds, "velodyne": ds_vlp,
                                          "livox": ds_livox}, torch,
                                   args.out, smi)
+        phase_done("6")
     finally:
         pool.terminate()
         pool.join()
@@ -2823,6 +2862,10 @@ def main(argv=None):
     # phase 8: the fleet over a mesh
     mesh = phase_mesh(cfg, keep, torch, dev, smi)
     del keep
+    seconds.update({"7": batched["seconds"], "8": mesh["seconds"],
+                    "total": time.perf_counter() - t_start})
+    log("seconds per phase: " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()}))
 
     # every number but ``launches`` and ``bound_ms`` is of the path under
     # ``path``; ``by_path`` has the same fields for every path that runs
@@ -2843,6 +2886,8 @@ def main(argv=None):
            if k == "gn_solve" else {}),
         "batched": {"route": kernel_ops.ROUTE[k], "us": {
             B: batched["kernels"][k][B]["ms"] * 1e3
+            for B in BATCH_SIZES if B > 1}, "bound_us": {
+            B: batched["kernels"][k][B]["bound_ms"] * 1e3
             for B in BATCH_SIZES if B > 1}},
     } for k in kernels.KERNELS]
     # K1 with a shard window: its launches in phase 8b's fleet whose maps
@@ -2890,7 +2935,8 @@ def main(argv=None):
               "gn_solve_vio_prior_on_corridor": measured(k4_prior),
               "recorded": recorded,
               "batched": batched,
-              "mesh": mesh}
+              "mesh": mesh,
+              "seconds": seconds}
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"kernels": entries}))

@@ -20,6 +20,13 @@
 // one thread a lane, CE_BLOCK lanes a block; the block's lanes and a halo
 // of w on either side (wrapped mod N) are staged once in shared memory by
 // coalesced loads, so each lane's 2w neighbour reads hit shared memory.
+//
+// Instances: one launch serves n_inst independent clouds of N lanes each
+// (the batched step of superodom_tpu_torch/parallel.py).  Instance i is
+// blockIdx.y: its points, rings and mask start istride[0..2] elements
+// after instance 0's (0: shared), its mask out at i * N.  The halo wraps
+// mod N inside the instance's own lanes, as jnp.roll does under jax.vmap:
+// no lane reads a neighbouring instance.  n_inst = 1 is the single launch.
 #include <math.h>
 
 #include "common.cuh"
@@ -27,10 +34,23 @@
 #define CE_BLOCK 256
 #define CE_MAX_HW 16  // the largest half window the staged halo holds
 
+// the instance strides of xyz, ring and mask, in elements
+struct CeStrides {
+  long long s[3];
+};
+
 __global__ void __launch_bounds__(CE_BLOCK) curvature_edges_kernel(
     const float* __restrict__ xyz, const int* __restrict__ ring,
     const unsigned char* __restrict__ mask, int n, int hw, float den_scale,
-    float threshold, float min_range, unsigned char* __restrict__ out) {
+    float threshold, float min_range, unsigned char* __restrict__ out,
+    CeStrides is) {
+  {
+    const unsigned b = blockIdx.y;
+    xyz += b * is.s[0];
+    ring += b * is.s[1];
+    mask += b * is.s[2];
+    out += (size_t)b * n;
+  }
   __shared__ float sx[CE_BLOCK + 2 * CE_MAX_HW][3];
   __shared__ int sr[CE_BLOCK + 2 * CE_MAX_HW];
   __shared__ unsigned char sm[CE_BLOCK + 2 * CE_MAX_HW];
@@ -70,17 +90,23 @@ __global__ void __launch_bounds__(CE_BLOCK) curvature_edges_kernel(
 }
 
 // den_scale = 2 * half_window, rounded to float as the plain version's
-// Python scalar is.
+// Python scalar is.  istride (host) = the instance strides, in elements,
+// of xyz, ring and mask.
 extern "C" int so_curvature_edges(const float* xyz, const int* ring,
                                   const unsigned char* mask, int n, int hw,
                                   float den_scale, float threshold,
                                   float min_range, unsigned char* out,
+                                  int n_inst, const long long* istride,
                                   void* stream) {
-  if (hw < 1 || hw > CE_MAX_HW || n < 0) return (int)cudaErrorInvalidValue;
+  if (hw < 1 || hw > CE_MAX_HW || n < 0 || n_inst < 1 || n_inst > 65535)
+    return (int)cudaErrorInvalidValue;
+  CeStrides is;
+  for (int i = 0; i < 3; ++i) is.s[i] = istride[i];
   if (n > 0) {
-    const int blocks = (n + CE_BLOCK - 1) / CE_BLOCK;
+    const dim3 blocks((unsigned)((n + CE_BLOCK - 1) / CE_BLOCK),
+                      (unsigned)n_inst);
     curvature_edges_kernel<<<blocks, CE_BLOCK, 0, (cudaStream_t)stream>>>(
-        xyz, ring, mask, n, hw, den_scale, threshold, min_range, out);
+        xyz, ring, mask, n, hw, den_scale, threshold, min_range, out, is);
   }
   return (int)cudaGetLastError();
 }

@@ -33,6 +33,14 @@
 // and the 9 line directions in registers, the consensus as one bit mask a
 // candidate line (no runtime indexing), every load at the top; the
 // eigensolver is K3's (csrc/eigh3.cuh).
+//
+// Instances: one launch serves n_inst independent sets of nq
+// correspondences (the batched step of superodom_tpu_torch/parallel.py),
+// flattened: thread g of n_inst * nq is correspondence g % nq of instance
+// g / nq.  An instance's neighbourhoods, distances, validity, mask and
+// line resolution start istride[0..4] elements after instance 0's (0:
+// shared), its outputs at i * nq.  Each instance computes exactly what a
+// launch on its own inputs computes, and n_inst = 1 is the single launch.
 #include <math.h>
 
 #include "common.cuh"
@@ -41,19 +49,37 @@
 #define EF_MAX_K 16
 #define EF_BLOCK 64  // correspondences (= threads) a block
 
+// the instance strides of neigh, sq, nvalid, mask and line_res, in elements
+struct EfStrides {
+  long long s[5];
+};
+
 template <int K>
 __global__ void __launch_bounds__(EF_BLOCK) edge_fit_kernel(
     const float* __restrict__ neigh, const float* __restrict__ sq,
     const unsigned char* __restrict__ nvalid,
     const unsigned char* __restrict__ mask,
-    const float* __restrict__ line_res_p, int nq, int k_rt, int min_nb,
-    float inlier_sq, float* __restrict__ a_out, float* __restrict__ b_out,
-    float* __restrict__ coeff_out, unsigned char* __restrict__ valid_out,
-    int* __restrict__ code_out) {
+    const float* __restrict__ line_res_p, int nq, long long n_all, int k_rt,
+    int min_nb, float inlier_sq, float* __restrict__ a_out,
+    float* __restrict__ b_out, float* __restrict__ coeff_out,
+    unsigned char* __restrict__ valid_out, int* __restrict__ code_out,
+    EfStrides is) {
   constexpr int KM = K > 0 ? K : EF_MAX_K;
   const int k = K > 0 ? K : k_rt;
-  const int m = (int)(blockIdx.x * EF_BLOCK + threadIdx.x);
-  if (m >= nq) return;
+  const long long g = (long long)blockIdx.x * EF_BLOCK + threadIdx.x;
+  if (g >= n_all) return;
+  const long long inst = g / nq;
+  const int m = (int)(g - inst * nq);
+  neigh += inst * is.s[0];
+  sq += inst * is.s[1];
+  nvalid += inst * is.s[2];
+  mask += inst * is.s[3];
+  line_res_p += inst * is.s[4];
+  a_out += 3 * inst * nq;
+  b_out += 3 * inst * nq;
+  coeff_out += inst * nq;
+  valid_out += inst * nq;
+  code_out += inst * nq;
 
   float P[KM][3], sqv[KM];
   bool nv[KM];
@@ -205,33 +231,43 @@ template <int K>
 static void so_launch_edge_fit(const float* neigh, const float* sq,
                                const unsigned char* nvalid,
                                const unsigned char* mask,
-                               const float* line_res, int nq, int k,
-                               int min_nb, float inlier_sq, float* a,
+                               const float* line_res, int nq, int n_inst,
+                               int k, int min_nb, float inlier_sq, float* a,
                                float* b, float* coeff, unsigned char* valid,
-                               int* code, cudaStream_t stream) {
-  const int blocks = (nq + EF_BLOCK - 1) / EF_BLOCK;
+                               int* code, const EfStrides& is,
+                               cudaStream_t stream) {
+  const long long n_all = (long long)n_inst * nq;
+  const unsigned blocks = (unsigned)((n_all + EF_BLOCK - 1) / EF_BLOCK);
   edge_fit_kernel<K><<<blocks, EF_BLOCK, 0, stream>>>(
-      neigh, sq, nvalid, mask, line_res, nq, k, min_nb, inlier_sq, a, b,
-      coeff, valid, code);
+      neigh, sq, nvalid, mask, line_res, nq, n_all, k, min_nb, inlier_sq, a,
+      b, coeff, valid, code, is);
 }
 
 // inlier_sq = edge_max_dist_inlier^2, rounded to float as the plain
-// version's Python scalar is.
+// version's Python scalar is.  istride (host) = the instance strides, in
+// elements, of neigh, sq, nvalid, mask and line_res.
 extern "C" int so_edge_fit(const float* neigh, const float* sq,
                            const unsigned char* nvalid,
                            const unsigned char* mask, const float* line_res,
                            int nq, int k, int min_nb, float inlier_sq,
                            float* a, float* b, float* coeff,
-                           unsigned char* valid, int* code, void* stream) {
-  if (k < 2 || k > EF_MAX_K) return (int)cudaErrorInvalidValue;
+                           unsigned char* valid, int* code, int n_inst,
+                           const long long* istride, void* stream) {
+  if (k < 2 || k > EF_MAX_K || nq < 0 || n_inst < 1 ||
+      (long long)n_inst * nq > (long long)EF_BLOCK * 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  EfStrides is;
+  for (int i = 0; i < 5; ++i) is.s[i] = istride[i];
   if (nq > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (k == 10)
-      so_launch_edge_fit<10>(neigh, sq, nvalid, mask, line_res, nq, k, min_nb,
-                             inlier_sq, a, b, coeff, valid, code, s);
+      so_launch_edge_fit<10>(neigh, sq, nvalid, mask, line_res, nq, n_inst, k,
+                             min_nb, inlier_sq, a, b, coeff, valid, code, is,
+                             s);
     else
-      so_launch_edge_fit<0>(neigh, sq, nvalid, mask, line_res, nq, k, min_nb,
-                            inlier_sq, a, b, coeff, valid, code, s);
+      so_launch_edge_fit<0>(neigh, sq, nvalid, mask, line_res, nq, n_inst, k,
+                            min_nb, inlier_sq, a, b, coeff, valid, code, is,
+                            s);
   }
   return (int)cudaGetLastError();
 }

@@ -12,12 +12,14 @@ stride of 0: one copy shared by every instance), and serves every instance
 with what the rule's route gives:
 
 * instance dimension (one launch): K1 octant_lookup, K2 knn_select, K9a
-  reduce_candidates, K3 plane_fit, K4 gn_solve and normal_system
-  (``kernels.*_batched``, the instance on ``blockIdx.y``);
+  reduce_candidates, K3 plane_fit, K4 gn_solve and normal_system, K10
+  voxel_claim (one claim table an instance), K11a curvature_edges (the
+  stencil wrapping within each instance) (``kernels.*_batched``, the
+  instance on ``blockIdx.y``), and K11b edge_fit
+  (``kernels.edge_fit_batched``, one thread a correspondence of the B x Q,
+  each reading its instance's line resolution);
 * flattened (one launch): K9b select_reduced, whose every input is per
-  query, over the B x Q queries;
-* per-instance loop (B counted launches): K10 voxel_claim, K11a
-  curvature_edges, K11b edge_fit.
+  query, over the B x Q queries.
 
 A rule never hands work to a plain version, and a kernel reached under
 vmap without a rule raises (``kernels._check``).  The dispatching wrappers
@@ -51,9 +53,9 @@ ROUTE = {
     "gn_solve": "instance dimension",
     "normal_system": "instance dimension",
     "select_reduced": "flattened",
-    "voxel_claim": "per-instance loop",
-    "curvature_edges": "per-instance loop",
-    "edge_fit": "per-instance loop",
+    "voxel_claim": "instance dimension",
+    "curvature_edges": "instance dimension",
+    "edge_fit": "instance dimension",
 }
 
 
@@ -75,21 +77,6 @@ def _front(x: Optional[Tensor], dim: Optional[int], n: int):
 def _fronts(info, in_dims, *args):
     return [_front(a, d, info.batch_size) if isinstance(a, Tensor) else a
             for a, d in zip(args, in_dims)]
-
-
-def _each(kernel, info, in_dims, *args):
-    """The per-instance loop: ``kernel`` once for each instance on its own
-    contiguous slices (unbatched arguments as they are); the outputs
-    stacked on a leading instance dimension."""
-    outs = []
-    for i in range(info.batch_size):
-        outs.append(kernel(*(
-            a.select(d, i).contiguous() if d is not None else a
-            for a, d in zip(args, in_dims))))
-    if isinstance(outs[0], Tensor):
-        return torch.stack(outs), 0
-    return (tuple(torch.stack(o) for o in zip(*outs)),
-            (0,) * len(outs[0]))
 
 
 def _group(*xs):
@@ -220,7 +207,7 @@ def _(info, in_dims, *args):
         _group(*a[18:23]), a[23]), (0, 0)
 
 
-# --------------------------------------------- K10, K11a, K11b: per instance
+# ------------------------------------------------------ K10, K11a, K11b
 
 
 @_op("voxel_claim")
@@ -230,8 +217,9 @@ def voxel_claim(xyz: Tensor, mask: Tensor, res: Tensor,
 
 
 @voxel_claim.register_vmap
-def _(info, in_dims, *args):
-    return _each(kernels.voxel_claim, info, in_dims, *args)
+def _(info, in_dims, xyz, mask, res, table_bits):
+    return kernels.voxel_claim_batched(
+        *_fronts(info, in_dims, xyz, mask, res), table_bits), 0
 
 
 @_op("curvature_edges")
@@ -243,8 +231,10 @@ def curvature_edges(xyz: Tensor, ring: Tensor, mask: Tensor,
 
 
 @curvature_edges.register_vmap
-def _(info, in_dims, *args):
-    return _each(kernels.curvature_edges, info, in_dims, *args)
+def _(info, in_dims, xyz, ring, mask, half_window, threshold, min_range):
+    return kernels.curvature_edges_batched(
+        *_fronts(info, in_dims, xyz, ring, mask), half_window, threshold,
+        min_range), 0
 
 
 @_op("edge_fit")
@@ -256,5 +246,8 @@ def edge_fit(neigh: Tensor, sq: Tensor, nvalid: Tensor, mask: Tensor,
 
 
 @edge_fit.register_vmap
-def _(info, in_dims, *args):
-    return _each(kernels.edge_fit, info, in_dims, *args)
+def _(info, in_dims, neigh, sq, nvalid, mask, line_res, min_neighbors,
+      max_dist_inlier):
+    return kernels.edge_fit_batched(
+        *_fronts(info, in_dims, neigh, sq, nvalid, mask, line_res),
+        min_neighbors, max_dist_inlier), (0,) * 5

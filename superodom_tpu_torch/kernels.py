@@ -10,10 +10,11 @@ imports on a machine without either.
 Each launch function below checks device, dtype, shape and contiguity,
 allocates its outputs with ``torch.empty``, launches on the current CUDA
 stream, raises if the launch was refused, and adds one to its entry of
-:data:`launch_counts` — there and nowhere else.  K1-K4 and K9a also take
-n instances in one launch (``*_batched``: every input with a leading
-instance dimension, each instance contiguous, any stride between them);
-the single-instance functions are that launch with n = 1.  They take
+:data:`launch_counts` — there and nowhere else.  K1-K4, K9a, K10, K11a
+and K11b also take n instances in one launch (``*_batched``: every input
+with a leading instance dimension, each instance contiguous, any stride
+between them, 0 for one copy shared by every instance); the
+single-instance functions are that launch with n = 1.  They take
 CUDA tensors only, and raise on a tensor under ``torch.func.vmap``:
 ``kernel_ops`` registers each entry as a custom operator whose vmap rule
 makes the batched launch.  The dispatching wrappers
@@ -156,10 +157,11 @@ def load() -> ctypes.CDLL:
                                          vp, ci, vp, vp]
     lib.so_select_reduced.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci, vp, vp,
                                       vp, vp]
-    lib.so_voxel_claim.argtypes = [vp, vp, ci, vp, ci, vp, vp, vp]
-    lib.so_curvature_edges.argtypes = [vp, vp, vp, ci, ci, cf, cf, cf, vp, vp]
+    lib.so_voxel_claim.argtypes = [vp, vp, ci, vp, ci, vp, vp, ci, vp, vp]
+    lib.so_curvature_edges.argtypes = [vp, vp, vp, ci, ci, cf, cf, cf, vp, ci,
+                                       vp, vp]
     lib.so_edge_fit.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf, vp, vp,
-                                vp, vp, vp, vp]
+                                vp, vp, vp, ci, vp, vp]
     lib.so_launch_floor.argtypes = [vp]
     for fn in (lib.so_octant_lookup, lib.so_knn_select,
                lib.so_knn_select_gathered, lib.so_plane_fit,
@@ -178,15 +180,11 @@ def under_vmap(t: torch.Tensor) -> bool:
     return torch._C._functorch.is_batchedtensor(t)
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
-           device=None) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+def _check_form(name: str, t: torch.Tensor, dtype: torch.dtype,
+                shape=None) -> None:
     if under_vmap(t):
         raise RuntimeError(f"{name}: a kernel was reached under vmap without "
                            f"its rule (kernel_ops registers one per entry)")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -195,19 +193,50 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_device(name: str, t: torch.Tensor, device=None) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
+           device=None) -> None:
+    _check_form(name, t, dtype, shape)
+    _check_device(name, t, device)
+
+
+def _instance0(name: str, t: torch.Tensor, n: int) -> torch.Tensor:
+    """The first of ``t``'s ``n`` instances; raises if it has not ``n``."""
+    if n < 1:
+        raise ValueError(f"{name}: a launch takes at least one instance")
+    if t.dim() == 0 or t.shape[0] != n:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{n} instances")
+    return t[0]
+
+
 def _check_inst(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
                 shape=None, device=None) -> int:
     """Check a per-instance input of ``n`` instances, ``[n, *shape]``, each
     instance contiguous; return the stride between instances in elements
     (0 where one tensor is shared, as ``expand`` gives it)."""
-    if n < 1:
-        raise ValueError(f"{name}: a launch takes at least one instance")
-    _check(name, t[0] if t.dim() and t.shape[0] == n else t, dtype,
-           None if shape is None else shape, device)
-    if t.dim() == 0 or t.shape[0] != n:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{n} instances")
+    _check(name, _instance0(name, t, n), dtype, shape, device)
     return t.stride(0) if n > 1 else 0
+
+
+def _fleet(n: int, *specs) -> ctypes.Array:
+    """Check the inputs of an ``n``-instance launch, each (name, tensor,
+    dtype, per-instance shape): every instance count, dtype, shape and
+    layout first, then that all lie on the first one's card, so that a
+    malformed fleet is refused for its form wherever it lies.  Returns the
+    instance strides."""
+    for name, t, dtype, shape in specs:
+        _check_form(name, _instance0(name, t, n), dtype, shape)
+    dev = specs[0][1].device
+    for name, t, _, _ in specs:
+        _check_device(name, t, dev)
+    return _strides(*(t.stride(0) if n > 1 else 0 for _, t, _, _ in specs))
 
 
 def _strides(*xs) -> ctypes.Array:
@@ -404,17 +433,28 @@ def voxel_claim(xyz: torch.Tensor, mask: torch.Tensor, res: torch.Tensor,
     """K10 on the card: the keep-mask bool[N] of scatter-claim voxel
     thinning over a table of ``1 << table_bits`` slots; ``res`` is a 0-d
     float32 tensor on the card (see csrc/voxel_claim.cu)."""
+    return voxel_claim_batched(xyz[None], mask[None], res[None],
+                               table_bits)[0]
+
+
+def voxel_claim_batched(xyz: torch.Tensor, mask: torch.Tensor,
+                        res: torch.Tensor, table_bits: int) -> torch.Tensor:
+    """K10 over n instances in one launch of each pass: clouds ``[n, N,
+    3]``, masks ``[n, N]``, resolutions ``[n]`` -> bool[n, N], each
+    instance's keep-mask from a claim table of its own (n tables of ``1 <<
+    table_bits`` int32 scratch)."""
     dev = xyz.device
     n = xyz.shape[0]
-    _check("xyz", xyz, torch.float32, (n, 3))
-    _check("mask", mask, torch.bool, (n,), dev)
-    _check("res", res, torch.float32, (), dev)
+    N = xyz.shape[1] if xyz.dim() == 3 else -1
+    strides = _fleet(n, ("xyz", xyz, torch.float32, (N, 3)),
+                     ("mask", mask, torch.bool, (N,)),
+                     ("res", res, torch.float32, ()))
     if not 4 <= table_bits <= 30:
         raise ValueError(f"voxel_claim: table_bits {table_bits} outside 4..30")
-    table = torch.empty((1 << table_bits,), dtype=torch.int32, device=dev)
-    keep = torch.empty((n,), dtype=torch.bool, device=dev)
-    rc = load().so_voxel_claim(_p(xyz), _p(mask), n, _p(res), table_bits,
-                               _p(table), _p(keep), _stream(dev))
+    table = torch.empty((n, 1 << table_bits), dtype=torch.int32, device=dev)
+    keep = torch.empty((n, N), dtype=torch.bool, device=dev)
+    rc = load().so_voxel_claim(_p(xyz), _p(mask), N, _p(res), table_bits,
+                               _p(table), _p(keep), n, strides, _stream(dev))
     _launched("voxel_claim", rc)
     return keep
 
@@ -424,19 +464,31 @@ def curvature_edges(xyz: torch.Tensor, ring: torch.Tensor, mask: torch.Tensor,
                     min_range: float) -> torch.Tensor:
     """K11a on the card: the edge mask bool[N] of the curvature stencil
     (see csrc/curvature_edges.cu)."""
+    return curvature_edges_batched(xyz[None], ring[None], mask[None],
+                                   half_window, threshold, min_range)[0]
+
+
+def curvature_edges_batched(xyz: torch.Tensor, ring: torch.Tensor,
+                            mask: torch.Tensor, half_window: int,
+                            threshold: float,
+                            min_range: float) -> torch.Tensor:
+    """K11a over n instances in one launch: clouds ``[n, N, 3]``, rings and
+    masks ``[n, N]`` -> bool[n, N]; each instance's stencil wraps within
+    its own N lanes."""
     dev = xyz.device
     n = xyz.shape[0]
-    _check("xyz", xyz, torch.float32, (n, 3))
-    _check("ring", ring, torch.int32, (n,), dev)
-    _check("mask", mask, torch.bool, (n,), dev)
+    N = xyz.shape[1] if xyz.dim() == 3 else -1
+    strides = _fleet(n, ("xyz", xyz, torch.float32, (N, 3)),
+                     ("ring", ring, torch.int32, (N,)),
+                     ("mask", mask, torch.bool, (N,)))
     if not 1 <= half_window <= 16:
         raise ValueError(f"curvature_edges: half_window {half_window} "
                          f"outside 1..16")
-    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    out = torch.empty((n, N), dtype=torch.bool, device=dev)
     rc = load().so_curvature_edges(
-        _p(xyz), _p(ring), _p(mask), n, int(half_window),
+        _p(xyz), _p(ring), _p(mask), N, int(half_window),
         float(2.0 * half_window), float(threshold), float(min_range),
-        _p(out), _stream(dev))
+        _p(out), n, strides, _stream(dev))
     _launched("curvature_edges", rc)
     return out
 
@@ -446,24 +498,39 @@ def edge_fit(neigh: torch.Tensor, sq: torch.Tensor, nvalid: torch.Tensor,
              max_dist_inlier: float):
     """K11b on the card: (a f32[M,3], b f32[M,3], coeff f32[M], valid
     bool[M], code i32[M]) (see csrc/edge_fit.cu)."""
+    return tuple(o[0] for o in edge_fit_batched(
+        neigh[None], sq[None], nvalid[None], mask[None], line_res[None],
+        min_neighbors, max_dist_inlier))
+
+
+def edge_fit_batched(neigh: torch.Tensor, sq: torch.Tensor,
+                     nvalid: torch.Tensor, mask: torch.Tensor,
+                     line_res: torch.Tensor, min_neighbors: int,
+                     max_dist_inlier: float):
+    """K11b over n instances in one launch, one thread a correspondence of
+    the n x M: neighbourhoods ``[n, M, k, 3]``, distances and validity
+    ``[n, M, k]``, masks ``[n, M]``, line resolutions ``[n]`` -> K11b's
+    outputs with a leading instance dimension."""
     dev = neigh.device
-    nq, k = sq.shape
-    _check("neigh", neigh, torch.float32, (nq, k, 3))
-    _check("sq", sq, torch.float32, (nq, k), dev)
-    _check("nvalid", nvalid, torch.bool, (nq, k), dev)
-    _check("mask", mask, torch.bool, (nq,), dev)
-    _check("line_res", line_res, torch.float32, (), dev)
+    n = neigh.shape[0]
+    nq, k = sq.shape[1:] if sq.dim() == 3 else (-1, -1)
+    strides = _fleet(n, ("neigh", neigh, torch.float32, (nq, k, 3)),
+                     ("sq", sq, torch.float32, (nq, k)),
+                     ("nvalid", nvalid, torch.bool, (nq, k)),
+                     ("mask", mask, torch.bool, (nq,)),
+                     ("line_res", line_res, torch.float32, ()))
     if not 2 <= k <= 16:
         raise ValueError(f"edge_fit: k={k} outside the kernel's 2..16")
-    a, b = (torch.empty((nq, 3), dtype=torch.float32, device=dev)
+    a, b = (torch.empty((n, nq, 3), dtype=torch.float32, device=dev)
             for _ in range(2))
-    coeff = torch.empty((nq,), dtype=torch.float32, device=dev)
-    valid = torch.empty((nq,), dtype=torch.bool, device=dev)
-    code = torch.empty((nq,), dtype=torch.int32, device=dev)
+    coeff = torch.empty((n, nq), dtype=torch.float32, device=dev)
+    valid = torch.empty((n, nq), dtype=torch.bool, device=dev)
+    code = torch.empty((n, nq), dtype=torch.int32, device=dev)
     rc = load().so_edge_fit(_p(neigh), _p(sq), _p(nvalid), _p(mask),
                             _p(line_res), nq, k, int(min_neighbors),
                             float(max_dist_inlier ** 2), _p(a), _p(b),
-                            _p(coeff), _p(valid), _p(code), _stream(dev))
+                            _p(coeff), _p(valid), _p(code), n, strides,
+                            _stream(dev))
     _launched("edge_fit", rc)
     return a, b, coeff, valid, code
 
@@ -487,14 +554,13 @@ def plane_fit_batched(neigh: torch.Tensor, sq: torch.Tensor,
     dev = neigh.device
     n = neigh.shape[0]
     nq, k = sq.shape[1:] if sq.dim() == 3 else (-1, -1)
-    strides = _strides(
-        _check_inst("neigh", neigh, torch.float32, n, (nq, k, 3)),
-        _check_inst("sq", sq, torch.float32, n, (nq, k), dev),
-        _check_inst("nvalid", nvalid, torch.bool, n, (nq, k), dev),
-        _check_inst("mask", mask, torch.bool, n, (nq,), dev),
-        _check_inst("w_pt", w_pt, torch.float32, n, (nq, 3), dev),
-        _check_inst("q", q, torch.float32, n, (4,), dev),
-        _check_inst("plane_res", plane_res, torch.float32, n, (), dev))
+    strides = _fleet(n, ("neigh", neigh, torch.float32, (nq, k, 3)),
+                     ("sq", sq, torch.float32, (nq, k)),
+                     ("nvalid", nvalid, torch.bool, (nq, k)),
+                     ("mask", mask, torch.bool, (nq,)),
+                     ("w_pt", w_pt, torch.float32, (nq, 3)),
+                     ("q", q, torch.float32, (4,)),
+                     ("plane_res", plane_res, torch.float32, ()))
     if k > 16:
         raise ValueError(f"plane_fit: k={k} exceeds the kernel's 16")
     normal = torch.empty((n, nq, 3), dtype=torch.float32, device=dev)

@@ -5,10 +5,10 @@ checking that its tensors are contiguous, and a batched one that it got
 one leading instance dimension with every instance contiguous), and each
 operator is vmapped over three instances with its first tensor unbatched
 (shared by every instance) and the others batched on a dimension other
-than 0.  Every instance must get its plain version's outputs, from ONE
-launch for the instance-dimension and flattened routes and from one
-launch an instance for the per-instance loop.  On the card the same
-operators make the real launches: tests/test_torch_kernels_cuda.py."""
+than 0.  Every instance must get its plain version's outputs from ONE
+launch, on the instance-dimension and the flattened route alike.  On the
+card the same operators make the real launches:
+tests/test_torch_kernels_cuda.py."""
 
 import collections
 
@@ -180,12 +180,10 @@ def fake_launches(monkeypatch):
         monkeypatch.setattr(kernels, name, f)
 
     for name in ("octant_lookup", "knn_select", "reduce_candidates",
-                 "plane_fit"):
+                 "plane_fit", "voxel_claim", "curvature_edges", "edge_fit"):
         single(name, PLAIN[name])
         batched(f"{name}_batched", PLAIN[name])
-    for name in ("select_reduced", "voxel_claim", "curvature_edges",
-                 "edge_fit"):
-        single(name, PLAIN[name])
+    single("select_reduced", PLAIN["select_reduced"])
 
     def ns_batched(p, n_, d, c, v, q, t, a, edges=None, a_sq_e=None):
         return _ns_plain(p, n_, d, c, v, q, t, a,
@@ -228,8 +226,7 @@ def test_vmap_rule_serves_every_instance(name, fake_launches):
     got = torch.func.vmap(op, in_dims=tuple(dims))(*args)
     assert fake_launches == {
         "instance dimension": {f"{name}_batched": 1},
-        "flattened": {name: 1},
-        "per-instance loop": {name: 3}}[kernel_ops.ROUTE[name]]
+        "flattened": {name: 1}}[kernel_ops.ROUTE[name]]
     got = got if isinstance(got, tuple) else (got,)
     for b, p in enumerate(per):
         want = PLAIN[name](*(per[0][i] if i == shared else x

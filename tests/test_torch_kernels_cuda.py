@@ -25,7 +25,9 @@ correspondence functions against the CPU;
 the wrappers' input checks; every entry over three instances through
 its vmap rule, each instance bit for bit its single launch (with one
 tensor shared), the batched launches at n = 1 and at any instance
-stride, a launch under vmap without its rule refused, and a batched
+stride, the voxel claim with a resolution an instance, the curvature
+stencil wrapping inside each instance, the line fit with a line
+resolution an instance, a launch under vmap without its rule refused, and a batched
 replay of two instances against their single replays.  Needs a CUDA device and nvcc; elsewhere every
 test skips.
 
@@ -1438,9 +1440,9 @@ def _tuple(x):
 def test_batched_entries_match_single_launches(dev, name):
     """Each entry's custom operator vmapped over three instances (three
     maps, poses, clouds): every instance's outputs equal its own single
-    launch to the bit, from one launch (instance dimension, flattened) or
-    one a instance (per-instance loop); again with the first tensor
-    shared by the instances (a stride of 0), and repeated runs equal."""
+    launch to the bit, from one launch (instance dimension, flattened);
+    again with the first tensor shared by the instances (a stride of 0),
+    and repeated runs equal."""
     from test_torch_kernel_ops import kernel_instances
 
     per = [a[name] for a in kernel_instances(dev, 3)]
@@ -1452,8 +1454,7 @@ def test_batched_entries_match_single_launches(dev, name):
     before = kernels.launch_counts[name]
     got = _tuple(torch.func.vmap(op, in_dims=dims)(*args))
     again = _tuple(torch.func.vmap(op, in_dims=dims)(*args))
-    loop = kernel_ops.ROUTE[name] == "per-instance loop"
-    assert kernels.launch_counts[name] == before + 2 * (3 if loop else 1)
+    assert kernels.launch_counts[name] == before + 2
     for b in range(3):
         assert all(_same(g[b], s) for g, s in zip(got, single[b])), b
     assert all(torch.equal(g, a) for g, a in zip(got, again))
@@ -1518,6 +1519,94 @@ def test_batched_launches_take_any_instance_stride(dev):
         qt, s = kernels.gn_solve(*p[:9], 4, 1e-4, p[11:15], 10, 0.005, p[17])
         assert torch.equal(out[b], qt) and bool(small[b]) == bool(s)
         assert torch.equal(ns[b], kernels.normal_system(*p[:5], *p[6:9]))
+
+
+def test_voxel_claim_batched_resolutions_differ(dev):
+    """K10 over four instances in one launch of each pass, at the VLP-16
+    and OS1-128 tables: each its own cloud and resolution (0.1-0.8 m, as
+    LIO's auto voxel size gives instances resolutions of their own), then
+    one cloud shared by the four (a stride of 0) under their four
+    resolutions; every keep-mask is its single launch's to the bit and
+    the plain version's, each instance from its own claim table."""
+    res = torch.tensor([0.1, 0.2, 0.4, 0.8], device=dev)
+    for bits in (17, 19):
+        clouds = [_cloud(dev, 10923, seed=40 + s) for s in range(4)]
+        xyz = torch.stack([c[0] for c in clouds])
+        mask = torch.stack([c[1] for c in clouds])
+        for x in (xyz, xyz[0].expand(4, -1, -1)):
+            n = kernels.launch_counts["voxel_claim"]
+            got = kernels.voxel_claim_batched(x, mask, res, bits)
+            assert kernels.launch_counts["voxel_claim"] == n + 1
+            for b in range(4):
+                one = kernels.voxel_claim(x[b].contiguous(), mask[b], res[b],
+                                          bits)
+                plain = voxel.voxel_downsample_scatter_reference(
+                    x[b], mask[b], res[b], bits)
+                assert torch.equal(got[b], one), (bits, b)
+                assert torch.equal(one, plain), (bits, b)
+            kept = got.sum(dim=1).tolist()
+            assert kept == sorted(kept, reverse=True) and kept[0] > kept[3]
+
+
+def test_curvature_edges_batched_wraps_within_each_instance(dev):
+    """K11a over three instances of 1,024 lanes in one launch, instance b
+    on ring b alone, so that a lane that read into a neighbouring
+    instance would see another ring: with threshold -1 every lane of
+    every instance is an edge, lanes 0..w-1 and N-w..N-1 only through the
+    wrap inside their own instance; at the real threshold each instance
+    equals its single launch and its plain version to the bit, with its
+    own cloud and with one cloud shared (a stride of 0)."""
+    n, w = 1024, 5
+    clouds = [_cloud(dev, n, seed=60 + b)[0] for b in range(3)]
+    xyz = torch.stack(clouds)
+    ring = (torch.arange(3, dtype=torch.int32, device=dev)[:, None]
+            .expand(3, n).contiguous())
+    mask = torch.ones((3, n), dtype=torch.bool, device=dev)
+    every = kernels.curvature_edges_batched(xyz, ring, mask, w, -1.0, 0.0)
+    assert every.all()
+    for x in (xyz, xyz[0].expand(3, -1, -1)):
+        before = kernels.launch_counts["curvature_edges"]
+        got = kernels.curvature_edges_batched(x, ring, mask, w, 0.2, 0.5)
+        assert kernels.launch_counts["curvature_edges"] == before + 1
+        for b in range(3):
+            one = kernels.curvature_edges(x[b].contiguous(), ring[b],
+                                          mask[b], w, 0.2, 0.5)
+            plain = frontend.curvature_edge_extraction_reference(
+                x[b], ring[b], mask[b], w, 0.2, 0.5)
+            assert torch.equal(got[b], one) and torch.equal(one, plain), b
+            assert got[b, :w].any() or got[b, -w:].any()
+
+
+def test_edge_fit_batched_line_res_per_instance(dev):
+    """K11b over three instances sharing one set of 512 line
+    correspondences (a stride of 0), each with its own line resolution:
+    the median row's k-th distance / 3, which puts rows at the distance
+    gate's margin, and half and twice that; one launch over the 3 x 512
+    rows gives each instance its single launch's bits, the plain
+    version's off the gate margins, and no more valid lines at a smaller
+    resolution."""
+    reg = registration.RegistrationConfig()
+    *_, (neigh, sq, nvalid, mask) = _edge_case(dev)
+    margin = float(sq[:, -1].median()) / 3.0
+    line_res = torch.tensor([0.5 * margin, margin, 2.0 * margin],
+                            device=dev)
+    knobs = (reg.min_edge_neighbors, reg.edge_max_dist_inlier)
+    n = kernels.launch_counts["edge_fit"]
+    got = kernels.edge_fit_batched(
+        *(x.expand((3,) + x.shape) for x in (neigh, sq, nvalid, mask)),
+        line_res, *knobs)
+    assert kernels.launch_counts["edge_fit"] == n + 1
+    for b in range(3):
+        one = kernels.edge_fit(neigh, sq, nvalid, mask, line_res[b], *knobs)
+        assert all(_same(g[b], o) for g, o in zip(got, one)), b
+        plain = registration.edge_fit_reference(neigh, sq, nvalid, mask,
+                                                line_res[b], *knobs)
+        near = registration.edge_gate_margin_lanes(neigh, sq, nvalid,
+                                                   line_res[b], *knobs)
+        assert all(_same(g[b][~near], p[~near])
+                   for g, p in zip(got, plain)), b
+    valid = got[3].sum(dim=1).tolist()
+    assert valid[0] <= valid[1] <= valid[2] and valid[0] < valid[2]
 
 
 def test_a_kernel_under_vmap_without_its_rule_raises(dev):
