@@ -273,33 +273,6 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, torch, inner=20, reps=50) -> float:
-    """Median device time of one call of ``fn``: ``inner`` calls captured
-    in one CUDA graph, replayed ``reps`` times between CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        graph.replay()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / inner)
-    return statistics.median(times)
-
-
 def host_us_in_turns(fns, torch, reps=HOST_REPS):
     """Median host wall time (us) of each of ``fns`` (name -> callable),
     each call ending in ``torch.cuda.synchronize()``; the calls alternate
@@ -510,9 +483,7 @@ def phase_kernels(name, cfg, ds, torch, dev):
     from superodom_tpu_torch.config import RuntimeParams
     from superodom_tpu_torch.geometry import Pose, quat_mul, so3_exp
     from superodom_tpu_torch.runner import OdometryRunner
-
-    def timer(fn):
-        return device_ms(fn, torch)
+    from superodom_tpu_torch.utils import device_ms as timer
 
     sensor, reg = cfg.sensor, cfg.registration
     res = torch.full((), sensor.default_plane_res, device=dev)
@@ -821,9 +792,7 @@ def phase_edges(cfg, ds, torch, dev):
     from superodom_tpu_torch.io.datasets import ring_sweep
     from superodom_tpu_torch.ops import voxel
     from superodom_tpu_torch.runner import OdometryRunner
-
-    def timer(fn):
-        return device_ms(fn, torch)
+    from superodom_tpu_torch.utils import device_ms as timer
 
     sensor, reg = cfg.sensor, cfg.registration
     line_res = torch.full((), sensor.default_line_res, device=dev)
@@ -932,8 +901,9 @@ def phase_edges(cfg, ds, torch, dev):
     results.update(hold_reduce_select(
         m, s_r, queries, Pose(gt.q, gt.t + 0.01).apply(pts).contiguous(), W,
         k, timer, torch, " [edge map]"))
-    hold_edge_fit(nr, sr, vr, keep, line_res, reg, timer, torch,
-                  "path E's edge map")
+    # timed here too, kept apart from the pole lattice's kernels-line entry
+    results["edge_fit_edge_map"] = hold_edge_fit(
+        nr, sr, vr, keep, line_res, reg, timer, torch, "path E's edge map")[1]
 
     # K11b and K4 on a pole lattice (lines) in a walled room (planes):
     # 512 line and 2,048 plane correspondences at path E's shapes
@@ -1042,6 +1012,7 @@ def phase_voxel_claim(cases, torch, dev):
     from superodom_tpu_torch import frontend, kernels
     from superodom_tpu_torch.ops import voxel
     from superodom_tpu_torch.runner import OdometryRunner
+    from superodom_tpu_torch.utils import device_ms
 
     results = {}
     for label, cfg, ds in cases:
@@ -1083,11 +1054,10 @@ def phase_voxel_claim(cases, torch, dev):
                              "version")
         r = dict(
             err=float(differ),
-            ms=device_ms(lambda: kernels.voxel_claim(xyz, gate, res, bits),
-                         torch),
+            ms=device_ms(lambda: kernels.voxel_claim(xyz, gate, res, bits)),
             plain_ms=device_ms(
                 lambda: voxel.voxel_downsample_scatter_reference(
-                    xyz, gate, res, bits), torch),
+                    xyz, gate, res, bits)),
             # points, mask, the resolution; the keep-mask (the table is
             # scratch); ~40 integer operations and 3 divisions a lane,
             # held against the float32 rate
@@ -1512,6 +1482,7 @@ def phase_prior_k4(cfg, m, ds, i, uncertainty, torch, dev):
     from superodom_tpu_torch.geometry import Pose
     from superodom_tpu_torch.pipeline import _vio_information
     from superodom_tpu_torch.runner import OdometryRunner
+    from superodom_tpu_torch.utils import device_ms
 
     sensor, reg = cfg.sensor, cfg.registration
     res = torch.full((), sensor.default_plane_res, device=dev)
@@ -1570,10 +1541,10 @@ def phase_prior_k4(cfg, m, ds, i, uncertainty, torch, dev):
         err = max(err, dt, dq)
         if not hold:  # the main path's mode past warm-up
             out = dict(
-                err=err, ms=device_ms(lambda: kernels.gn_solve(*gn), torch),
+                err=err, ms=device_ms(lambda: kernels.gn_solve(*gn)),
                 plain_ms=device_ms(
                     lambda: registration.gauss_newton_solve_reference(
-                        *solve_args, **kw), torch),
+                        *solve_args, **kw)),
                 bound=bound(nq * 37 + 32 + 53 + 29, n_it * (nq * 124 + 600)))
     out["err"] = err
     return out
@@ -2262,6 +2233,7 @@ def phase_batched_kernels(cfg, datasets, torch, dev, card):
     launches on it; repeat runs; and the device time of one batched
     launch at every fleet size."""
     from superodom_tpu_torch import kernel_ops, kernels
+    from superodom_tpu_torch.utils import device_ms
 
     t0 = time.perf_counter()
     inst = batched_instances(cfg, datasets, max(BATCH_SIZES), torch, dev)
@@ -2288,8 +2260,7 @@ def phase_batched_kernels(cfg, datasets, torch, dev, card):
                 again = again if isinstance(again, tuple) else (again,)
                 ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
             checks[B] = ok and launches == 1
-            ms = device_ms(lambda: torch.func.vmap(op, in_dims=dims)(*args),
-                           torch)
+            ms = device_ms(lambda: torch.func.vmap(op, in_dims=dims)(*args))
             nbytes = sum(inst[i][1][name][0] for i in idx)
             ops = sum(inst[i][1][name][1] for i in idx)
             b_ms, b_by = bound(nbytes, ops)
@@ -2513,6 +2484,7 @@ def phase_k1_window(k1_args, torch, card):
     import functools
 
     from superodom_tpu_torch import kernels, mapstate
+    from superodom_tpu_torch.utils import device_ms
 
     keys, q, cs = k1_args
     nb, B = keys.shape
@@ -2540,9 +2512,9 @@ def phase_k1_window(k1_args, torch, card):
         out[M] = dict(
             err=float((merged - whole_r).abs().max()),
             ms=device_ms(lambda: kernels.octant_lookup(
-                shards[0], q, cs, 0, nb), torch),
+                shards[0], q, cs, 0, nb)),
             plain_ms=device_ms(lambda: mapstate.octant_lookup_reference(
-                shards[0], q, cs, 0, nb), torch),
+                shards[0], q, cs, 0, nb)),
             # queries, the window's touched rows, the slot ids; the cell
             # arithmetic, and the hash of every probe and B compares of
             # the probes inside the window
@@ -2718,6 +2690,7 @@ def main(argv=None):
 
     from superodom_tpu_torch import kernel_ops, kernels
     from superodom_tpu_torch.config import parity_config, ship_config
+    from superodom_tpu_torch.utils import device_ms
 
     kernels.build(verbose=True)
     log(f"phase 0: built {len(kernels.SOURCES)} sources in "
@@ -2754,7 +2727,7 @@ def main(argv=None):
     phase_done("0")
 
     # phase 1: on every path's own map and features
-    floor_ms = device_ms(lambda: kernels.launch_floor(dev), torch)
+    floor_ms = device_ms(lambda: kernels.launch_floor(dev))
     log(f"launch floor (empty kernel, same harness): {floor_ms * 1e3:.2f} us")
     kres = {name: (phase_edges(c, d, torch, dev) if c.use_edge_features
                    else phase_kernels(name, c, d, torch, dev))
@@ -2765,6 +2738,13 @@ def main(argv=None):
     # K2's gathered mode runs on no replay path: held at the ship path's
     # shapes, its launches those of one library call
     gathered = kres["ship"].pop("knn_select_gathered")
+    # K11b on path E's edge map (its kernels-line entry is the pole
+    # lattice's, where most lines are valid)
+    edge_map_fit = kres["edges"].pop("edge_fit_edge_map")
+    log(f"  edge_fit [edges, path E's edge map]: kernel "
+        f"{edge_map_fit['ms'] * 1e3:.2f} us, plain "
+        f"{edge_map_fit['plain_ms'] * 1e3:.2f} us, bound "
+        f"{edge_map_fit['bound'][0] * 1e3:.4f} us ({smi})")
     phase_done("1")
 
     # phases 3 to 6 hold the card's runs against the CPU plain path's,
@@ -2923,6 +2903,7 @@ def main(argv=None):
               "paths": {p: runs[p][2] for p in paths},
               "launch_floor_ms": floor_ms,
               "voxel_claim_os1_128": measured(claim["OS1-128"]),
+              "edge_fit_edge_map": measured(edge_map_fit),
               "gn_solve_host_us": {p: kres[p]["gn_solve"]["host_us"]
                                    for p in paths
                                    if "host_us" in kres[p]["gn_solve"]},

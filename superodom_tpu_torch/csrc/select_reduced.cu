@@ -16,69 +16,85 @@
 // What bounds it on an H100: the launch.  A call reads Q*W*13 bytes
 // (2,048 x 16: 0.43 MB, written by K9a just before and still in L2) and
 // does ~10 operations a candidate; both bounds are a small fraction of a
-// microsecond, below the empty-kernel floor.  So the design is the simplest
-// that keeps the chain short: one warp a query (W <= 32), lane j holds
-// candidate j (the row of W floats is one coalesced load a plane), k rounds
-// of two hardware warp minima (redux.sync) over packed (distance, lane)
-// keys as in K2, the winners' coordinates fetched by shuffle, lanes 0..k-1
-// write together.
+// microsecond, below the empty-kernel floor.  What is left to shorten is
+// the chain of dependent steps after the loads.
+//
+// Design: selection by rank.  A group of G lanes serves one query (G = 16,
+// two queries a warp, when W <= 16; else G = 32); lane j holds candidate j
+// and its key (distance bits, j).  Its rank is the number of the query's
+// keys below its own, counted from the W distance bits that W independent
+// shuffles fetch (the lane half of a key is the shuffle's source lane).
+// The comparison is unsigned on the bits, which orders NaN after BIG as
+// the earlier design's k rounds of warp minima did.  The keys are distinct,
+// so the ranks are a permutation of 0..W-1, and the lane of rank r < k
+// writes its own point, distance and validity to output slot r: slot r
+// holds the r-th smallest key, what round r of the minima picked.
 #include "common.cuh"
 
 #define SR_THREADS 128
 
+template <int G>
 __global__ void __launch_bounds__(SR_THREADS) select_reduced_kernel(
     const float* __restrict__ rx, const float* __restrict__ ry,
     const float* __restrict__ rz, const unsigned char* __restrict__ rvalid,
     int W, const float* __restrict__ queries, int nq, int k,
     float* __restrict__ neigh, float* __restrict__ sq_out,
     unsigned char* __restrict__ valid_out) {
-  const int qi = blockIdx.x * (SR_THREADS / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (qi >= nq) return;  // uniform per warp
+  const int lane32 = threadIdx.x & 31;
+  const int lane = lane32 & (G - 1);
+  const int qi = (blockIdx.x * (SR_THREADS / 32) + (threadIdx.x >> 5)) *
+                     (32 / G) +
+                 lane32 / G;
+  if (qi >= nq) return;  // uniform per group
+  const unsigned gmask = G == 32 ? 0xffffffffu : 0xffffu << (lane32 & 16);
+  const float qx = queries[qi * 3 + 0], qy = queries[qi * 3 + 1],
+              qz = queries[qi * 3 + 2];
   float x = 0.0f, y = 0.0f, z = 0.0f;
-  unsigned long long key = ~0ull;  // no candidate: never wins
+  unsigned d = 0xffffffffu;  // no candidate: compared by no lane
   if (lane < W) {
     const size_t at = (size_t)qi * W + lane;
     x = rx[at];
     y = ry[at];
     z = rz[at];
-    float d = SO_BIG;
+    float dist = SO_BIG;
     if (rvalid[at]) {
-      const float dx = x - queries[qi * 3 + 0];
-      const float dy = y - queries[qi * 3 + 1];
-      const float dz = z - queries[qi * 3 + 2];
-      d = (dx * dx + dy * dy) + dz * dz;
+      const float dx = x - qx, dy = y - qy, dz = z - qz;
+      dist = (dx * dx + dy * dy) + dz * dz;
     }
-    key = ((unsigned long long)__float_as_uint(d) << 32) | (unsigned)lane;
+    d = __float_as_uint(dist);
   }
 
-  // k rounds over the lanes; lane r keeps round r's winner
-  unsigned win_d = 0, win_i = 0;
-  for (int r = 0; r < k; ++r) {
-    const unsigned hd = (unsigned)(key >> 32);
-    const unsigned hi = (unsigned)key;
-    const unsigned dmin = __reduce_min_sync(0xffffffffu, hd);
-    const unsigned imin =
-        __reduce_min_sync(0xffffffffu, hd == dmin ? hi : 0xffffffffu);
-    if (lane == r) {
-      win_d = dmin;
-      win_i = imin;
-    }
-    if (hi == imin) key = ~0ull;  // the winner leaves
+  // the rank of key (d, lane) among the query's W keys
+  int rank = 0;
+#pragma unroll 4
+  for (int i = 0; i < W; ++i) {
+    const unsigned di = __shfl_sync(gmask, d, i, G);
+    rank += (di < d || (di == d && i < lane)) ? 1 : 0;
   }
 
-  const float px = __shfl_sync(0xffffffffu, x, (int)(win_i & 31u));
-  const float py = __shfl_sync(0xffffffffu, y, (int)(win_i & 31u));
-  const float pz = __shfl_sync(0xffffffffu, z, (int)(win_i & 31u));
-  if (lane < k) {
-    const size_t out = (size_t)qi * k + lane;
-    neigh[out * 3 + 0] = px;
-    neigh[out * 3 + 1] = py;
-    neigh[out * 3 + 2] = pz;
-    const float d = __uint_as_float(win_d);
-    sq_out[out] = d;
-    valid_out[out] = d < SO_BIG * 0.5f;
+  if (lane < W && rank < k) {
+    const size_t out = (size_t)qi * k + rank;
+    neigh[out * 3 + 0] = x;
+    neigh[out * 3 + 1] = y;
+    neigh[out * 3 + 2] = z;
+    const float dist = __uint_as_float(d);
+    sq_out[out] = dist;
+    valid_out[out] = dist < SO_BIG * 0.5f;
   }
+}
+
+template <int G>
+static void so_launch_select_reduced(const float* rx, const float* ry,
+                                     const float* rz,
+                                     const unsigned char* rvalid, int W,
+                                     const float* queries, int nq, int k,
+                                     float* neigh, float* sq,
+                                     unsigned char* valid,
+                                     cudaStream_t stream) {
+  const int per_block = (SR_THREADS / 32) * (32 / G);
+  select_reduced_kernel<G><<<(nq + per_block - 1) / per_block, SR_THREADS, 0,
+                             stream>>>(rx, ry, rz, rvalid, W, queries, nq, k,
+                                       neigh, sq, valid);
 }
 
 // 1 <= k <= W <= 32.
@@ -89,10 +105,13 @@ extern "C" int so_select_reduced(const float* rx, const float* ry,
                                  void* stream) {
   if (W < 1 || W > 32 || k < 1 || k > W) return (int)cudaErrorInvalidValue;
   if (nq > 0) {
-    const int per_block = SR_THREADS / 32;
-    select_reduced_kernel<<<(nq + per_block - 1) / per_block, SR_THREADS, 0,
-                            (cudaStream_t)stream>>>(
-        rx, ry, rz, rvalid, W, queries, nq, k, neigh, sq, valid);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (W <= 16)
+      so_launch_select_reduced<16>(rx, ry, rz, rvalid, W, queries, nq, k,
+                                   neigh, sq, valid, s);
+    else
+      so_launch_select_reduced<32>(rx, ry, rz, rvalid, W, queries, nq, k,
+                                   neigh, sq, valid, s);
   }
   return (int)cudaGetLastError();
 }

@@ -507,8 +507,8 @@ def edge_fit_batched(neigh: torch.Tensor, sq: torch.Tensor,
                      nvalid: torch.Tensor, mask: torch.Tensor,
                      line_res: torch.Tensor, min_neighbors: int,
                      max_dist_inlier: float):
-    """K11b over n instances in one launch, one thread a correspondence of
-    the n x M: neighbourhoods ``[n, M, k, 3]``, distances and validity
+    """K11b over n instances in one launch over their n x M correspondences
+    flattened: neighbourhoods ``[n, M, k, 3]``, distances and validity
     ``[n, M, k]``, masks ``[n, M]``, line resolutions ``[n]`` -> K11b's
     outputs with a leading instance dimension."""
     dev = neigh.device

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import statistics
 import time
 from typing import Dict, List, Optional
 
@@ -61,6 +62,36 @@ def device_trace(log_dir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_ms(fn, inner: int = 20, reps: int = 50) -> float:
+    """Median device time (ms) of one call of ``fn`` on the current CUDA
+    device: ``inner`` calls captured in one CUDA graph, replayed ``reps``
+    times between CUDA events (so the host's launch cost is not counted)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / inner)
+    return statistics.median(times)
 
 
 class JsonlLogger:

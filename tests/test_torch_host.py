@@ -316,6 +316,7 @@ def test_port_imports_no_jax():
         "superodom_tpu_torch.tools.visualize, superodom_tpu_torch.utils, "
         "superodom_tpu_torch.tools.profile, "
         "superodom_tpu_torch.tools.stress_matrix, "
+        "superodom_tpu_torch.tools.kernel_ab, "
         "chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'superodom_tpu' or m.startswith('superodom_tpu.')]\n"

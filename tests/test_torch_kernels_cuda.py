@@ -8,11 +8,14 @@ invalid, NaN and inf rows; the Gauss-Newton kernel at row counts that do not fil
 with the axis hold biting, an enabled prior, a non-finite system, and
 repeat runs; the candidate reduction and the selection from it over cell
 capacities, widths, k, query counts, rows with nothing valid and tied
-distances; the voxel claim over lane counts, table sizes, a resolution
+distances, and the selection by rank at every group width (1-32
+lanes, k = 1 and k = width, an odd query count, ties of three, a NaN
+query); the voxel claim over lane counts, table sizes, a resolution
 that changes on the device and repeat runs; the curvature edges over
 wrapped lanes, ring boundaries, padded tails and NaN rows; the line fit
-over query counts, ties in the inlier count, rows with no or one valid
-neighbour and sentinel neighbours; the Gauss-Newton kernel with 0, 1 and
+over query counts, ties in the inlier count (of two and of three lines),
+rows with no or one valid neighbour and sentinel neighbours, every k of
+its 16-lane group and an odd group count over a fleet; the Gauss-Newton kernel with 0, 1 and
 512 edge rows beside 2,048 planes and the hold on edge votes alone;
 replays of the four paths repeated over poisoned freed memory; the
 chunked replay repeated at chunk sizes 20 and 4, preloaded and streamed,
@@ -647,6 +650,64 @@ def test_reduced_ties_go_to_the_lower_lane(dev):
         assert torch.equal(a, b)
 
 
+def _grid_reduced(dev, nq, w, seed):
+    """Reduced lanes on an integer grid of 5 x 5 x 5 points and queries on
+    it (distances tie in threes and more), every fifth row with no valid
+    lane, row 1 three copies of one point at lanes 0, w // 2 and w - 1."""
+    rng = np.random.default_rng(seed)
+    x, y, z = (torch.from_numpy(rng.integers(-2, 3, (nq, w)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    valid = torch.from_numpy(rng.random((nq, w)) < 0.8).to(dev)
+    valid[::5] = False
+    if nq > 1:
+        for c in (x, y, z):
+            c[1, [0, w // 2, w - 1]] = 1.0
+        valid[1] = True
+    q = torch.from_numpy(rng.integers(-1, 2, (nq, 3)).astype(
+        np.float32)).to(dev)
+    return mapstate.ReducedCandidates(x, y, z, valid), q
+
+
+@pytest.mark.parametrize("nq", [1, 2, 333])
+@pytest.mark.parametrize("w", [1, 2, 15, 16, 17, 20, 31, 32])
+def test_select_reduced_by_rank(dev, w, nq):
+    """K9b's selection by rank at every group width (two queries a warp up
+    to 16 lanes, one above), k = 1 and k = w, an odd query count (the last
+    half-warp group alone), rows with no valid lane and ties of three and
+    more: the contract's lanes equal the plain version's, and with finite
+    inputs the whole outputs are equal too."""
+    red, q = _grid_reduced(dev, nq, w, seed=100 * w + nq)
+    for k in sorted({1, w}):
+        sel = _assert_select_match(red, q, k)
+        for a, b in zip(kernels.select_reduced(*red, q, k), sel):
+            assert torch.equal(a, b), (w, k)
+        if nq > 1:
+            assert not sel[2][::5].any()
+    if nq > 1:  # three copies of one point: the lanes in order
+        sel = kernels.select_reduced(*red, q, w)
+        d1 = float(((q[1] - 1.0) ** 2).sum())
+        at = (sel[1][1] == d1).nonzero().flatten().tolist()
+        assert len(at) >= (3 if w >= 3 else w)
+
+
+def test_select_reduced_nan_query(dev):
+    """A query with a NaN coordinate: its valid lanes' distances are NaN,
+    which the rank order puts after BIG as the plain version's sort puts
+    NaN last; the whole outputs equal the plain version's (NaN equal to
+    NaN), at both group widths."""
+    for w, k in ((16, 5), (20, 10)):
+        red, q = _grid_reduced(dev, 33, w, seed=w)
+        q[2, 1] = float("nan")
+        q[7] = float("nan")
+        red.valid[7] = True
+        got = kernels.select_reduced(*red, q, k)
+        want = mapstate.select_knn_reduced_reference(red, q, k)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert _same(a, b), (w, k)
+        assert not want[2][7].any() and bool(torch.isnan(want[1][7]).any())
+
+
 def _cloud(dev, n, seed):
     g = torch.Generator(device="cpu").manual_seed(seed)
     xyz = (torch.rand((n, 3), generator=g) * 60.0 - 30.0)
@@ -956,6 +1017,46 @@ def test_edge_fit_degenerate_rows(dev):
         d = (a[row] - b[row]) / (a[row] - b[row]).norm()
         assert float(d[axis].abs()) > 0.99, (row, d)
     assert valid.float().mean() > 0.4
+
+
+@pytest.mark.parametrize("k", [2, 3, 9, 10, 16])
+def test_edge_fit_group_widths(dev, k):
+    """The 16-lane group at every k it serves (lanes k.. idle; k = 16
+    fills the group, 15 lines), 65 rows (not a whole block's groups)."""
+    *_, (neigh, sq, nvalid, mask) = _edge_case(dev, ne=65, npl=64, k=k)
+    _assert_edge_fit_bitwise(neigh, sq, nvalid, mask,
+                             torch.tensor(0.1, device=dev))
+
+
+@pytest.mark.parametrize("k", [10, 16, 4])
+def test_edge_fit_three_way_tie_goes_to_the_first_line(dev, k):
+    """Neighbours on three axes through the nearest point, taken in turn
+    (axis a, b, c, a, b, c, ... at 0.25 m steps, beyond the 0.2 m inlier
+    distance of the other axes): every line's inlier count ties with two
+    others', and the first line, along axis a, must win the group's keyed
+    maximum: the selected points' mean, (a + b) / 2, lies off the nearest
+    point along axis a alone.  (Their scatter has rank one, where eigh3's
+    eigenvectors fall back to an axis, so the fitted direction does not
+    tell the winner.)"""
+    rng = np.random.default_rng(k)
+    nq = 64
+    neigh = np.zeros((nq, k, 3), np.float32)
+    first = []
+    for r in range(nq):
+        base = rng.integers(-5, 5, 3).astype(np.float32)
+        axes = rng.permutation(3)
+        first.append(int(axes[0]))
+        for i in range(1, k):
+            neigh[r, i] = base
+            neigh[r, i, axes[(i - 1) % 3]] += 0.25 * (1 + (i - 1) // 3)
+        neigh[r, 0] = base
+    sq = ((neigh - neigh[:, :1]) ** 2).sum(-1).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        neigh, sq, np.ones((nq, k), bool), np.ones(nq, bool))]
+    out_r, _ = _assert_edge_fit_bitwise(*args, torch.tensor(0.5, device=dev))
+    off = ((out_r[0] + out_r[1]) / 2 - args[0][:, 0]).abs().cpu()
+    on_a = torch.nn.functional.one_hot(torch.tensor(first), 3).bool()
+    assert bool((off[on_a] > 0.1).all()) and bool((off[~on_a] < 1e-5).all())
 
 
 def _gn_edges_both(pose0, planes, lines, rt, **kw):
@@ -1607,6 +1708,46 @@ def test_edge_fit_batched_line_res_per_instance(dev):
                    for g, p in zip(got, plain)), b
     valid = got[3].sum(dim=1).tolist()
     assert valid[0] <= valid[1] <= valid[2] and valid[0] < valid[2]
+
+
+@pytest.mark.parametrize("n", [4, 12, 13, 64])
+def test_edge_fit_lanes_a_correspondence_follow_the_launch(dev, n):
+    """One set of 512 line correspondences shared by n instances (a stride
+    of 0): 2,048 to 32,768 correspondences a launch, on both sides of the
+    size where the kernel gives each correspondence 1 lane instead of 16
+    (above 6,144); every instance the single launch's bits (16 lanes)."""
+    reg = registration.RegistrationConfig()
+    knobs = (reg.min_edge_neighbors, reg.edge_max_dist_inlier)
+    *_, rows = _edge_case(dev)
+    line_res = torch.tensor(0.1, device=dev)
+    one = kernels.edge_fit(*rows, line_res, *knobs)
+    got = kernels.edge_fit_batched(
+        *(x.expand((n,) + x.shape) for x in rows), line_res.expand(n),
+        *knobs)
+    for b in range(n):
+        assert all(_same(g[b], o) for g, o in zip(got, one)), b
+
+
+def test_edge_fit_batched_odd_group_count(dev):
+    """Three instances of 333 line correspondences (999 groups: the last
+    group alone in its warp, the instances' boundaries inside warps): each
+    instance its single launch's bits and the plain version's off the gate
+    margins."""
+    reg = registration.RegistrationConfig()
+    knobs = (reg.min_edge_neighbors, reg.edge_max_dist_inlier)
+    inst = [_edge_case(dev, ne=333, npl=16, seed=s)[-1] for s in (3, 4, 5)]
+    stacked = [torch.stack([c[i] for c in inst]).contiguous()
+               for i in range(4)]
+    line_res = torch.tensor([0.1, 0.05, 0.2], device=dev)
+    got = kernels.edge_fit_batched(*stacked, line_res, *knobs)
+    for b, c in enumerate(inst):
+        one = kernels.edge_fit(*c, line_res[b], *knobs)
+        assert all(_same(g[b], o) for g, o in zip(got, one)), b
+        plain = registration.edge_fit_reference(*c, line_res[b], *knobs)
+        near = registration.edge_gate_margin_lanes(*c[:3], line_res[b],
+                                                   *knobs)
+        assert all(_same(g[b][~near], p[~near])
+                   for g, p in zip(got, plain)), b
 
 
 def test_a_kernel_under_vmap_without_its_rule_raises(dev):

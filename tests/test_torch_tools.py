@@ -8,7 +8,8 @@ row's keys, its verdict, its settled ATE within 2 mm: the two step
 implementations agree in the ICP pose within 1e-4 m a scan and in the
 smoother's state not to the bit, ROADMAP C2); and ``stages`` and ``ab``
 on a tiny configuration with few repetitions, printing JAX's stage
-names."""
+names.  ``tools.kernel_ab``'s cases and output checks, with the plain
+versions standing in for the kernels (the builds run on the card only)."""
 
 import dataclasses
 import json
@@ -27,6 +28,9 @@ from superodom_tpu.io import scenarios as jsc  # noqa: E402
 from superodom_tpu.io.datasets import ate_rmse  # noqa: E402
 from superodom_tpu.runner import OdometryRunner as JRunner  # noqa: E402
 
+from superodom_tpu_torch import kernels, mapstate  # noqa: E402
+from superodom_tpu_torch import registration  # noqa: E402
+from superodom_tpu_torch.tools import kernel_ab  # noqa: E402
 from superodom_tpu_torch.tools import profile as tprof  # noqa: E402
 from superodom_tpu_torch.tools import stress_matrix as tsm  # noqa: E402
 
@@ -127,3 +131,66 @@ def test_ab_on_a_tiny_config(capsys):
         assert sps > 0 and np.isfinite(ate)
     out = capsys.readouterr().out
     assert "median" in out and "device: cpu" in out
+
+
+def test_kernel_ab_cases_and_checks(monkeypatch):
+    """Every case of a recorded K9b / K11b launch set at fleets of 1 and 3
+    launches on fleet-shaped inputs and passes its check against itself;
+    the checks catch a changed valid K9b lane and a changed K11b output off
+    the gate margins, and pass a change in an invalid or a flagged lane."""
+    g = np.random.default_rng(5)
+
+    def reduced(w, nq=7):
+        xyz = [torch.from_numpy(g.integers(-4, 5, (nq, w)).astype(np.float32))
+               for _ in range(3)]
+        valid = g.random((nq, w)) < 0.7
+        valid[0] = False  # a query with no valid lane
+        return (*xyz, torch.from_numpy(valid),
+                torch.from_numpy(g.normal(size=(nq, 3)).astype(np.float32)))
+
+    m, k = 24, 10
+    line = g.normal(size=(m, 1, 3)) * np.linspace(0, 1, k)[None, :, None]
+    neigh = torch.from_numpy(
+        (line + 0.01 * g.normal(size=(m, k, 3))).astype(np.float32))
+    edge = (neigh, (neigh ** 2).sum(-1), torch.ones(m, k, dtype=torch.bool),
+            torch.ones(m, dtype=torch.bool), torch.tensor(0.5), 3, 0.2)
+    seen = {("select_reduced", 16): (*reduced(16), 5),
+            ("select_reduced", 20): (*reduced(20), 10), "edge_fit": edge}
+
+    def select(x, y, z, valid, q, k):
+        return mapstate.select_knn_reduced_reference(
+            mapstate.ReducedCandidates(x, y, z, valid), q, k)
+
+    def fit(*args):
+        each = [registration.edge_fit_reference(*(t[i] for t in args[:5]),
+                                                *args[5:])
+                for i in range(args[0].shape[0])]
+        return tuple(torch.stack(o) for o in zip(*each))
+
+    monkeypatch.setattr(kernels, "select_reduced", select)
+    monkeypatch.setattr(kernels, "edge_fit_batched", fit)
+    runs = kernel_ab.cases(seen, fleets=(1, 3))
+    assert sorted(runs) == sorted(
+        [f"select_reduced {kk} of {w}, B={b}" for w, kk in ((16, 5), (20, 10))
+         for b in (1, 3)] + [f"edge_fit {m} x {k}, B={b}" for b in (1, 3)])
+    for label, (launch, same) in runs.items():
+        got = launch()
+        b = int(label.rsplit("=", 1)[1])
+        assert got[0].shape[0] == (b * 7 if "select" in label else b), label
+        assert same(got, launch()), label
+
+    a = select(*seen[("select_reduced", 16)])
+    lane = tuple(int(i) for i in torch.nonzero(a[2])[0])
+    off = tuple(int(i) for i in torch.nonzero(~a[2])[0])
+    for at, ok in ((lane, False), (off, True)):
+        sq = a[1].clone()
+        sq[at] += 1.0
+        assert kernel_ab.same_valid_lanes((a[0], sq, a[2]), a) is ok
+    e = fit(*(t[None] for t in edge[:5]), *edge[5:])
+    coeff = e[2].clone()
+    coeff[0, 3] += 1.0
+    changed = (*e[:2], coeff, *e[3:])
+    near = torch.zeros(m, dtype=torch.bool)
+    assert not kernel_ab.same_off_gates(changed, e, near)
+    near[3] = True
+    assert kernel_ab.same_off_gates(changed, e, near)
