@@ -20,7 +20,8 @@ each logging its wall seconds as ``phase N: S s`` as it ends (kept in
    the same ``first_small``, repeat runs bit-identical) on each path; K9a
    reduce_candidates and K9b select_reduced on the reference-envelope
    path's warm map (W = 16, k = 5; ``valid`` and every valid lane
-   identical).  K2's gathered mode (the library's ``select_knn``, on no
+   identical; K9a's k nearest equal to K9b's on its planes in every
+   lane).  K2's gathered mode (the library's ``select_knn``, on no
    replay path) on the ship path's warm map: its gathered rows with their
    slot mask and with a lane-granular one, every output identical, and
    one library ``compute_plane_correspondences`` launching K1, it and K3
@@ -35,11 +36,13 @@ each logging its wall seconds as ``phase N: S s`` as it ends (kept in
    (normal system within 1e-5 of |H|, GN solve within GN_TOL).  K10
    voxel_claim on a real decimated VLP-16 scan (10,923 lanes, a 2^17
    table) and an OS1-128 one (43,691 lanes, 2^19): the keep-mask
-   identical, repeat runs identical.  Device time of every kernel and of
-   its plain version (CUDA graph of 20 launches, CUDA events, median of
-   50 replays), of an empty kernel (the launch floor), the least time the
-   card could take (bytes or operations, from this run's inputs), and the
-   host wall time of one whole GN solve, kernel vs plain, in turns.
+   identical, repeat runs identical, and the clusters its table takes
+   (blocks, shared memory a block, how many the card holds at once).
+   Device time of every kernel and of its plain version (CUDA graph of 20
+   launches, CUDA events, median of 50 replays), of an empty kernel (the
+   launch floor), the least time the card could take (bytes or
+   operations, from this run's inputs), and the host wall time of one
+   whole GN solve, kernel vs plain, in turns.
 2. Four paths through ``OdometryRunner(cfg, device="cuda").run_dataset``
    over the benchmark's synthetic world (seed 7), N_SCANS scans each: the
    ship path (``ship_config("os1")``, 131,072 points a scan), the
@@ -390,40 +393,53 @@ def hold_reduce_select(m, s_r, queries, moved_q, W, k, timer, torch,
                        tag=""):
     """K9a reduce_candidates at width ``W`` on map ``m`` (valid and every
     coordinate of a valid lane identical; a lane that is not valid holds no
-    point of the query's cells and is not compared), then K9b
-    select_reduced of ``k`` from those lanes at ``moved_q`` (the features
-    moved as a round of GN moves them): validity, points and distances of
-    every valid lane identical."""
+    point of the query's cells and is not compared), and its ``k`` nearest
+    at the same queries against K9b select_reduced on its planes (every
+    lane, bit for bit) and K9b's plain version (validity, and points and
+    distances of every valid lane); then K9b of ``k`` from those lanes at
+    ``moved_q`` (the features moved as a round of GN moves them): validity,
+    points and distances of every valid lane identical."""
     from superodom_tpu_torch import kernels, mapstate
 
     nq = queries.shape[0]
     C = m.pts.shape[1] // 3
     live = torch.unique(s_r[s_r >= 0]).numel()
     results = {}
-    red_k = mapstate.ReducedCandidates(
-        *kernels.reduce_candidates(m.pts, s_r, queries, W))
-    red_r = mapstate.reduce_candidates_reference(m.pts, s_r, queries, W)
+    out_k = kernels.reduce_candidates(m.pts, s_r, queries, W, k)
+    red_k, near_k = mapstate.ReducedCandidates(*out_k[:4]), out_k[4:]
+    red_r, near_r = mapstate.reduce_candidates_reference(m.pts, s_r, queries,
+                                                         W, k)
+    near_b = kernels.select_reduced(*red_k, queries, k)
     torch.cuda.synchronize()
     v = red_r.valid
     same_valid = torch.equal(red_k.valid, v)
     err9a = max(float((a - b)[v].abs().max()) for a, b in
                 zip(red_k[:3], red_r[:3]))
-    log(f"K9a reduce_candidates{tag} (W = {W}): validity equal {same_valid}, "
-        f"{int(v.sum())} of {v.numel()} lanes valid, "
+    vk = near_r[2]
+    fused_b = all(torch.equal(a, b) for a, b in zip(near_k, near_b))
+    fused_r = torch.equal(near_k[2], vk) and all(
+        torch.equal(a[vk], b[vk]) for a, b in zip(near_k[:2], near_r[:2]))
+    log(f"K9a reduce_candidates{tag} (W = {W}, k = {k}): validity equal "
+        f"{same_valid}, {int(v.sum())} of {v.numel()} lanes valid, "
         f"{int((v.sum(1) < W).sum())} of {nq} rows with fewer than {W}, max "
         f"abs err of a valid coordinate {err9a:.3e}, every lane equal "
-        f"{all(torch.equal(a, b) for a, b in zip(red_k, red_r))}")
-    if not (same_valid and err9a == 0.0 and bool(v.any())):
+        f"{all(torch.equal(a, b) for a, b in zip(red_k, red_r))}; its "
+        f"{k} nearest equal to K9b's on its planes in every lane {fused_b}, "
+        f"to the plain version in every valid lane {fused_r}")
+    if not (same_valid and err9a == 0.0 and bool(v.any()) and fused_b
+            and fused_r):
         raise SystemExit("K9a reduce_candidates disagrees with its plain "
-                         "version")
+                         "version or with K9b")
     results["reduce_candidates"] = dict(
         err=err9a,
-        ms=timer(lambda: kernels.reduce_candidates(m.pts, s_r, queries, W)),
+        ms=timer(lambda: kernels.reduce_candidates(m.pts, s_r, queries, W,
+                                                   k)),
         plain_ms=timer(lambda: mapstate.reduce_candidates_reference(
-            m.pts, s_r, queries, W)),
-        # slot ids, queries, the live slot rows; three planes and validity
-        bound=bound(nq * 8 * 4 + nq * 12 + live * 3 * C * 4 + nq * W * 13,
-                    int((s_r >= 0).sum()) * C * 8))
+            m.pts, s_r, queries, W, k)),
+        # slot ids, queries, the live slot rows; three planes and validity,
+        # the k nearest (points, distances, validity)
+        bound=bound(nq * 8 * 4 + nq * 12 + live * 3 * C * 4 + nq * W * 13
+                    + nq * k * 17, int((s_r >= 0).sum()) * C * 8))
 
     nk9, sk9, vk9 = kernels.select_reduced(*red_r, moved_q, k)
     nr9, sr9, vr9 = mapstate.select_knn_reduced_reference(red_r, moved_q, k)
@@ -874,9 +890,12 @@ def phase_edges(cfg, ds, torch, dev):
                                                       line_res, bits)
     torch.cuda.synchronize()
     differ = int((keep_k != keep_r).sum())
+    cs, smem, active = kernels.voxel_claim_clusters(bits, nw, 1, dev)
     log(f"K10 voxel_claim (edge stream): {nw} lanes, {int(wide_mask.sum())} "
-        f"edges in, table 2^{bits}, {int(keep_r.sum())} survive at "
-        f"{sensor.default_line_res} m; {differ} lanes differ")
+        f"edges in, table 2^{bits} in clusters of {cs} blocks x "
+        f"{smem // 1024} KB ({active} resident at once), "
+        f"{int(keep_r.sum())} survive at {sensor.default_line_res} m; "
+        f"{differ} lanes differ")
     if differ or not bool(keep_r.any()):
         raise SystemExit("K10 voxel_claim disagrees with its plain version")
     results["voxel_claim"] = dict(
@@ -1052,15 +1071,20 @@ def phase_voxel_claim(cases, torch, dev):
                 or int(keep_r.sum()) >= int(gate.sum()):
             raise SystemExit("K10 voxel_claim disagrees with its plain "
                              "version")
+        cs, smem, active = kernels.voxel_claim_clusters(bits, n, 1, dev)
+        log(f"  voxel_claim ({label}): clusters of {cs} blocks x "
+            f"{smem // 1024} KB of shared memory, {active} such clusters "
+            f"resident at once")
         r = dict(
             err=float(differ),
+            cluster=dict(blocks=cs, smem_bytes=smem, max_active=active),
             ms=device_ms(lambda: kernels.voxel_claim(xyz, gate, res, bits)),
             plain_ms=device_ms(
                 lambda: voxel.voxel_downsample_scatter_reference(
                     xyz, gate, res, bits)),
-            # points, mask, the resolution; the keep-mask (the table is
-            # scratch); ~40 integer operations and 3 divisions a lane,
-            # held against the float32 rate
+            # points, mask, the resolution; the keep-mask (the table
+            # lives in shared memory); ~40 integer operations and 3
+            # divisions a lane, held against the float32 rate
             bound=bound(n * 12 + n + 4 + n, n * 46))
         log(f"  voxel_claim ({label}): kernel {r['ms'] * 1e3:.2f} us, plain "
             f"{r['plain_ms'] * 1e3:.2f} us, bound "
@@ -1076,6 +1100,7 @@ def expected_launches(cfg, stats):
     n = len(stats)
     rounds = sum(s["n_iterations"] for s in stats)
     refresh = cfg.registration.refresh_width > 0
+    refreshing = sum(s["n_iterations"] > 1 for s in stats) if refresh else 0
     edges = cfg.use_edge_features
     maps = 2 if edges else 1
     return {
@@ -1085,12 +1110,12 @@ def expected_launches(cfg, stats):
         "plane_fit": rounds,
         "gn_solve": rounds,
         "normal_system": n,
-        # one reduction a scan that goes on past round 1
-        "reduce_candidates": maps * (sum(s["n_iterations"] > 1 for s in stats)
-                                     if refresh else 0),
-        "select_reduced": maps * (rounds - n) if refresh else 0,
-        # one counted launch a scan (its fill, claim and compare kernels):
-        # the surface thinning's in voxel mode, the edge stream's always
+        # one reduction a scan that goes on past round 1; it gives round 2
+        # its neighbours, and K9b selects those of rounds 3..
+        "reduce_candidates": maps * refreshing,
+        "select_reduced": maps * (rounds - n - refreshing) if refresh else 0,
+        # one launch a scan: the surface thinning's in voxel mode, the
+        # edge stream's always
         "voxel_claim": n * ((cfg.sensor.scan_thin_mode == "voxel") + edges),
         "curvature_edges": n if edges else 0,
         "edge_fit": rounds if edges else 0,
@@ -2145,7 +2170,7 @@ def batched_instances(cfg, datasets, n_inst, torch, dev):
         nq = w_pt.shape[0]
         slots = kernels.octant_lookup(m.keys, w_pt, cfg.map.cell_size)
         neigh, sq, nvalid, _ = kernels.knn_select(m.pts, slots, w_pt, k)
-        red = kernels.reduce_candidates(m.pts, slots, w_pt, W)
+        red = kernels.reduce_candidates(m.pts, slots, w_pt, W, k)[:4]
         moved = (w_pt + torch.tensor([0.01, -0.01, 0.005],
                                      device=dev)).contiguous()
         fit = kernels.plane_fit(neigh, sq, nvalid, mask, w_pt, q, res)
@@ -2173,7 +2198,7 @@ def batched_instances(cfg, datasets, n_inst, torch, dev):
         args = {
             "octant_lookup": (m.keys, w_pt, float(cfg.map.cell_size)),
             "knn_select": (m.pts, slots, w_pt, k),
-            "reduce_candidates": (m.pts, slots, w_pt, W),
+            "reduce_candidates": (m.pts, slots, w_pt, W, k),
             "select_reduced": (*red, moved, k),
             "plane_fit": (neigh, sq, nvalid, mask, w_pt, q, res),
             "normal_system": (pts, *fit[:4], q, t, a_sq) + (None,) * 6,
@@ -2198,8 +2223,8 @@ def batched_instances(cfg, datasets, n_inst, torch, dev):
                               nq * (12 + 8 * (15 + Bk))),
             "knn_select": (nq * 44 + live * 3 * C * 4 + nq * k * 25,
                            found * C * 8),
-            "reduce_candidates": (nq * 44 + live * 3 * C * 4 + nq * W * 13,
-                                  found * C * 8),
+            "reduce_candidates": (nq * 44 + live * 3 * C * 4 + nq * W * 13
+                                  + nq * k * 17, found * C * 8),
             "select_reduced": (nq * W * 13 + nq * 12 + nq * k * 17,
                                nq * W * 8),
             "plane_fit": (nq * k * 17 + nq * 13 + 20 + nq * 37, nq * 450),
@@ -2903,6 +2928,8 @@ def main(argv=None):
               "paths": {p: runs[p][2] for p in paths},
               "launch_floor_ms": floor_ms,
               "voxel_claim_os1_128": measured(claim["OS1-128"]),
+              "voxel_claim_clusters": {label: r["cluster"]
+                                       for label, r in claim.items()},
               "edge_fit_edge_map": measured(edge_map_fit),
               "gn_solve_host_us": {p: kres[p]["gn_solve"]["host_us"]
                                    for p in paths

@@ -35,16 +35,43 @@
 //     L1 from the distance pass).
 //
 // K9a reduce_candidates is this function at k = W (the refresh width, 16 on
-// the reference-envelope path) with another output: the W winners'
-// coordinates as planes x, y, z f32[Q,W] with valid bool[Q,W], no distances
-// and no lane ids — the layout K9b select_reduced (select_reduced.cu) reads
-// row by row.  It replaces superodom_tpu/mapstate.py reduce_candidates
-// (:444-470, plain version mapstate.reduce_candidates_reference), shares the
-// device code below through the PLANAR template parameter, and has its own
-// entry point so that its launches are counted apart from K2's.  A lane
-// that is not valid (fewer than W live candidates) holds whatever its
-// winner's row holds there — the BIG sentinel of an empty lane, or a point
-// of row 0 for a missing slot — exactly as the plain version gathers it.
+// the reference-envelope path, 20 on the edge map) with other outputs: the
+// W winners' coordinates as planes x, y, z f32[Q,W] with valid bool[Q,W] —
+// the layout K9b select_reduced (select_reduced.cu) reads row by row — and
+// the k nearest of those W lanes as K9b would select them at the same
+// queries: neigh f32[Q,k,3], sq f32[Q,k] (BIG where not valid), valid
+// bool[Q,k].  Those are K9a's first k winners: K9b recomputes a valid
+// lane's distance from the same floats by the same expression, gives every
+// lane that is not valid BIG (after every valid one; K9a ranks those lanes
+// after the valid ones too), and breaks ties by the reduced lane, which is
+// K9a's rank.  So the refresh round that makes the reduced set needs no K9b
+// launch.  It replaces superodom_tpu/mapstate.py reduce_candidates
+// (:444-470) and, in that round, select_knn_reduced (:473-488); plain
+// version mapstate.reduce_candidates_reference.  A lane that is not valid
+// (fewer than W live candidates) holds whatever its winner's row holds
+// there — the BIG sentinel of an empty lane, or a point of row 0 for a
+// missing slot — exactly as the plain version gathers it.
+//
+// K9a's selection (reduce_kernel) shares K2's candidate keys and sort but
+// not its W dependent rounds of warp minima.  Threshold, then rank:
+//   * tau = the head of rank W-1 among the 32 lane heads, ranked by 32
+//     independent shuffles of the head distances (a lower lane holds lower
+//     candidate lanes, so a tie goes to the lower lane: one match_any);
+//   * every winner is <= tau, since W heads are, and a lane whose head has
+//     rank h can win only at its places j < W - h (its key at j has h + j
+//     keys below it): each lane's keys that pass both (a prefix of its
+//     sorted list, c <= P of them) are compacted into the warp's list in
+//     shared memory at the count of the lower lanes' (ballots of the bits
+//     of c);
+//   * each listed key's rank is the count of listed keys below it (the
+//     keys are distinct, and every key below a winner is listed), m
+//     broadcast reads of the list, a lane ranking its two listed keys in
+//     one read up to m = 64; the lane holding the key of rank r < W writes
+//     winner r.
+// The dependent chain is a handful of steps instead of W rounds, but it
+// executes more shuffles and shared-memory reads than W rounds execute warp
+// reductions: on the H100 it takes longer than the rounds at the paths'
+// shapes, most of all when a fleet fills the card (PERF.md).
 //
 // Instances: one launch serves n_inst independent maps (the batched step
 // of superodom_tpu_torch/parallel.py).  Instance i is blockIdx.y: its
@@ -74,32 +101,15 @@
 
 #define KNN_THREADS 128
 
-// PLANAR false (K2): o0 = neighbours [Q,k,3], o1 = sq [Q,k], lane_out set.
-// PLANAR true (K9a): o0, o1, o2 = x, y, z [Q,k]; lane_out unused.
-// GATHERED (with PLANAR false): pts = cand [Q*8, 3C], slots unused, the
-// lane mask cvalid [Q, 8C].
-template <int P, bool VEC, bool PLANAR, bool GATHERED>
-__global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
+// Each lane's P candidate keys, sorted: lane o*4 + s owns points
+// s*P .. s*P+P-1 of octant slot o; returns that slot's id (lanes 0-7 load
+// the 8 ids, the warp broadcasts them by shuffle).  GATHERED: pts = cand
+// [Q*8, 3C], slots unused, the lane mask cvalid [Q, 8C].
+template <int P, bool VEC, bool GATHERED>
+static __device__ __forceinline__ int knn_lane_keys(
     const float* __restrict__ pts, int C, const int* __restrict__ slots,
-    const unsigned char* __restrict__ cvalid,
-    const float* __restrict__ queries, int nq, int k,
-    float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
-    unsigned char* __restrict__ valid_out, long long* __restrict__ lane_out,
-    long long pts_is, long long slots_is, long long queries_is) {
-  {
-    const size_t outs = (size_t)blockIdx.y * nq * k;
-    pts += blockIdx.y * pts_is;
-    slots += blockIdx.y * slots_is;
-    queries += blockIdx.y * queries_is;
-    o0 += PLANAR ? outs : 3 * outs;
-    o1 += outs;
-    if constexpr (PLANAR) o2 += outs;
-    else lane_out += outs;
-    valid_out += outs;
-  }
-  const int qi = blockIdx.x * (KNN_THREADS / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (qi >= nq) return;  // uniform per warp
+    const unsigned char* __restrict__ cvalid, int qi, int lane, float qx,
+    float qy, float qz, unsigned long long key[P]) {
   const int o = lane >> 2, c0 = (lane & 3) * P;
   int slot;
   if constexpr (GATHERED) {
@@ -108,12 +118,8 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
     const int own = lane < 8 ? slots[qi * 8 + lane] : 0;
     slot = __shfl_sync(0xffffffffu, own, o);
   }
-  const float qx = queries[qi * 3 + 0];
-  const float qy = queries[qi * 3 + 1];
-  const float qz = queries[qi * 3 + 2];
   const float* row = pts + (size_t)(slot > 0 ? slot : 0) * (3 * C);
 
-  unsigned long long key[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) key[j] = ~0ull;  // no candidate: never wins
   if (slot >= 0) {
@@ -176,6 +182,38 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
       key[j + 1] = hi;
     }
   }
+  return slot;
+}
+
+// K2: o0 = neighbours [Q,k,3], o1 = sq [Q,k], lane_out.  GATHERED: pts =
+// cand [Q*8, 3C], slots unused, the lane mask cvalid [Q, 8C].
+template <int P, bool VEC, bool GATHERED>
+__global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
+    const float* __restrict__ pts, int C, const int* __restrict__ slots,
+    const unsigned char* __restrict__ cvalid,
+    const float* __restrict__ queries, int nq, int k,
+    float* __restrict__ o0, float* __restrict__ o1,
+    unsigned char* __restrict__ valid_out, long long* __restrict__ lane_out,
+    long long pts_is, long long slots_is, long long queries_is) {
+  {
+    const size_t outs = (size_t)blockIdx.y * nq * k;
+    pts += blockIdx.y * pts_is;
+    slots += blockIdx.y * slots_is;
+    queries += blockIdx.y * queries_is;
+    o0 += 3 * outs;
+    o1 += outs;
+    lane_out += outs;
+    valid_out += outs;
+  }
+  const int qi = blockIdx.x * (KNN_THREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (qi >= nq) return;  // uniform per warp
+  const float qx = queries[qi * 3 + 0];
+  const float qy = queries[qi * 3 + 1];
+  const float qz = queries[qi * 3 + 2];
+  unsigned long long key[P];
+  const int slot = knn_lane_keys<P, VEC, GATHERED>(pts, C, slots, cvalid, qi,
+                                                   lane, qx, qy, qz, key);
 
   // k rounds over the lane heads; lane r keeps round r's winner
   unsigned win_d = 0, win_i = 0;
@@ -203,72 +241,205 @@ __global__ void __launch_bounds__(KNN_THREADS) knn_select_kernel(
     const float* wrow = pts + (size_t)(wslot > 0 ? wslot : 0) * (3 * C);
     const size_t out = (size_t)qi * k + lane;
     const float d = __uint_as_float(win_d);
-    if constexpr (PLANAR) {
-      o0[out] = wrow[c];
-      o1[out] = wrow[C + c];
-      o2[out] = wrow[2 * C + c];
-    } else {
-      o0[out * 3 + 0] = wrow[c];
-      o0[out * 3 + 1] = wrow[C + c];
-      o0[out * 3 + 2] = wrow[2 * C + c];
-      o1[out] = d;
-      lane_out[out] = (long long)win_i;
-    }
+    o0[out * 3 + 0] = wrow[c];
+    o0[out * 3 + 1] = wrow[C + c];
+    o0[out * 3 + 2] = wrow[2 * C + c];
+    o1[out] = d;
+    lane_out[out] = (long long)win_i;
     valid_out[out] = d < SO_BIG * 0.5f;
   }
 }
 
-template <int P, bool VEC, bool PLANAR, bool GATHERED>
-static void launch_knn(const float* pts, int C, const int* slots,
-                       const unsigned char* cvalid, const float* queries,
-                       int nq, int k, float* o0, float* o1, float* o2,
-                       unsigned char* valid, long long* lane, int n_inst,
-                       const long long* istride, cudaStream_t stream) {
+// K9a's winner r of query qi, the candidate of key x: its point as read
+// from its octant's row, its validity, and (r < k) K9b's outputs
+static __device__ __forceinline__ void reduce_write(
+    const float* __restrict__ pts, int C, const int* slot_of,
+    unsigned long long x, int r, int qi, int W, int k, float* __restrict__ ox,
+    float* __restrict__ oy, float* __restrict__ oz,
+    unsigned char* __restrict__ ovalid, float* __restrict__ neigh,
+    float* __restrict__ sq, unsigned char* __restrict__ nvalid) {
+  const unsigned idx = (unsigned)x;
+  const int o = (int)idx / C, cc = (int)idx - o * C;
+  const int ws = slot_of[o];
+  const float* wrow = pts + (size_t)(ws > 0 ? ws : 0) * (3 * C);
+  const float px = wrow[cc], py = wrow[C + cc], pz = wrow[2 * C + cc];
+  const float d = __uint_as_float((unsigned)(x >> 32));
+  const bool ok = d < SO_BIG * 0.5f;
+  const size_t at = (size_t)qi * W + r;
+  ox[at] = px;
+  oy[at] = py;
+  oz[at] = pz;
+  ovalid[at] = ok;
+  if (r < k) {
+    const size_t kt = (size_t)qi * k + r;
+    neigh[kt * 3 + 0] = px;
+    neigh[kt * 3 + 1] = py;
+    neigh[kt * 3 + 2] = pz;
+    sq[kt] = ok ? d : SO_BIG;
+    nvalid[kt] = ok;
+  }
+}
+
+// K9a: the W nearest as planes x, y, z [Q,W] with valid [Q,W], and the k
+// nearest of those as K9b gives them: neigh [Q,k,3], sq [Q,k] (BIG where
+// not valid), nvalid [Q,k].
+template <int P, bool VEC>
+__global__ void __launch_bounds__(KNN_THREADS) reduce_kernel(
+    const float* __restrict__ pts, int C, const int* __restrict__ slots,
+    const float* __restrict__ queries, int nq, int W, int k,
+    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ oz,
+    unsigned char* __restrict__ ovalid, float* __restrict__ neigh,
+    float* __restrict__ sq, unsigned char* __restrict__ nvalid,
+    long long pts_is, long long slots_is, long long queries_is) {
+  __shared__ unsigned long long s_list[KNN_THREADS / 32][32 * P];
+  __shared__ int s_slot[KNN_THREADS / 32][8];
+  {
+    const size_t outs = (size_t)blockIdx.y * nq;
+    pts += blockIdx.y * pts_is;
+    slots += blockIdx.y * slots_is;
+    queries += blockIdx.y * queries_is;
+    ox += outs * W;
+    oy += outs * W;
+    oz += outs * W;
+    ovalid += outs * W;
+    neigh += outs * k * 3;
+    sq += outs * k;
+    nvalid += outs * k;
+  }
+  const int warp = threadIdx.x >> 5;
+  const int qi = blockIdx.x * (KNN_THREADS / 32) + warp;
+  const int lane = threadIdx.x & 31;
+  if (qi >= nq) return;  // uniform per warp
+  const float qx = queries[qi * 3 + 0];
+  const float qy = queries[qi * 3 + 1];
+  const float qz = queries[qi * 3 + 2];
+  unsigned long long key[P];
+  const int slot = knn_lane_keys<P, VEC, false>(pts, C, slots, nullptr, qi,
+                                                lane, qx, qy, qz, key);
+  if ((lane & 3) == 0) s_slot[warp][lane >> 2] = slot;
+
+  // 1. tau = the head of rank W-1 among the 32 lane heads.  A lower lane
+  // holds lower candidate lanes, so the key order of two heads is their
+  // (distance, lane) order: the rank counts the lower distances (32
+  // independent shuffles) and the lower lanes at an equal one.
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned hd = (unsigned)(key[0] >> 32);
+  int hr = __popc(__match_any_sync(0xffffffffu, hd) & below);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    hr += __shfl_sync(0xffffffffu, hd, i) < hd ? 1 : 0;
+  const int tl = __ffs(__ballot_sync(0xffffffffu, hr == W - 1)) - 1;
+  const unsigned long long tau = __shfl_sync(0xffffffffu, key[0], tl);
+
+  // 2. every winner is <= tau (W heads are), and a lane's key at j has at
+  // least hr + j keys below it (the hr lower heads and its own j), so only
+  // its keys <= tau at j < W - hr can win: a prefix of its sorted list (c
+  // <= P of them), which goes to the warp's list at the count of the lower
+  // lanes' (ballots of the bits of c).  Every key below a winner is a
+  // winner, so it is listed too.
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < P; ++j) c += key[j] <= tau && j < W - hr ? 1 : 0;
+  int e = 0, m = 0;
+#pragma unroll
+  for (int b = 0; (1 << b) <= P; ++b) {
+    const unsigned bal = __ballot_sync(0xffffffffu, (c >> b) & 1);
+    e += __popc(bal & below) << b;
+    m += __popc(bal) << b;
+  }
+  unsigned long long* list = s_list[warp];
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+    if (j < c) list[e + j] = key[j];
+  __syncwarp();
+
+  // 3. the rank of a listed winner is the count of listed keys below it
+  // (the keys are distinct; a lane's sentinel ~0 is listed only when every
+  // candidate is, and ranks after them); a listed key that does not win
+  // has all W winners below it.  Up to 64 listed keys, one read of the
+  // list serves a lane's two.
+  if (m <= 64) {
+    const unsigned long long x0 = lane < m ? list[lane] : ~0ull;
+    const unsigned long long x1 = lane + 32 < m ? list[lane + 32] : ~0ull;
+    int r0 = 0, r1 = 0;
+    if (m <= 32) {
+#pragma unroll 4
+      for (int i = 0; i < m; ++i) r0 += list[i] < x0 ? 1 : 0;
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < m; ++i) {
+        const unsigned long long y = list[i];
+        r0 += y < x0 ? 1 : 0;
+        r1 += y < x1 ? 1 : 0;
+      }
+    }
+    if (lane < m && r0 < W)
+      reduce_write(pts, C, s_slot[warp], x0, r0, qi, W, k, ox, oy, oz,
+                   ovalid, neigh, sq, nvalid);
+    if (lane + 32 < m && r1 < W)
+      reduce_write(pts, C, s_slot[warp], x1, r1, qi, W, k, ox, oy, oz,
+                   ovalid, neigh, sq, nvalid);
+  } else {
+    for (int p = lane; p - lane < m; p += 32) {
+      const unsigned long long x = p < m ? list[p] : ~0ull;
+      int r = 0;
+      for (int i = 0; i < m; ++i) r += list[i] < x ? 1 : 0;
+      if (p < m && r < W)
+        reduce_write(pts, C, s_slot[warp], x, r, qi, W, k, ox, oy, oz,
+                     ovalid, neigh, sq, nvalid);
+    }
+  }
+}
+
+// one launch per P = ceil(C/4) points a lane, with 16-byte vectors
+// (VEC) where C % 16 == 0 and every instance's table lies on a 16-byte line
+#define KNN_SWITCH(C, vec, GO)                   \
+  switch (((C) + 3) / 4) {                       \
+    case 1: GO(1, false); break;                 \
+    case 2: GO(2, false); break;                 \
+    case 3: GO(3, false); break;                 \
+    case 4:                                      \
+      if (vec) GO(4, true);                      \
+      else GO(4, false);                         \
+      break;                                     \
+    case 5: GO(5, false); break;                 \
+    case 6: GO(6, false); break;                 \
+    case 7: GO(7, false); break;                 \
+    default:                                     \
+      if (vec) GO(8, true);                      \
+      else GO(8, false);                         \
+      break;                                     \
+  }
+
+static bool knn_vec(int C, const float* pts, const long long* istride) {
+  return C % 16 == 0 && (reinterpret_cast<uintptr_t>(pts) & 15) == 0 &&
+         (istride[0] & 3) == 0;
+}
+
+static dim3 knn_grid(int nq, int n_inst) {
   const int per_block = KNN_THREADS / 32;
-  const dim3 blocks((unsigned)((nq + per_block - 1) / per_block),
-                    (unsigned)n_inst);
-  knn_select_kernel<P, VEC, PLANAR, GATHERED>
-      <<<blocks, KNN_THREADS, 0, stream>>>(
-          pts, C, slots, cvalid, queries, nq, k, o0, o1, o2, valid, lane,
-          istride[0], istride[1], istride[2]);
+  return dim3((unsigned)((nq + per_block - 1) / per_block), (unsigned)n_inst);
 }
 
 // C in 1..32 (P = ceil(C/4) points a lane), 1 <= k <= min(32, 8*C);
 // istride (host) = {pts, slots, queries} instance strides in elements.
-template <bool PLANAR, bool GATHERED = false>
+template <bool GATHERED = false>
 static int knn_dispatch(const float* pts, int C, const int* slots,
                         const unsigned char* cvalid,
-                        const float* queries, int nq, int k, float* o0,
-                        float* o1, float* o2, unsigned char* valid,
-                        long long* lane, int n_inst, const long long* istride,
-                        void* stream) {
+                        const float* queries, int nq, int k, float* neigh,
+                        float* sq, unsigned char* valid, long long* lane,
+                        int n_inst, const long long* istride, void* stream) {
   if (C < 1 || C > 32 || k < 1 || k > 32 || k > 8 * C || n_inst < 1 ||
       n_inst > 65535)
     return (int)cudaErrorInvalidValue;
   if (nq > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
-    // 16-byte vectors: every instance's table on a 16-byte line
-    const bool vec = C % 16 == 0 &&
-                     (reinterpret_cast<uintptr_t>(pts) & 15) == 0 &&
-                     (istride[0] & 3) == 0;
-#define KNN_GO(P, V) \
-  launch_knn<P, V, PLANAR, GATHERED>(pts, C, slots, cvalid, queries, nq, k, o0, o1, o2, valid, lane, n_inst, istride, s)
-    switch ((C + 3) / 4) {
-      case 1: KNN_GO(1, false); break;
-      case 2: KNN_GO(2, false); break;
-      case 3: KNN_GO(3, false); break;
-      case 4:
-        if (vec) KNN_GO(4, true);
-        else KNN_GO(4, false);
-        break;
-      case 5: KNN_GO(5, false); break;
-      case 6: KNN_GO(6, false); break;
-      case 7: KNN_GO(7, false); break;
-      default:
-        if (vec) KNN_GO(8, true);
-        else KNN_GO(8, false);
-        break;
-    }
+#define KNN_GO(P, V)                                                      \
+  knn_select_kernel<P, V, GATHERED><<<knn_grid(nq, n_inst), KNN_THREADS,  \
+                                      0, s>>>(                            \
+      pts, C, slots, cvalid, queries, nq, k, neigh, sq, valid, lane,      \
+      istride[0], istride[1], istride[2])
+    KNN_SWITCH(C, knn_vec(C, pts, istride), KNN_GO)
 #undef KNN_GO
   }
   return (int)cudaGetLastError();
@@ -279,9 +450,8 @@ extern "C" int so_knn_select(const float* pts, int C, const int* slots,
                              float* sq, unsigned char* valid, long long* lane,
                              int n_inst, const long long* istride,
                              void* stream) {
-  return knn_dispatch<false>(pts, C, slots, nullptr, queries, nq, k, neigh,
-                             sq, nullptr, valid, lane, n_inst, istride,
-                             stream);
+  return knn_dispatch(pts, C, slots, nullptr, queries, nq, k, neigh, sq,
+                      valid, lane, n_inst, istride, stream);
 }
 
 // Gathered mode: cand f32[Q,8,3C], cvalid bool[Q,8C], queries f32[Q,3] ->
@@ -294,17 +464,32 @@ extern "C" int so_knn_select_gathered(const float* cand, int C,
                                       void* stream) {
   if ((long long)nq * 8 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const long long none[3] = {0, 0, 0};
-  return knn_dispatch<false, true>(cand, C, nullptr, cvalid, queries, nq, k,
-                                   neigh, sq, nullptr, valid, lane, 1, none,
-                                   stream);
+  return knn_dispatch<true>(cand, C, nullptr, cvalid, queries, nq, k, neigh,
+                            sq, valid, lane, 1, none, stream);
 }
 
-// K9a: the W nearest candidates as planes x, y, z f32[Q,W], valid bool[Q,W].
+// K9a: the W nearest candidates as planes x, y, z f32[Q,W], valid
+// bool[Q,W], and the k nearest of them as K9b selects them from those
+// planes: neigh f32[Q,k,3], sq f32[Q,k], nvalid bool[Q,k].  C in 1..32,
+// 1 <= k <= w <= min(32, 8*C).
 extern "C" int so_reduce_candidates(const float* pts, int C, const int* slots,
                                     const float* queries, int nq, int w,
-                                    float* x, float* y, float* z,
-                                    unsigned char* valid, int n_inst,
-                                    const long long* istride, void* stream) {
-  return knn_dispatch<true>(pts, C, slots, nullptr, queries, nq, w, x, y, z,
-                            valid, nullptr, n_inst, istride, stream);
+                                    int k, float* x, float* y, float* z,
+                                    unsigned char* valid, float* neigh,
+                                    float* sq, unsigned char* nvalid,
+                                    int n_inst, const long long* istride,
+                                    void* stream) {
+  if (C < 1 || C > 32 || w > 32 || w > 8 * C || k < 1 || k > w ||
+      n_inst < 1 || n_inst > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (nq > 0) {
+    const cudaStream_t s = (cudaStream_t)stream;
+#define RED_GO(P, V)                                                      \
+  reduce_kernel<P, V><<<knn_grid(nq, n_inst), KNN_THREADS, 0, s>>>(      \
+      pts, C, slots, queries, nq, w, k, x, y, z, valid, neigh, sq, nvalid, \
+      istride[0], istride[1], istride[2])
+    KNN_SWITCH(C, knn_vec(C, pts, istride), RED_GO)
+#undef RED_GO
+  }
+  return (int)cudaGetLastError();
 }

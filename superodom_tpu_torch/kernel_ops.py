@@ -43,6 +43,7 @@ _T3 = Tuple[Tensor, Tensor, Tensor]
 _T4 = Tuple[Tensor, Tensor, Tensor, Tensor]
 _T5 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 _T6 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]
+_T7 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]
 
 # the route of each entry under vmap (chip_smoke.py reports it)
 ROUTE = {
@@ -113,15 +114,16 @@ def _(info, in_dims, pts, slots, queries, k):
 
 
 @_op("reduce_candidates")
-def reduce_candidates(pts: Tensor, slots: Tensor, queries: Tensor,
-                      w: int) -> _T4:
-    return kernels.reduce_candidates(pts, slots, queries, w)
+def reduce_candidates(pts: Tensor, slots: Tensor, queries: Tensor, w: int,
+                      k: int) -> _T7:
+    """(x, y, z, valid) [Q, w], then (neighbours [Q, k, 3], sq, valid)."""
+    return kernels.reduce_candidates(pts, slots, queries, w, k)
 
 
 @reduce_candidates.register_vmap
-def _(info, in_dims, pts, slots, queries, w):
+def _(info, in_dims, pts, slots, queries, w, k):
     return kernels.reduce_candidates_batched(
-        *_fronts(info, in_dims, pts, slots, queries), w), (0,) * 4
+        *_fronts(info, in_dims, pts, slots, queries), w, k), (0,) * 7
 
 
 # ------------------------------------------------------------------ K9b

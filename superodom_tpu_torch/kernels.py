@@ -71,6 +71,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # GN_MAX_ROW_BYTES (csrc/normal_system.cu)
 GN_BLOCKS = 8
 GN_MAX_ROW_BYTES = 216 * 1024
+# K10 keeps its claim table in one thread-block cluster's shared memory up
+# to 16 blocks x 2^15 slots; larger tables take its global form
+# (csrc/voxel_claim.cu)
+VOXEL_CLUSTER_MAX_BITS = 19
 
 launch_counts = {name: 0 for name in KERNELS + LIBRARY_KERNELS}
 
@@ -153,11 +157,12 @@ def load() -> ctypes.CDLL:
                                 vp]
     lib.so_knn_select_gathered.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp,
                                            vp, vp, vp]
-    lib.so_reduce_candidates.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp,
-                                         vp, ci, vp, vp]
+    lib.so_reduce_candidates.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp, vp,
+                                         vp, vp, vp, vp, vp, ci, vp, vp]
     lib.so_select_reduced.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci, vp, vp,
                                       vp, vp]
     lib.so_voxel_claim.argtypes = [vp, vp, ci, vp, ci, vp, vp, ci, vp, vp]
+    lib.so_voxel_claim_clusters.argtypes = [ci, ci, ci, vp]
     lib.so_curvature_edges.argtypes = [vp, vp, vp, ci, ci, cf, cf, cf, vp, ci,
                                        vp, vp]
     lib.so_edge_fit.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf, vp, vp,
@@ -167,6 +172,7 @@ def load() -> ctypes.CDLL:
                lib.so_knn_select_gathered, lib.so_plane_fit,
                lib.so_gn_solve, lib.so_reduce_candidates,
                lib.so_select_reduced, lib.so_voxel_claim,
+               lib.so_voxel_claim_clusters,
                lib.so_curvature_edges, lib.so_edge_fit, lib.so_launch_floor):
         fn.restype = ci
     _lib = lib
@@ -378,28 +384,38 @@ def knn_select_gathered(cand: torch.Tensor, cvalid: torch.Tensor,
 
 
 def reduce_candidates(pts: torch.Tensor, slots: torch.Tensor,
-                      queries: torch.Tensor, w: int):
+                      queries: torch.Tensor, w: int, k: int):
     """K9a on the card: the ``w`` nearest candidates of each query as planes
-    (x f32[Q,w], y, z, valid bool[Q,w]) (see csrc/knn_select.cu)."""
+    (x f32[Q,w], y, z, valid bool[Q,w]), then the ``k`` nearest of those
+    lanes as K9b selects them (neighbours f32[Q,k,3], sq f32[Q,k], valid
+    bool[Q,k]) (see csrc/knn_select.cu)."""
     return tuple(o[0] for o in reduce_candidates_batched(
-        pts[None], slots[None], queries[None], w))
+        pts[None], slots[None], queries[None], w, k))
 
 
 def reduce_candidates_batched(pts: torch.Tensor, slots: torch.Tensor,
-                              queries: torch.Tensor, w: int):
+                              queries: torch.Tensor, w: int, k: int):
     """K9a over n instances in one launch (inputs as
-    :func:`knn_select_batched`'s) -> (x, y, z, valid), each [n, Q, w]."""
+    :func:`knn_select_batched`'s) -> K9a's seven outputs, each with a
+    leading instance dimension."""
     dev = queries.device
     n, nq, C, strides = _check_candidates("reduce_candidates", pts, slots,
                                           queries, w)
+    if not 1 <= k <= w:
+        raise ValueError(f"reduce_candidates: need 1 <= k <= width, got k "
+                         f"{k}, width {w}")
     x, y, z = (torch.empty((n, nq, w), dtype=torch.float32, device=dev)
                for _ in range(3))
     valid = torch.empty((n, nq, w), dtype=torch.bool, device=dev)
+    neigh = torch.empty((n, nq, k, 3), dtype=torch.float32, device=dev)
+    sq = torch.empty((n, nq, k), dtype=torch.float32, device=dev)
+    nvalid = torch.empty((n, nq, k), dtype=torch.bool, device=dev)
     rc = load().so_reduce_candidates(_p(pts), C, _p(slots), _p(queries), nq,
-                                     w, _p(x), _p(y), _p(z), _p(valid), n,
+                                     w, k, _p(x), _p(y), _p(z), _p(valid),
+                                     _p(neigh), _p(sq), _p(nvalid), n,
                                      strides, _stream(dev))
     _launched("reduce_candidates", rc)
-    return x, y, z, valid
+    return x, y, z, valid, neigh, sq, nvalid
 
 
 def select_reduced(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
@@ -439,10 +455,11 @@ def voxel_claim(xyz: torch.Tensor, mask: torch.Tensor, res: torch.Tensor,
 
 def voxel_claim_batched(xyz: torch.Tensor, mask: torch.Tensor,
                         res: torch.Tensor, table_bits: int) -> torch.Tensor:
-    """K10 over n instances in one launch of each pass: clouds ``[n, N,
-    3]``, masks ``[n, N]``, resolutions ``[n]`` -> bool[n, N], each
-    instance's keep-mask from a claim table of its own (n tables of ``1 <<
-    table_bits`` int32 scratch)."""
+    """K10 over n instances in one launch: clouds ``[n, N, 3]``, masks
+    ``[n, N]``, resolutions ``[n]`` -> bool[n, N], each instance's
+    keep-mask from a claim table of its own — in a thread-block cluster's
+    shared memory up to 2^:data:`VOXEL_CLUSTER_MAX_BITS` slots, else n
+    global tables of ``1 << table_bits`` int32 scratch."""
     dev = xyz.device
     n = xyz.shape[0]
     N = xyz.shape[1] if xyz.dim() == 3 else -1
@@ -451,12 +468,33 @@ def voxel_claim_batched(xyz: torch.Tensor, mask: torch.Tensor,
                      ("res", res, torch.float32, ()))
     if not 4 <= table_bits <= 30:
         raise ValueError(f"voxel_claim: table_bits {table_bits} outside 4..30")
-    table = torch.empty((n, 1 << table_bits), dtype=torch.int32, device=dev)
+    table = None
+    if table_bits > VOXEL_CLUSTER_MAX_BITS:
+        table = torch.empty((n, 1 << table_bits), dtype=torch.int32,
+                            device=dev)
     keep = torch.empty((n, N), dtype=torch.bool, device=dev)
-    rc = load().so_voxel_claim(_p(xyz), _p(mask), N, _p(res), table_bits,
-                               _p(table), _p(keep), n, strides, _stream(dev))
+    with torch.cuda.device(dev):
+        rc = load().so_voxel_claim(_p(xyz), _p(mask), N, _p(res), table_bits,
+                                   _p(table), _p(keep), n, strides,
+                                   _stream(dev))
     _launched("voxel_claim", rc)
     return keep
+
+
+def voxel_claim_clusters(table_bits: int, n: int, n_inst: int = 1,
+                         device=None):
+    """K10's cluster form for ``n_inst`` instances of ``n`` lanes and a
+    table of ``1 << table_bits`` slots on the card: (blocks a cluster,
+    shared memory bytes a block, the clusters of that shape the card holds
+    at once); (0, 0, 0) above 2^:data:`VOXEL_CLUSTER_MAX_BITS` slots (the
+    global form)."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        rc = load().so_voxel_claim_clusters(int(table_bits), int(n),
+                                            int(n_inst), out)
+    if rc != 0:
+        raise RuntimeError(f"voxel_claim_clusters: CUDA error {rc}")
+    return tuple(out)
 
 
 def curvature_edges(xyz: torch.Tensor, ring: torch.Tensor, mask: torch.Tensor,

@@ -21,9 +21,10 @@ Hand-written CUDA kernels carry the read side (``csrc/``):
   has gathered (``gather_candidates``) with any lane mask: the library's
   ``select_knn``, which no replay path calls.
 * ``reduce_candidates`` (K9a) — K2's selection at k = W, materialised as
-  planes ``[Q, W]`` once a scan; ``select_reduced`` (K9b) — the k nearest
-  among those W lanes, for the ICP rounds after the first
-  (``RegistrationConfig.refresh_width``).
+  planes ``[Q, W]`` once a scan, with the k nearest of those lanes at the
+  same queries (K9b's outputs, for the round that makes the set);
+  ``select_reduced`` (K9b) — the k nearest among those W lanes, for the
+  later ICP rounds (``RegistrationConfig.refresh_width``).
 
 Each has a plain PyTorch version here (``*_reference``) with the JAX
 package's layout; CPU tensors take it, CUDA tensors take the kernel.
@@ -446,25 +447,35 @@ class ReducedCandidates(NamedTuple):
 
 
 def reduce_candidates_reference(pts: torch.Tensor, slots: torch.Tensor,
-                                queries: torch.Tensor,
-                                w: int) -> ReducedCandidates:
+                                queries: torch.Tensor, w: int, k: int):
     """Plain version of K9a (``gather_candidates`` + ``reduce_candidates``):
     :func:`knn_select_reference` at k = ``w`` with the planar layout.  With
     fewer than ``w`` live candidates the tail takes BIG (missing slot) and
-    inf (empty lane) distances, ties to the lower lane, valid false."""
+    inf (empty lane) distances, ties to the lower lane, valid false.
+
+    Returns (:class:`ReducedCandidates`, (neighbours f32[Q,k,3], sq
+    f32[Q,k], valid bool[Q,k])): the second is
+    :func:`select_knn_reduced_reference` of the first at the same
+    ``queries``, taken as its first ``k`` lanes — a valid lane's distance
+    recomputes to the same bits, every lane that is not valid goes to BIG
+    after the valid ones, and ties go to the lower reduced lane, which is
+    the reduction's own (distance, lane) order."""
     planes, cvalid = _candidate_planes(pts, slots)
     (x, y, z), sq, _ = _nearest_lanes(planes, cvalid, queries, w)
-    return ReducedCandidates(x, y, z, sq < BIG * 0.5)
+    near = torch.stack((x[:, :k], y[:, :k], z[:, :k]), dim=-1)
+    v = sq[:, :k] < BIG * 0.5
+    return (ReducedCandidates(x, y, z, sq < BIG * 0.5),
+            (near, torch.where(v, sq[:, :k], BIG), v))
 
 
 def reduce_candidates(pts: torch.Tensor, slots: torch.Tensor,
-                      queries: torch.Tensor, w: int) -> ReducedCandidates:
+                      queries: torch.Tensor, w: int, k: int):
     """K9a: see :func:`reduce_candidates_reference` for the contract."""
     if queries.is_cuda:
-        return ReducedCandidates(*kernel_ops.reduce_candidates(
-            pts, slots, queries, w))
+        out = kernel_ops.reduce_candidates(pts, slots, queries, w, k)
+        return ReducedCandidates(*out[:4]), tuple(out[4:])
     if queries.device.type == "cpu":
-        return reduce_candidates_reference(pts, slots, queries, w)
+        return reduce_candidates_reference(pts, slots, queries, w, k)
     raise ValueError(f"reduce_candidates: unsupported device {queries.device}")
 
 

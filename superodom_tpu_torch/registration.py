@@ -25,8 +25,9 @@ plain versions the CPU takes.
 Candidate refresh (``RegistrationConfig.refresh_width`` = W > 0): after
 round 1 the W nearest candidates of every feature at the once-corrected
 pose are materialised once (K9a, :func:`mapstate.reduce_candidates`), and
-the later rounds select their neighbours from those W lanes (K9b,
-:func:`mapstate.select_knn_reduced`) instead of the 8*C gathered ones; the
+the rounds after it select their neighbours from those W lanes (K9b,
+:func:`mapstate.select_knn_reduced`) instead of the 8*C gathered ones —
+round 2, at the pose that made the set, takes them from K9a itself; the
 edges' half reduces to max(W, 2 * edge_knn) lanes.
 """
 
@@ -320,13 +321,17 @@ def plane_correspondences_from_candidates(cand, cvalid,
 def plane_correspondences_from_reduced(red: ReducedCandidates,
                                        reg: RegistrationConfig, pose: Pose,
                                        p_body, mask, plane_res,
-                                       w_pt=None) -> PlaneCorrs:
+                                       w_pt=None, near=None) -> PlaneCorrs:
     """Plane correspondences selected from a once-materialised top-W
     candidate subset (the ICP refresh rounds); ``w_pt`` = the features at
-    ``pose`` where the caller has them already."""
+    ``pose`` where the caller has them already; ``near`` = the
+    ``plane_knn`` nearest of ``red`` at ``w_pt`` where the caller has them
+    already (K9a's second output, in the round that made ``red``)."""
     if w_pt is None:
         w_pt = pose.apply(p_body).contiguous()
-    neigh, sq, nvalid = select_knn_reduced(red, w_pt, reg.plane_knn)
+    if near is None:
+        near = select_knn_reduced(red, w_pt, reg.plane_knn)
+    neigh, sq, nvalid = near
     return _plane_fit(neigh, sq, nvalid, reg, pose, p_body, mask, plane_res,
                       w_pt)
 
@@ -494,12 +499,16 @@ def _edge_correspondences_from_slots(pts, slots, reg: RegistrationConfig,
 def edge_correspondences_from_reduced(red: ReducedCandidates,
                                       reg: RegistrationConfig, pose: Pose,
                                       p_body, mask, line_res,
-                                      w_pt=None) -> EdgeCorrs:
+                                      w_pt=None, near=None) -> EdgeCorrs:
     """Edge correspondences selected from a once-materialised top-W
-    candidate subset (the ICP refresh rounds)."""
+    candidate subset (the ICP refresh rounds); ``w_pt`` and ``near`` as
+    :func:`plane_correspondences_from_reduced` takes them, at
+    ``edge_knn``."""
     if w_pt is None:
         w_pt = pose.apply(p_body).contiguous()
-    neigh, sq, nvalid = select_knn_reduced(red, w_pt, reg.edge_knn)
+    if near is None:
+        near = select_knn_reduced(red, w_pt, reg.edge_knn)
+    neigh, sq, nvalid = near
     return _edge_fit(neigh, sq, nvalid, reg, p_body, mask, line_res)
 
 
@@ -896,16 +905,22 @@ def icp_register(
         w_pt = c.pose.apply(surf_pts).contiguous()
         e_pt = c.pose.apply(edge_pts).contiguous() if use_edges else None
         if reg.refresh_width > 0:
+            # the round that makes the reduced sets takes its neighbours
+            # from the reduction (K9a), the later ones select them (K9b)
+            near = near_e = None
             if red is None:
-                red = reduce_candidates(surf_tab, slots, w_pt,
-                                        reg.refresh_width)
+                red, near = reduce_candidates(surf_tab, slots, w_pt,
+                                              reg.refresh_width,
+                                              reg.plane_knn)
                 if use_edges:
-                    red_e = reduce_candidates(edge_tab, e_slots, e_pt, ew)
+                    red_e, near_e = reduce_candidates(
+                        edge_tab, e_slots, e_pt, ew, reg.edge_knn)
             planes = plane_correspondences_from_reduced(
-                red, reg, c.pose, surf_pts, surf_mask, rt.plane_res, w_pt)
+                red, reg, c.pose, surf_pts, surf_mask, rt.plane_res, w_pt,
+                near)
             lines = edge_correspondences_from_reduced(
                 red_e, reg, c.pose, edge_pts, edge_mask, rt.line_res,
-                e_pt) if use_edges else None
+                e_pt, near_e) if use_edges else None
         else:
             planes, lines = correspondences(c.pose, w_pt, e_pt)
         c = icp_round(c, planes, lines)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
 
 import jax  # noqa: E402
 from test_torch_parallel import _dataset  # noqa: E402

@@ -15,6 +15,7 @@ import collections
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
 
 from superodom_tpu_torch import frontend, kernel_ops, kernels  # noqa: E402
 from superodom_tpu_torch import mapstate, registration  # noqa: E402
@@ -48,7 +49,7 @@ def kernel_instances(dev, n, nq=300):
         slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
         neigh, sq, nvalid = (x.contiguous() for x in mapstate.
                              knn_select_reference(m.pts, slots, q, 5)[:3])
-        red = mapstate.reduce_candidates_reference(m.pts, slots, q, 16)
+        red, _ = mapstate.reduce_candidates_reference(m.pts, slots, q, 16, 5)
         mask = (torch.arange(nq, device=dev) % (5 + j)) != 0
         pose = Pose(quat_mul(so3_exp(torch.tensor([0.01, -0.02, 0.03 * j],
                                                   device=dev)),
@@ -75,7 +76,7 @@ def kernel_instances(dev, n, nq=300):
         out.append({
             "octant_lookup": (m.keys, q, float(cfg.cell_size)),
             "knn_select": (m.pts, slots, q, 5),
-            "reduce_candidates": (m.pts, slots, q, 16),
+            "reduce_candidates": (m.pts, slots, q, 16, 5),
             "select_reduced": (*red, (q + 0.02).contiguous(), 5),
             "plane_fit": (neigh, sq, nvalid, mask, q, qu, res),
             "normal_system": (p_body, *fit[:4], qu, t, a_sq, *edges,
@@ -125,8 +126,8 @@ def _ns_plain(p_body, normal, d, coeff, valid, q, t, a_sq, e_p, e_a, e_b,
 PLAIN = {
     "octant_lookup": mapstate.octant_lookup_reference,
     "knn_select": mapstate.knn_select_reference,
-    "reduce_candidates": lambda *a: tuple(
-        mapstate.reduce_candidates_reference(*a)),
+    "reduce_candidates": lambda *a: (lambda red, near: red + near)(
+        *mapstate.reduce_candidates_reference(*a)),
     "select_reduced": lambda x, y, z, v, q, k:
         mapstate.select_knn_reduced_reference(
             mapstate.ReducedCandidates(x, y, z, v), q, k),

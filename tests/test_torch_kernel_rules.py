@@ -1,5 +1,25 @@
-"""The decision rules of two hand kernels, emulated in numpy where the
+"""The decision rules of four hand kernels, emulated in numpy where the
 kernels cannot run (no card here), against the reference.
+
+* K10 ``voxel_claim`` (``superodom_tpu_torch/csrc/voxel_claim.cu``) splits
+  each claim table of 2^b slots over a cluster of CS blocks: slot s lives
+  in block s >> (b - log2 CS) at offset s & (2^(b - log2 CS) - 1); every
+  masked lane, in whatever order the lanes arrive, takes the minimum of
+  its owner's word, and each block then marks keep for the lane each of
+  its claimed words holds.  Held bit for bit
+  against the JAX package's ``ops.voxel.voxel_downsample_scatter`` at 2^4,
+  2^17 and 2^19 slots and CS = 4, 8 and 16, with the cluster size the
+  kernel picks.
+* K9a ``reduce_candidates`` (``csrc/knn_select.cu``) selects threshold,
+  then rank: tau = the head of rank W-1 among the 32 lanes' sorted lists,
+  the keys <= tau at a place j < W - (the rank of their lane's head)
+  listed lane by lane, each listed key ranked by the count of listed keys
+  below it.  Held against the JAX package's
+  ``mapstate.reduce_candidates`` (``lax.top_k``) on integer-grid ties,
+  missing slots and empty lanes (rows with fewer than W live lanes),
+  lanes with no candidate (C not a multiple of 4); and its k nearest,
+  its first k lanes, against K9b's plain version on its own planes with
+  NaN queries of either sign.
 
 * K9b ``select_reduced`` (``superodom_tpu_torch/csrc/select_reduced.cu``)
   selects by rank: the lanes of a query form a group of 16 (two queries a
@@ -32,7 +52,9 @@ torch.set_num_threads(2)
 import jax.numpy as jnp  # noqa: E402
 
 from superodom_tpu import mapstate as jm  # noqa: E402
+from superodom_tpu.ops import voxel as jv  # noqa: E402
 
+from superodom_tpu_torch import mapstate as tm  # noqa: E402
 from superodom_tpu_torch import registration as tr  # noqa: E402
 
 BIG = np.float32(1e30)
@@ -102,8 +124,6 @@ def test_rank_selection_puts_nan_after_big():
     a NaN's bits, which the unsigned comparison puts after BIG (a signed
     one would put a negative NaN first), as the port's plain version's
     sort puts NaN last; held against it with NaN equal to NaN."""
-    from superodom_tpu_torch import mapstate as tm
-
     rng = np.random.default_rng(7)
     for w, k in ((16, 5), (20, 10)):
         x, y, z, valid, q = grid_rows(rng, 21, w)
@@ -207,3 +227,185 @@ def test_keyed_maximum_ties_and_one_valid_lane():
             assert np.all(np.delete(off, a0, axis=1) == 0.0), (k, r)
         assert sel[-2].tolist() == [True] + [False] * (k - 1)
         assert sel[-1].tolist() == [i == 3 for i in range(k)]
+
+
+# ------------------------------------------------------------------ K10
+
+VC_PART_MAX_BITS, VC_CL_THREADS = 15, 1024  # csrc/voxel_claim.cu
+
+
+def cluster_size(bits, n, n_inst=1):
+    """``vc_cluster_size``: the blocks the table needs at 2^15 slots a
+    block, then more (at least 4 slots a block): up to 16 while a block
+    has over 256 lanes for a launch of at most 4 instances, up to 8 while
+    it has over 2,048 for a fleet."""
+    few = n_inst <= 4
+    max_lg, per_block = (4, VC_CL_THREADS // 4) if few else (
+        3, 2 * VC_CL_THREADS)
+    lg = max(bits - VC_PART_MAX_BITS, 0)
+    while lg < max_lg and bits - lg > 2 and per_block << lg < n:
+        lg += 1
+    return 1 << lg
+
+
+def cluster_claim(xyz, mask, res, bits, cs, rng):
+    """K10's cluster form over a cluster of ``cs`` blocks, the lanes
+    arriving in a shuffled order."""
+    n = len(xyz)
+    c = np.floor(xyz / np.float32(res)).astype(np.int32).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = (c[:, 0] * np.uint32(73856093) + c[:, 1] * np.uint32(19349663)
+             + c[:, 2] * np.uint32(83492791) + np.uint32(0x9E3779B9))
+        h ^= h >> np.uint32(16)
+        h *= np.uint32(0x85EBCA6B)
+        h ^= h >> np.uint32(13)
+        h *= np.uint32(0xC2B2AE35)
+        h ^= h >> np.uint32(16)
+    slot = (h & np.uint32((1 << bits) - 1)).astype(np.int64)
+    part_bits = bits - (cs.bit_length() - 1)
+    owner, off = slot >> part_bits, slot & ((1 << part_bits) - 1)
+    assert owner.max() < cs and np.array_equal((owner << part_bits) | off,
+                                               slot)
+    parts = np.full((cs, 1 << part_bits), 2 ** 31 - 1, np.int64)
+    order = rng.permutation(n)
+    order = order[mask[order]]
+    # one atomicMin a lane, in arrival order
+    np.minimum.at(parts, (owner[order], off[order]), order)
+    # each block marks the lane its claimed slots hold
+    keep = np.zeros(n, bool)
+    keep[parts[parts != 2 ** 31 - 1]] = True
+    return keep
+
+
+def test_cluster_claim_matches_jax_scatter():
+    rng = np.random.default_rng(3)
+    assert cluster_size(17, 10923) == 16 and cluster_size(19, 43691) == 16
+    assert cluster_size(17, 10923, 64) == 8 and cluster_size(17, 1) == 4
+    assert cluster_size(4, 43691) == 4 and cluster_size(14, 4000, 64) == 2
+    for bits, n in ((4, 3000), (17, 10923), (19, 43691)):
+        xyz = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
+        xyz[: n // 2, 2] = -1.5  # a floor: many lanes a voxel
+        xyz[: n // 8] = np.round(xyz[: n // 8])  # lanes on voxel faces
+        mask = rng.random(n) > 0.15
+        for res in (0.2, 0.5):
+            want = np.asarray(jv.voxel_downsample_scatter(
+                jnp.asarray(xyz), jnp.asarray(mask), res, table_bits=bits))
+            css = {cluster_size(bits, n)} | {
+                cs for cs in (4, 8, 16) if bits - cs.bit_length() + 1 >= 2
+                and bits - cs.bit_length() + 1 <= VC_PART_MAX_BITS}
+            for cs in sorted(css):
+                got = cluster_claim(xyz, mask, res, bits, cs, rng)
+                assert np.array_equal(got, want), (bits, res, cs)
+            assert want.any() and want.sum() < mask.sum()
+
+
+# ------------------------------------------------------------------ K9a
+
+
+def threshold_rank_reduce(cand, cvalid, q, w):
+    """K9a's rule: the keys (distance bits << 32 | lane) of each warp lane
+    l = o*4 + s (points s*P .. s*P+P-1 of octant row o, ~0 where there is
+    no point), sorted; tau, the listed keys <= tau and their ranks; the
+    winner of rank r < W at output lane r."""
+    nq, _, three_c = cand.shape
+    C = three_c // 3
+    P = -(-C // 4)
+    cx, cy, cz = (cand[:, :, a * C:(a + 1) * C].reshape(nq, 8 * C)
+                  for a in range(3))
+    with np.errstate(over="ignore", invalid="ignore"):
+        dx, dy, dz = cx - q[:, :1], cy - q[:, 1:2], cz - q[:, 2:]
+        d = ((dx * dx + dy * dy) + dz * dz).astype(np.float32)
+    d = np.where(cvalid, d, BIG).astype(np.float32)  # a missing row: BIG
+    bits = d.view(np.uint32).astype(np.uint64)
+    key = np.full((nq, 32, P), np.uint64(2 ** 64 - 1))
+    for lane in range(32):
+        o, c0 = lane >> 2, (lane & 3) * P
+        for j in range(P):
+            if c0 + j < C:
+                idx = o * C + c0 + j
+                key[:, lane, j] = (bits[:, idx] << np.uint64(32)) | \
+                    np.uint64(idx)
+    key.sort(axis=-1)
+    hd = (key[:, :, 0] >> np.uint64(32)).astype(np.uint32)
+    lanes = np.arange(32)
+    hr = ((hd[:, None, :] < hd[:, :, None]).sum(-1)
+          + ((hd[:, None, :] == hd[:, :, None])
+             & (lanes[None, None, :] < lanes[None, :, None])).sum(-1))
+    assert (np.sort(hr, axis=1) == lanes).all()  # a permutation
+    x, y, z = (np.zeros((nq, w), np.float32) for _ in range(3))
+    valid = np.zeros((nq, w), bool)
+    for r in range(nq):
+        tau = key[r, hr[r] == w - 1, 0][0]
+        # a lane's key at j has hr + j keys below it: j < W - hr to win
+        listed = np.concatenate([
+            key[r, lane][(key[r, lane] <= tau)
+                         & (np.arange(P) < w - hr[r, lane])]
+            for lane in range(32)])
+        assert w <= len(listed) <= 32 * P
+        rank = (listed[None, :] < listed[:, None]).sum(-1)
+        win = np.nonzero(rank < w)[0]
+        assert np.array_equal(np.sort(rank[win]), np.arange(w))
+        for i in win:
+            idx = int(listed[i] & np.uint64(0xFFFFFFFF))
+            x[r, rank[i]], y[r, rank[i]], z[r, rank[i]] = \
+                cx[r, idx], cy[r, idx], cz[r, idx]
+            valid[r, rank[i]] = d[r, idx] < BIG * np.float32(0.5)
+    return x, y, z, valid
+
+
+def grid_candidates(rng, nq, C):
+    """Candidate rows on an integer grid (ties of many lanes), a third of
+    the lanes empty (the BIG sentinel: inf), every octant row of every
+    fifth query and some rows elsewhere missing (fewer than W live)."""
+    cand = rng.integers(-2, 3, (nq, 8, 3 * C)).astype(np.float32)
+    empty = rng.random((nq, 8, C)) < 0.33
+    for a in range(3):
+        cand[:, :, a * C:(a + 1) * C][empty] = BIG
+    row = rng.random((nq, 8)) < 0.7
+    row[::5, 1:] = False
+    cvalid = np.repeat(row, C, axis=1).reshape(nq, 8 * C)
+    q = rng.integers(-1, 2, (nq, 3)).astype(np.float32)
+    return cand, cvalid, q
+
+
+def test_threshold_rank_matches_jax_reduce():
+    for C in (5, 16, 24):
+        rng = np.random.default_rng(C)
+        cand, cvalid, q = grid_candidates(rng, 60, C)
+        for w in (5, 16, 20, 32):
+            got = threshold_rank_reduce(cand, cvalid, q, w)
+            want = jm.reduce_candidates(jnp.asarray(cand), jnp.asarray(cvalid),
+                                        jnp.asarray(q), w)
+            v = np.asarray(want.valid)
+            assert np.array_equal(got[3], v), (C, w)
+            for a, b in zip(got[:3], want[:3]):
+                assert np.array_equal(a[v], np.asarray(b)[v]), (C, w)
+            assert (v.sum(1) < w).any() and v.any()
+
+
+def test_reduced_first_lanes_are_select_knn_reduced():
+    """The plain K9a's k nearest (its first k lanes, BIG where not valid)
+    against K9b's plain version on its own planes at the same queries,
+    every lane, with NaN queries of either sign (their lanes all invalid:
+    K9b ranks them by lane, which is K9a's order)."""
+    rng = np.random.default_rng(11)
+    C, nq = 16, 40
+    pts = rng.integers(-3, 4, (30, 3 * C)).astype(np.float32)
+    pts[rng.random(pts.shape) < 0.2] = BIG
+    slots = rng.integers(-1, 30, (nq, 8)).astype(np.int32)
+    slots[::7] = -1
+    q = rng.integers(-2, 3, (nq, 3)).astype(np.float32)
+    q[1, 0] = np.nan
+    q[2] = -np.float32(np.nan)
+    q[3, 2] = -np.float32(np.nan)
+    for w, k in ((16, 5), (20, 10), (32, 32)):
+        red, near = tm.reduce_candidates_reference(
+            torch.from_numpy(pts), torch.from_numpy(slots),
+            torch.from_numpy(q), w, k)
+        want = tm.select_knn_reduced_reference(red, torch.from_numpy(q), k)
+        for a, b in zip(near, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert np.array_equal(a.numpy(), b.numpy(),
+                                  equal_nan=a.dtype != torch.bool), (w, k)
+        assert not near[2][1:4].any() and near[2].any()
+        assert (~near[2][4:]).any()  # rows with fewer than k valid lanes

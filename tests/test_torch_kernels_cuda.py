@@ -530,18 +530,20 @@ def test_further_paths_replay_bit_for_bit(dev, path):
     _, stats, launched = _replay_twice(dev, cfg)
     rounds = sum(s["n_iterations"] for s in stats)
     n = len(stats)
+    # K9a gives round 2 its neighbours, K9b selects those of rounds 3..
+    refreshing = sum(s["n_iterations"] > 1 for s in stats)
     assert launched["gn_solve"] == 2 * rounds
     if path == "edges":
         assert launched["knn_select"] == launched["octant_lookup"] == 4 * n
-        assert launched["select_reduced"] == 4 * (rounds - n) > 0
+        assert launched["reduce_candidates"] == 4 * refreshing > 0
+        assert launched["select_reduced"] == 4 * (rounds - n - refreshing) > 0
         assert launched["edge_fit"] == 2 * rounds
         assert launched["curvature_edges"] == launched["voxel_claim"] == 2 * n
         assert all(s["edge_stack"] > 0 for s in stats)
     elif path == "parity":
         assert launched["knn_select"] == 2 * n
-        assert launched["select_reduced"] == 2 * (rounds - n) > 0
-        assert launched["reduce_candidates"] == 2 * sum(
-            s["n_iterations"] > 1 for s in stats) > 0
+        assert launched["select_reduced"] == 2 * (rounds - n - refreshing) > 0
+        assert launched["reduce_candidates"] == 2 * refreshing > 0
         assert launched["voxel_claim"] == 0
     else:
         assert launched["knn_select"] == 2 * rounds
@@ -550,20 +552,31 @@ def test_further_paths_replay_bit_for_bit(dev, path):
 
 
 def _assert_reduced_match(pts, slots, q, w, k, q_shift=0.02):
-    """K9a against its plain version, then K9b (from the plain version's
-    lanes, at queries moved as a round of ICP moves them) against its
-    own: ``valid`` identical and every value of a valid lane identical.
-    What a lane that is not valid holds is no part of the contract (the
-    BIG sentinel, or a point of table row 0), except its distance, which
-    is at least BIG / 2.  Returns both plain results."""
-    red_k = kernels.reduce_candidates(pts, slots, q, w)
-    red_r = mapstate.reduce_candidates_reference(pts, slots, q, w)
+    """K9a against its plain version, its k nearest against K9b on its own
+    planes at the same queries (every lane, bit for bit) and against the
+    plain version's (as K9b's contract); then K9b (from the plain
+    version's lanes, at queries moved as a round of ICP moves them)
+    against its own: ``valid`` identical and every value of a valid lane
+    identical.  What a lane that is not valid holds is no part of the
+    contract (the BIG sentinel, or a point of table row 0), except its
+    distance, which is at least BIG / 2.  Returns both plain results."""
+    out = kernels.reduce_candidates(pts, slots, q, w, k)
+    red_k, near_k = out[:4], out[4:]
+    red_r, near_r = mapstate.reduce_candidates_reference(pts, slots, q, w, k)
+    near_b = kernels.select_reduced(*red_k, q, k)
     torch.cuda.synchronize()
     v = red_r.valid
     assert red_k[3].dtype == torch.bool and red_k[3].shape == v.shape
     assert torch.equal(red_k[3], v)
     for a, b in zip(red_k[:3], red_r[:3]):
         assert a.shape == b.shape and torch.equal(a[v], b[v])
+    for a, b in zip(near_k, near_b):
+        assert _same(a, b)
+    vk = near_r[2]
+    assert torch.equal(near_k[2], vk)
+    assert torch.equal(near_k[0][vk], near_r[0][vk])
+    assert torch.equal(near_k[1][vk], near_r[1][vk])
+    assert bool((near_k[1][~vk] == mapstate.BIG).all())
     return red_r, _assert_select_match(red_r, (q + q_shift).contiguous(), k)
 
 
@@ -580,12 +593,13 @@ def _assert_select_match(red, q, k):
 
 
 @pytest.mark.parametrize("w,k", [(5, 5), (16, 5), (16, 10), (20, 5),
-                                 (20, 10)])
+                                 (20, 10), (32, 5), (32, 32)])
 @pytest.mark.parametrize("cap", [16, 24, 32])
 def test_reduce_and_select_reduced_match_plain(dev, cap, w, k):
     """Capacities with and without the vector loads, the widths of the
-    reference-envelope path (16), of its edge half (20) and the least
-    (w = k); rows with fewer than w and fewer than k live candidates."""
+    reference-envelope path (16), of its edge half (20), the least (w = k)
+    and a whole warp (32); rows with fewer than w and fewer than k live
+    candidates."""
     cfg, m, q = _map(dev, cap, seed=cap + w)
     slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
     red, sel = _assert_reduced_match(m.pts, slots, q, w, k)
@@ -644,10 +658,25 @@ def test_reduced_ties_go_to_the_lower_lane(dev):
     assert torch.all(sel[1] == 0.25)
     # the kernels' lanes that are not contract-bound agree here too: all
     # lanes are valid, so the outputs are equal as wholes
-    for a, b in zip(kernels.reduce_candidates(pts, slots, q, 16), red):
+    for a, b in zip(kernels.reduce_candidates(pts, slots, q, 16, 8),
+                    red + tuple(sel)):
         assert torch.equal(a, b)
     for a, b in zip(kernels.select_reduced(*red, q, 8), sel):
         assert torch.equal(a, b)
+
+
+def test_reduced_nan_queries(dev):
+    """Queries with a NaN coordinate of either sign: none of their lanes is
+    valid, and K9a's k nearest are K9b's on its planes in every lane (NaN
+    equal to NaN), at the surface and the edge widths."""
+    cfg, m, q = _map(dev, 16, seed=9)
+    slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
+    q[3, 0] = float("nan")
+    q[5] = -float("nan")
+    q[8, 2] = -float("nan")
+    for w, k in ((16, 5), (20, 10)):
+        red, _ = _assert_reduced_match(m.pts, slots, q, w, k)
+        assert not red.valid[[3, 5, 8]].any() and red.valid.any()
 
 
 def _grid_reduced(dev, nq, w, seed):
@@ -716,13 +745,14 @@ def _cloud(dev, n, seed):
     return xyz.to(dev).contiguous(), mask.to(dev).contiguous()
 
 
-@pytest.mark.parametrize("bits", [4, 17, 19])
+@pytest.mark.parametrize("bits", [4, 17, 19, 20])
 @pytest.mark.parametrize("n", [0, 1, 10923, 43691])
 def test_voxel_claim_matches_plain(dev, n, bits):
     """The lane counts of a decimated VLP-16 and OS1-128 scan and the
     edges; the tables of those sensors and a 16-entry one that makes every
-    lane collide; the resolution changed on the device between launches;
-    repeat runs identical (integer atomics)."""
+    lane collide (the claim table in a cluster's shared memory), and 2^20
+    slots (the global form); the resolution changed on the device between
+    launches; repeat runs identical (integer atomics)."""
     xyz, mask = _cloud(dev, n, seed=n + bits)
     res = torch.tensor(0.2, device=dev)
     keeps = []
@@ -800,14 +830,16 @@ def test_wrappers_check_inputs_and_count(dev):
     # K9 and K10
     slots = mapstate.octant_lookup_reference(m.keys, q, cfg.cell_size)
     n = dict(kernels.launch_counts)
-    red = mapstate.reduce_candidates(m.pts, slots, q, 16)
+    red, _ = mapstate.reduce_candidates(m.pts, slots, q, 16, 5)
     mapstate.select_knn_reduced(red, q, 5)
     assert kernels.launch_counts["reduce_candidates"] == \
         n["reduce_candidates"] + 1
     assert kernels.launch_counts["select_reduced"] == n["select_reduced"] + 1
     assert kernels.launch_counts["knn_select"] == n["knn_select"]
     with pytest.raises(ValueError):  # a width beyond one warp
-        kernels.reduce_candidates(m.pts, slots, q, 33)
+        kernels.reduce_candidates(m.pts, slots, q, 33, 5)
+    with pytest.raises(ValueError):  # k beyond the width
+        kernels.reduce_candidates(m.pts, slots, q, 16, 17)
     with pytest.raises(ValueError):  # k beyond the width
         kernels.select_reduced(*red, q, 17)
     with pytest.raises(ValueError):
@@ -1623,7 +1655,7 @@ def test_batched_launches_take_any_instance_stride(dev):
 
 
 def test_voxel_claim_batched_resolutions_differ(dev):
-    """K10 over four instances in one launch of each pass, at the VLP-16
+    """K10 over four instances in one launch, at the VLP-16
     and OS1-128 tables: each its own cloud and resolution (0.1-0.8 m, as
     LIO's auto voxel size gives instances resolutions of their own), then
     one cloud shared by the four (a stride of 0) under their four
@@ -1647,6 +1679,35 @@ def test_voxel_claim_batched_resolutions_differ(dev):
                 assert torch.equal(one, plain), (bits, b)
             kept = got.sum(dim=1).tolist()
             assert kept == sorted(kept, reverse=True) and kept[0] > kept[3]
+
+
+@pytest.mark.parametrize("n_inst", [1, 4, 64])
+def test_voxel_claim_fleets(dev, n_inst):
+    """K10 over fleets of 1, 4 and 64 OS1-128 scans (43,691 lanes, 2^19
+    slots: one cluster of 16 blocks an instance) in one launch, each with
+    its own cloud and resolution, then one cloud shared by all (a stride
+    of 0), twice: every keep-mask is its single launch's and the plain
+    version's, to the bit."""
+    bits = 19
+    cs, smem, active = kernels.voxel_claim_clusters(bits, 43691, n_inst)
+    assert (cs, smem) == (16, 128 * 1024) and active >= 1
+    assert kernels.voxel_claim_clusters(20, 43691, n_inst) == (0, 0, 0)
+    clouds = [_cloud(dev, 43691, seed=70 + s) for s in range(n_inst)]
+    xyz = torch.stack([c[0] for c in clouds])
+    mask = torch.stack([c[1] for c in clouds])
+    res = 0.1 + 0.7 * torch.arange(n_inst, device=dev) / max(n_inst - 1, 1)
+    for x in (xyz, xyz[0].expand(n_inst, -1, -1)):
+        n = kernels.launch_counts["voxel_claim"]
+        got = kernels.voxel_claim_batched(x, mask, res, bits)
+        again = kernels.voxel_claim_batched(x, mask, res, bits)
+        assert kernels.launch_counts["voxel_claim"] == n + 2
+        assert torch.equal(got, again)
+        for b in range(n_inst):
+            one = kernels.voxel_claim(x[b].contiguous(), mask[b], res[b],
+                                      bits)
+            plain = voxel.voxel_downsample_scatter_reference(
+                x[b], mask[b], res[b], bits)
+            assert torch.equal(got[b], one) and torch.equal(one, plain), b
 
 
 def test_curvature_edges_batched_wraps_within_each_instance(dev):

@@ -363,15 +363,24 @@ def _reduce_both(C, case):
     cand, cvalid = jm.gather_candidates(mj, cfg, q)
     red_j = jax.device_get(jm.reduce_candidates(cand, cvalid, q, W))
     slots = tm.octant_lookup_reference(T(mj.keys), T(q), cfg.cell_size)
-    red_t = tm.reduce_candidates(T(mj.pts), slots, T(q), W)
-    return q, red_j, red_t, np.asarray(cvalid), np.asarray(cand)
+    red_t, near_t = tm.reduce_candidates(T(mj.pts), slots, T(q), W, 5)
+    return q, red_j, (red_t, near_t), np.asarray(cvalid), np.asarray(cand)
 
 
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("C", [16, 32])
 def test_reduce_candidates_matches_jax(C, case):
-    q, red_j, red_t, cvalid, cand = _reduce_both(C, case)
+    """The reduced set, and its 5 nearest lanes at the same queries against
+    the JAX package's select_knn_reduced of its own reduced set."""
+    q, red_j, (red_t, near_t), cvalid, cand = _reduce_both(C, case)
     assert isinstance(red_t, tm.ReducedCandidates)
+    pj, sj, vj = (np.asarray(a) for a in jm.select_knn_reduced(red_j, q, 5))
+    pt, st, vt = (a.numpy() for a in near_t)
+    assert pt.shape == (NQ, 5, 3) and st.shape == (NQ, 5)
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_array_equal(pt[vj], pj[vj])
+    np.testing.assert_allclose(st[vj], sj[vj], rtol=1e-6)
+    assert np.all(st[~vj] == tm.BIG)
     assert red_t.x.shape == (NQ, W) and red_t.valid.dtype == torch.bool
     np.testing.assert_array_equal(red_t.valid.numpy(), red_j.valid)
     v = red_j.valid
@@ -417,7 +426,7 @@ def test_reduced_then_selected_equals_full_selection():
     query (W >= k): K9a + K9b against K2, lanes and points exact."""
     cfg, mj, q = _refresh_case_map(16, "full")
     slots = tm.octant_lookup_reference(T(mj.keys), T(q), cfg.cell_size)
-    red = tm.reduce_candidates(T(mj.pts), slots, T(q), W)
+    red, _ = tm.reduce_candidates(T(mj.pts), slots, T(q), W, 5)
     pr, sr, vr = tm.select_knn_reduced(red, T(q), 5)
     pf, sf, vf, _ = tm.knn_select(T(mj.pts), slots, T(q), 5)
     assert torch.equal(pr, pf) and torch.equal(sr, sf) and torch.equal(vr, vf)
@@ -428,14 +437,14 @@ def test_refresh_dispatch():
     tensors only and raise on anything else."""
     cfg, mj, q = _refresh_case_map(16, "young")
     slots = tm.octant_lookup_reference(T(mj.keys), T(q), cfg.cell_size)
-    a = tm.reduce_candidates(T(mj.pts), slots, T(q), W)
-    b = tm.reduce_candidates_reference(T(mj.pts), slots, T(q), W)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a, near_a = tm.reduce_candidates(T(mj.pts), slots, T(q), W, 5)
+    b, near_b = tm.reduce_candidates_reference(T(mj.pts), slots, T(q), W, 5)
+    assert all(torch.equal(x, y) for x, y in zip(a + near_a, b + near_b))
     sa = tm.select_knn_reduced(a, T(q), 5)
     sb = tm.select_knn_reduced_reference(a, T(q), 5)
     assert all(torch.equal(x, y) for x, y in zip(sa, sb))
     with pytest.raises(ValueError):
-        kernels.reduce_candidates(T(mj.pts), slots, T(q), W)
+        kernels.reduce_candidates(T(mj.pts), slots, T(q), W, 5)
     with pytest.raises(ValueError):
         kernels.select_reduced(a.x, a.y, a.z, a.valid, T(q), 5)
     assert {"reduce_candidates", "select_reduced", "voxel_claim"} <= set(

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
 
 import jax  # noqa: E402
 from test_torch_paths import _tiny as _tiny_path  # noqa: E402

@@ -134,10 +134,16 @@ def test_ab_on_a_tiny_config(capsys):
 
 
 def test_kernel_ab_cases_and_checks(monkeypatch):
-    """Every case of a recorded K9b / K11b launch set at fleets of 1 and 3
-    launches on fleet-shaped inputs and passes its check against itself;
-    the checks catch a changed valid K9b lane and a changed K11b output off
-    the gate margins, and pass a change in an invalid or a flagged lane."""
+    """Every case of a recorded K9a / K9b / K10 / K11b launch set at fleets
+    of 1 and 3 launches on fleet-shaped inputs and passes its check
+    against itself; the checks catch a changed valid K9a or K9b lane, a
+    changed K10 keep or round-2 neighbour and a changed K11b output off
+    the gate margins, and pass a change in an invalid or a flagged
+    lane."""
+    import types
+
+    from superodom_tpu_torch.ops import voxel
+
     g = np.random.default_rng(5)
 
     def reduced(w, nq=7):
@@ -154,29 +160,59 @@ def test_kernel_ab_cases_and_checks(monkeypatch):
         (line + 0.01 * g.normal(size=(m, k, 3))).astype(np.float32))
     edge = (neigh, (neigh ** 2).sum(-1), torch.ones(m, k, dtype=torch.bool),
             torch.ones(m, dtype=torch.bool), torch.tensor(0.5), 3, 0.2)
+    C, nq = 16, 9
+    pts = torch.from_numpy(g.integers(-3, 4, (12, 3 * C)).astype(np.float32))
+    slots = torch.from_numpy(g.integers(-1, 12, (nq, 8)).astype(np.int32))
+    slots[0] = -1  # a query with no valid lane
+    q = torch.from_numpy(g.integers(-2, 3, (nq, 3)).astype(np.float32))
+    cloud = torch.from_numpy(g.uniform(-5, 5, (300, 3)).astype(np.float32))
+    live = torch.from_numpy(g.random(300) < 0.9)
     seen = {("select_reduced", 16): (*reduced(16), 5),
-            ("select_reduced", 20): (*reduced(20), 10), "edge_fit": edge}
+            ("select_reduced", 20): (*reduced(20), 10), "edge_fit": edge,
+            ("reduce_candidates", 16): (pts, slots, q, 16, 5),
+            ("voxel_claim", "path V"): (cloud, live, torch.tensor(0.5), 10)}
 
     def select(x, y, z, valid, q, k):
         return mapstate.select_knn_reduced_reference(
             mapstate.ReducedCandidates(x, y, z, valid), q, k)
 
-    def fit(*args):
-        each = [registration.edge_fit_reference(*(t[i] for t in args[:5]),
-                                                *args[5:])
-                for i in range(args[0].shape[0])]
-        return tuple(torch.stack(o) for o in zip(*each))
+    def each(fn, n, *args):
+        outs = [fn(*(a[i] if isinstance(a, torch.Tensor) else a
+                     for a in args)) for i in range(n)]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        return tuple(torch.stack(o) for o in zip(*outs))
 
+    def fit(*args):
+        return each(registration.edge_fit_reference, args[0].shape[0], *args)
+
+    def reduce(*args):
+        return each(lambda *a: (lambda r, n: r + n)(
+            *mapstate.reduce_candidates_reference(*a)), args[0].shape[0],
+            *args)
+
+    def claim(*args):
+        return each(voxel.voxel_downsample_scatter_reference,
+                    args[0].shape[0], *args)[0]
+
+    # a build with K9a's k nearest and K10's cluster form
+    monkeypatch.setattr(kernels, "_lib",
+                        types.SimpleNamespace(so_voxel_claim_clusters=None))
     monkeypatch.setattr(kernels, "select_reduced", select)
     monkeypatch.setattr(kernels, "edge_fit_batched", fit)
+    monkeypatch.setattr(kernels, "reduce_candidates_batched", reduce)
+    monkeypatch.setattr(kernels, "voxel_claim_batched", claim)
     runs = kernel_ab.cases(seen, fleets=(1, 3))
     assert sorted(runs) == sorted(
         [f"select_reduced {kk} of {w}, B={b}" for w, kk in ((16, 5), (20, 10))
-         for b in (1, 3)] + [f"edge_fit {m} x {k}, B={b}" for b in (1, 3)])
+         for b in (1, 3)] + [f"edge_fit {m} x {k}, B={b}" for b in (1, 3)]
+        + [f"reduce_candidates 16{r}, B={b}" for b in (1, 3)
+           for r in ("", " + round 2's 5")]
+        + [f"voxel_claim path V 300 x 2^10, B={b}" for b in (1, 3)])
     for label, (launch, same) in runs.items():
         got = launch()
         b = int(label.rsplit("=", 1)[1])
-        assert got[0].shape[0] == (b * 7 if "select" in label else b), label
+        first = got if isinstance(got, torch.Tensor) else got[0]
+        assert first.shape[0] == (b * 7 if "select" in label else b), label
         assert same(got, launch()), label
 
     a = select(*seen[("select_reduced", 16)])
@@ -186,6 +222,22 @@ def test_kernel_ab_cases_and_checks(monkeypatch):
         sq = a[1].clone()
         sq[at] += 1.0
         assert kernel_ab.same_valid_lanes((a[0], sq, a[2]), a) is ok
+    r = reduce(pts[None], slots[None], q[None], 16, 5)
+    v = r[3]
+    for at, ok in ((tuple(int(i) for i in torch.nonzero(v)[0]), False),
+                   (tuple(int(i) for i in torch.nonzero(~v)[0]), True)):
+        x = r[0].clone()
+        x[at] += 1.0
+        assert kernel_ab.same_valid_planes((x, *r[1:]), r) is ok
+    round2 = runs["reduce_candidates 16 + round 2's 5, B=1"][1]
+    sq = r[5].clone()
+    sq[0, 0, 0] = float("nan")
+    assert round2(r, r) and not round2((*r[:5], sq, r[6]), r)
+    keep = runs["voxel_claim path V 300 x 2^10, B=1"]
+    got = keep[0]()
+    flipped = got.clone()
+    flipped[0, 7] = ~flipped[0, 7]
+    assert keep[1](got, got) and not keep[1](flipped, got)
     e = fit(*(t[None] for t in edge[:5]), *edge[5:])
     coeff = e[2].clone()
     coeff[0, 3] += 1.0
