@@ -75,6 +75,12 @@ GN_MAX_ROW_BYTES = 216 * 1024
 # to 16 blocks x 2^15 slots; larger tables take its global form
 # (csrc/voxel_claim.cu)
 VOXEL_CLUSTER_MAX_BITS = 19
+# K11a stages a tile of CURVATURE_TILE lanes a block, CURVATURE_LANES
+# consecutive lanes a thread; N must leave every tile's lane offsets
+# (halo included) in 32 bits (csrc/curvature_edges.cu)
+CURVATURE_LANES = 3
+CURVATURE_TILE = CURVATURE_LANES * 128
+CURVATURE_MAX_N = 2**31 - 1 - 2 * CURVATURE_TILE
 
 launch_counts = {name: 0 for name in KERNELS + LIBRARY_KERNELS}
 
@@ -522,6 +528,9 @@ def curvature_edges_batched(xyz: torch.Tensor, ring: torch.Tensor,
     if not 1 <= half_window <= 16:
         raise ValueError(f"curvature_edges: half_window {half_window} "
                          f"outside 1..16")
+    if N > CURVATURE_MAX_N:
+        raise ValueError(f"curvature_edges: {N} lanes, at most "
+                         f"{CURVATURE_MAX_N}")
     out = torch.empty((n, N), dtype=torch.bool, device=dev)
     rc = load().so_curvature_edges(
         _p(xyz), _p(ring), _p(mask), N, int(half_window),

@@ -1,7 +1,7 @@
 """Interleaved A/B of kernel builds on the card: K9a
-``reduce_candidates``, K9b ``select_reduced``, K10 ``voxel_claim`` and
-K11b ``edge_fit`` of this tree against builds of other source trees, on
-the same inputs, in one process.
+``reduce_candidates``, K9b ``select_reduced``, K10 ``voxel_claim``, K11a
+``curvature_edges`` and K11b ``edge_fit`` of this tree against builds of
+other source trees, on the same inputs, in one process.
 
     # this tree against a parent commit unpacked into a git-ignored
     # directory (git archive), and against an edited copy of csrc/
@@ -21,18 +21,22 @@ replay benchmark's world (seed 7) through ``OdometryRunner`` under path E
 (``parity_config("os1")`` with edges) on the card, recording the
 arguments of the last scan's K9a and K9b launches on the surface map (16
 lanes, 5 of them) and on the edge map (20, 10 of them), of its K11b
-launch (512 lines, k = 10) and of its K10 launch (the edge stream); and 4
-scans of path V (``ship_config("vlp16")``), recording its K10 launch.  A
-fleet of B takes B copies of them (K9b's queries flattened, the others'
-instance dimension, each instance its own copy), as ``kernel_ops``' vmap
-rules launch them.
+launch (512 lines, k = 10), of its K10 launch (the edge stream) and of
+its K11a launch (the full-width scan, 131,072 lanes, its ring all zeros:
+the stencil wraps); and 4 scans of path V (``ship_config("vlp16")``),
+recording its K10 launch.  K11a also runs on a ring-major sweep of a
+room with poles (``ring_sweep(128, 1024)`` with its rings) at path E's
+arguments.  A fleet of B takes B copies of them (K9b's queries
+flattened, the others' instance dimension, each instance its own copy),
+as ``kernel_ops``' vmap rules launch them; K11a also with one cloud
+shared by the B instances (a stride of 0).
 
 The cases: K9a; K9a with round 2's K9b (a build whose K9a has no k
-nearest launches K9b on its planes, as its round 2 did); K9b; K10; K11b.
-Every build's outputs are held against this tree's: K9a's planes in
-validity and every valid lane, the k nearest of round 2 and K10's
-keep-masks bit for bit, K9b in every valid lane, K11b outside the lanes
-that ``edge_gate_margin_lanes`` flags.  Each case is timed as
+nearest launches K9b on its planes, as its round 2 did); K9b; K10; K11a;
+K11b.  Every build's outputs are held against this tree's: K9a's planes
+in validity and every valid lane, the k nearest of round 2 and K10's and
+K11a's keep-masks bit for bit, K9b in every valid lane, K11b outside the
+lanes that ``edge_gate_margin_lanes`` flags.  Each case is timed as
 ``utils.device_ms`` times it (20 launches in one CUDA graph, the median
 of 50 replays), once a build in each of 4 turns, the builds in a
 palindrome (this, A, B, B, A, this, ...); the medians over the turns are
@@ -55,7 +59,7 @@ import torch
 
 from superodom_tpu_torch import kernels, registration
 from superodom_tpu_torch.config import parity_config, ship_config
-from superodom_tpu_torch.io.datasets import bench_dataset
+from superodom_tpu_torch.io.datasets import bench_dataset, ring_sweep
 from superodom_tpu_torch.runner import OdometryRunner
 from superodom_tpu_torch.tools.profile import device_label
 from superodom_tpu_torch.utils import device_ms
@@ -66,7 +70,9 @@ SCANS_V = 4  # path V thins every scan through K10
 TURNS = 4
 # the C entry points the timed wrappers call
 ENTRIES = ("so_select_reduced", "so_edge_fit", "so_reduce_candidates",
-           "so_voxel_claim")
+           "so_voxel_claim", "so_curvature_edges")
+# K11a's sweep: an OS1-128's rings x azimuths
+SWEEP = (128, 1024)
 # K9a's arguments in a build without its k nearest: (pts, C, slots,
 # queries, nq, w, x, y, z, valid, n_inst, istride, stream)
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
@@ -172,6 +178,8 @@ def _record(cfg, n_scans, dev, names, seen, tag=""):
         if name in ("select_reduced", "reduce_candidates"):
             return (name, args[0].shape[1] if name == "select_reduced"
                     else args[3])
+        if name == "curvature_edges":
+            return (name, "path E scan")
         return (name, tag) if name == "voxel_claim" else name
 
     def recorder(name):
@@ -192,14 +200,21 @@ def _record(cfg, n_scans, dev, names, seen, tag=""):
 
 
 def record_paths(dev: torch.device):
-    """The recorded arguments: path E's last K9a, K9b (each width), K11b
-    and K10 launches, and path V's last K10 launch."""
+    """The recorded arguments: path E's last K9a, K9b (each width), K11b,
+    K10 and K11a launches, path V's last K10 launch, and K11a on the
+    ring-major sweep at path E's arguments."""
     seen = {}
     _record(dataclasses.replace(parity_config("os1"), use_edge_features=True),
             SCANS, dev, ("select_reduced", "reduce_candidates", "edge_fit",
-                         "voxel_claim"), seen, "edge stream")
+                         "voxel_claim", "curvature_edges"), seen,
+            "edge stream")
     _record(ship_config("vlp16"), SCANS_V, dev, ("voxel_claim",), seen,
             "path V")
+    xyz, ring = ring_sweep(*SWEEP)
+    seen[("curvature_edges", "ring-major sweep")] = (
+        torch.from_numpy(xyz).to(dev), torch.from_numpy(ring).to(dev),
+        torch.ones(len(xyz), dtype=torch.bool, device=dev),
+        *seen[("curvature_edges", "path E scan")][3:])
     torch.cuda.synchronize()
     return seen
 
@@ -241,6 +256,18 @@ def cases(seen, fleets=FLEETS):
             out[f"voxel_claim {tag} {xyz.shape[0]} x 2^{bits}, B={B}"] = (
                 lambda rep=rep, bits=bits: claim(*rep, bits),
                 lambda a, b: torch.equal(a, b))
+    for (_, tag), args in sorted((k, v) for k, v in seen.items()
+                                 if k[0] == "curvature_edges"):
+        xyz, ring, mask, *rest = args
+        for B in fleets:
+            for form, rep in (
+                    ("", [_copies(t, B) for t in (xyz, ring, mask)]),
+                    (" shared", [t.expand((B,) + t.shape)
+                                 for t in (xyz, ring, mask)])):
+                out[f"curvature_edges {tag}{form} {xyz.shape[0]}, B={B}"] = (
+                    lambda rep=rep, rest=rest:
+                    kernels.curvature_edges_batched(*rep, *rest),
+                    lambda a, b: torch.equal(a, b))
     neigh, sq, nvalid, mask, line_res, min_nb, inlier = seen["edge_fit"]
     for B in fleets:
         rep = [_copies(t, B) for t in (neigh, sq, nvalid, mask, line_res)]

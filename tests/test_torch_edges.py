@@ -80,6 +80,179 @@ def test_curvature_edge_extraction_matches_jax_bit_for_bit():
     assert not out[5][[200, 300]].any() and not out[5][n - 45:].any()
 
 
+def _cu_defines(name):
+    """The integer ``#define``s of ``csrc/<name>.cu``."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(kernels.__file__), "csrc",
+                        f"{name}.cu")
+    with open(path) as f:
+        text = f.read()
+    return {k: int(v) for k, v in
+            re.findall(r"^#define (\w+) (\d+)\b", text, re.M)}
+
+
+def _curvature_kernel_rule(xyz, ring, mask, hw, thr, min_range, lanes,
+                           threads, max_hw):
+    """numpy emulation of csrc/curvature_edges.cu, op for op in float32:
+    tiles of lanes * threads lanes staged with a halo of ``hw`` a side
+    (int32 offsets; contiguous inside an instance, the wrap only in its
+    first and last tile, the exact modulo where N <= 2 hw); the gate
+    first, from the lanes + 1 ballot words of each warp (bit l of word j
+    of warp w: staged positions s = 32 (lanes w + j) + l and s + 1 live
+    and on one ring), a lane's 2 hw window bits taken by a 32-bit funnel
+    shift of the two words its window starts in, read from the lanes
+    that keep them; thread t owning ``lanes`` consecutive lanes and
+    streaming its window of lanes + 2 hw staged points once into their
+    select-free sums, each in the plain order -hw..-1, +1..hw; the
+    curvature only for live lanes.  Staged positions past the tile's span
+    hold NaN (uninitialised shared memory on the card).  Returns the edge
+    mask and the live lanes' curvatures (NaN elsewhere)."""
+    n = len(xyz)
+    tile = lanes * threads
+    cap = tile + 2 * max_hw
+    every = np.uint64((1 << (2 * hw)) - 1)
+    den = np.float32(2.0 * hw)
+    f32 = np.float32
+    out = np.zeros(n, bool)
+    curvs = np.full(n, np.nan, np.float32)
+    t = np.arange(threads)
+    wb = lanes * (t >> 5)  # each thread's warp's first word
+    for base in range(0, n, tile):
+        tn = min(tile, n - base)
+        span = tn + 2 * hw
+        g = np.int32(base - hw) + np.arange(span, dtype=np.int32)
+        if g[0] >= 0 and base - hw + span <= n:
+            j = g
+        elif n > 2 * hw:
+            j = np.where(g < 0, g + np.int32(n),
+                         np.where(g >= n, g - np.int32(n), g))
+        else:
+            j = np.fmod(np.fmod(g, np.int32(n)) + np.int32(n), np.int32(n))
+        sx = np.full((cap, 3), np.nan, np.float32)
+        sr = np.zeros(cap, np.int32)
+        sm = np.zeros(cap, bool)
+        sx[:span], sr[:span], sm[:span] = xyz[j], ring[j], mask[j]
+        # word j of every warp (a word the warps' windows reach: at most
+        # tile / 32 + 1 of them, all inside the staged capacity)
+        s = np.arange(32 * (tile // 32 + 1))
+        assert s[-1] + 1 <= cap
+        ok = s + 1 < span
+        q = np.zeros(len(s), bool)
+        q[ok] = sm[s[ok]] & sm[s[ok] + 1] & (sr[s[ok]] == sr[s[ok] + 1])
+        words = (q.reshape(-1, 32).astype(np.uint64)
+                 << np.arange(32, dtype=np.uint64)).sum(1)
+        t0 = lanes * t
+        p, rng, live = [], [], []
+        for r in range(lanes):
+            a = t0 + r
+            i = (a >> 5) - wb  # the lane that keeps the first word
+            assert i.min() >= 0 and i.max() + 1 <= lanes
+            lo, hi = words[wb + i], words[wb + i + 1]
+            bits = ((hi << np.uint64(32)) | lo) >> (a & 31).astype(np.uint64)
+            pr = sx[a + hw]
+            nr = np.sqrt((pr[:, 0] * pr[:, 0] + pr[:, 1] * pr[:, 1])
+                         + pr[:, 2] * pr[:, 2])
+            p.append(pr)
+            rng.append(nr)
+            live.append((a < tn) & ((bits & every) == every)
+                        & (nr > min_range))
+        acc = [np.zeros((threads, 3), np.float32) for _ in range(lanes)]
+        for k in range(lanes + 2 * hw):
+            qk = sx[t0 + k]
+            for r in range(lanes):
+                off = k - r - hw
+                if off != 0 and -hw <= off <= hw:
+                    acc[r] = acc[r] + (qk - p[r])
+        for r in range(lanes):
+            a = acc[r]
+            curv = np.sqrt((a[:, 0] * a[:, 0] + a[:, 1] * a[:, 1])
+                           + a[:, 2] * a[:, 2]) / (
+                den * np.where(rng[r] < f32(1e-6), f32(1e-6), rng[r]))
+            keep = live[r] & (curv > f32(thr))
+            lane = t0 + r
+            out[base + lane[lane < tn]] = keep[lane < tn]
+            on = (lane < tn) & live[r]
+            curvs[base + lane[on]] = curv[on]
+    return out, curvs
+
+
+def _plain_order_curvatures(xyz, hw):
+    """Each lane's curvature from rolled arrays, the sum in the plain
+    order -hw..-1, +1..hw (every neighbour counted: a lane whose gate
+    passes)."""
+    acc = np.zeros_like(xyz)
+    for off in range(-hw, hw + 1):
+        if off:
+            acc = acc + (np.roll(xyz, -off, 0) - xyz)
+    rng = np.sqrt((xyz[:, 0] * xyz[:, 0] + xyz[:, 1] * xyz[:, 1])
+                  + xyz[:, 2] * xyz[:, 2])
+    return np.sqrt((acc[:, 0] * acc[:, 0] + acc[:, 1] * acc[:, 1])
+                   + acc[:, 2] * acc[:, 2]) / (
+        np.float32(2.0 * hw) * np.where(rng < np.float32(1e-6),
+                                        np.float32(1e-6), rng))
+
+
+def test_curvature_kernel_rule_matches_jax():
+    """K11a's kernel rule (``_curvature_kernel_rule``, at the tile and the
+    lanes a thread that csrc/curvature_edges.cu defines) against the
+    port's plain version bit for bit at N of 1, 2, 3, 7, 10, 11 (narrower
+    than some stencils: lanes see themselves and neighbours twice), T - 1,
+    T, T + 1 and 2T + 5 for the tile T (the wrap in the first and last
+    tile only, a short last tile), each at half windows 1, 5 and 16; on a
+    ring-major sweep with its rings, the zero ring (the wrap is live) and
+    rings of 33 lanes (a boundary at every bit of a 32-lane word) with
+    mask holes 2w + 2 apart (windows ending on a hole, and just inside
+    one) and NaN / inf rows; at thresholds 0.2 and -1; every live lane's
+    curvature bit for bit the sum in the plain order.  JAX's
+    ``curvature_edge_extraction`` is held to both at every N with one half
+    window each (w = 16 at N = 2, where lanes see themselves; one XLA
+    compile a pair, ~0.2-0.7 s each, keeps the test within seconds)."""
+    d = _cu_defines("curvature_edges")
+    lanes, threads, max_hw = d["CE_R"], d["CE_THREADS"], d["CE_MAX_HW"]
+    tile = lanes * threads
+    assert (lanes, tile) == (kernels.CURVATURE_LANES, kernels.CURVATURE_TILE)
+    assert lanes % 2 == 1  # the stencil's shared reads hit 32 banks
+    sweep, sweep_ring = ring_sweep(8, 2 * tile // 8 + 2)
+    jax_fn = jax.jit(jf.curvature_edge_extraction, static_argnums=(3,))
+    sizes = (1, 2, 3, 7, 10, 11, tile - 1, tile, tile + 1, 2 * tile + 5)
+    jax_hw = dict(zip(sizes, (5, 16, 1, 5, 1, 5, 1, 5, 1, 5)))
+    edges = held = 0
+    for n in sizes:
+        xyz = sweep[:n]
+        bad = xyz.copy()
+        bad[n // 3] = np.nan
+        bad[n // 2, 1] = np.inf
+        bad[(2 * n) // 3, 2] = -np.inf
+        for hw in (1, 5, 16):
+            holes = np.ones(n, bool)
+            holes[n // 4::2 * hw + 2] = False
+            cases = [(xyz, sweep_ring[:n], np.ones(n, bool)),
+                     (xyz, np.zeros(n, np.int32), np.ones(n, bool)),
+                     (bad, ((np.arange(n) + 1) // 33).astype(np.int32),
+                      holes)]
+            for x, r, m in cases:
+                with np.errstate(all="ignore"):
+                    want = _plain_order_curvatures(x, hw)
+                for thr in (0.2, -1.0):
+                    with np.errstate(all="ignore"):
+                        got, curv = _curvature_kernel_rule(
+                            x, r, m, hw, thr, 0.5, lanes, threads, max_hw)
+                    live = ~np.isnan(curv)
+                    np.testing.assert_array_equal(curv[live], want[live])
+                    plain = frontend.curvature_edge_extraction_reference(
+                        T(x), T(r), T(m), hw, thr, 0.5).numpy()
+                    np.testing.assert_array_equal(got, plain,
+                                                  f"n={n} w={hw} thr={thr}")
+                    if jax_hw[n] == hw:
+                        np.testing.assert_array_equal(plain, np.asarray(
+                            jax_fn(x, r, m, hw, np.float32(thr),
+                                   np.float32(0.5))))
+                        held += 1
+                    edges += int(plain.sum())
+    assert held == len(sizes) * 6 and edges > 10000
+
+
 @pytest.fixture(scope="module")
 def poles():
     """A lattice of vertical poles (edge map) inside a box room (surface

@@ -12,7 +12,10 @@ distances, and the selection by rank at every group width (1-32
 lanes, k = 1 and k = width, an odd query count, ties of three, a NaN
 query); the voxel claim over lane counts, table sizes, a resolution
 that changes on the device and repeat runs; the curvature edges over
-wrapped lanes, ring boundaries, padded tails and NaN rows; the line fit
+wrapped lanes, ring boundaries, padded tails and NaN rows, and over its
+tiles (N around multiples of the tile, inputs at element offsets 1-3,
+odd instance strides, 64 instances, a shared cloud, half windows 1, 5
+and 16); the line fit
 over query counts, ties in the inlier count (of two and of three lines),
 rows with no or one valid neighbour and sentinel neighbours, every k of
 its 16-lane group and an odd group count over a fleet; the Gauss-Newton kernel with 0, 1 and
@@ -910,6 +913,101 @@ def test_curvature_edges_bitwise(dev, case):
             _assert_curvature_bitwise(x, torch.zeros_like(r), m)
         empty = _assert_curvature_bitwise(xyz[:0], ring[:0], mask[:0])
         assert empty.shape == (0,)
+
+
+def _assert_curvature_fleet(xyz, ring, mask, w, thr=0.2, min_range=0.5):
+    """One batched K11a launch (counted once) against the plain version
+    of every instance, bit for bit; returns the edge masks."""
+    before = kernels.launch_counts["curvature_edges"]
+    got = kernels.curvature_edges_batched(xyz, ring, mask, w, thr, min_range)
+    assert kernels.launch_counts["curvature_edges"] == before + 1
+    for b in range(xyz.shape[0]):
+        plain = frontend.curvature_edge_extraction_reference(
+            xyz[b], ring[b], mask[b], w, thr, min_range)
+        differ = int((got[b] != plain).sum())
+        assert differ == 0, f"instance {b}: {differ} lanes differ (w={w})"
+    return got
+
+
+def _sweep_lanes(dev, n):
+    """The first ``n`` lanes of an OS1-128 sweep (128 x 1,024) with its
+    rings, repeated past 131,072, with a few masked lanes and NaN / inf
+    rows: (xyz [n, 3], ring [n], mask [n]) on the card."""
+    xyz, ring = ring_sweep(128, 1024)
+    reps = -(-n // len(xyz))
+    xyz = torch.from_numpy(np.tile(xyz, (reps, 1))[:n]).to(dev)
+    ring = torch.from_numpy(np.tile(ring, reps)[:n]).to(dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[n // 5::97] = False
+    xyz[n // 3] = float("nan")
+    xyz[n // 2, 1] = float("inf")
+    return xyz.contiguous(), ring.contiguous(), mask
+
+
+@pytest.mark.parametrize("case", ["tile_sizes", "offsets", "odd_stride",
+                                  "ring_major_b64", "shared"])
+def test_curvature_edges_tiles_and_alignment(dev, case):
+    """K11a's staging: N = k T - 1, k T, k T + 1 for its tile T
+    (``kernels.CURVATURE_TILE``) and N not a multiple of 4 (a short last
+    tile, the wrap in the first and last); clouds, rings and masks at
+    element offsets 1, 2 and 3 into larger buffers (the 16-byte loads'
+    peel); instances of an odd N one after another (every other
+    instance's base unaligned); B = 64 instances over the ring-major sweep
+    and its zero ring, each instance shifted; one cloud shared by 16
+    instances (a stride of 0) — at half windows 1, 5 and 16, bit for bit
+    against the plain version of every instance, one launch a call."""
+    T = kernels.CURVATURE_TILE
+    if case == "tile_sizes":
+        for n in (T - 1, T, T + 1, 2 * T - 1, 2 * T + 1, 3 * T + 2, 4097,
+                  131071):
+            xyz, ring, mask = _sweep_lanes(dev, n)
+            for w in (1, 5, 16):
+                _assert_curvature_fleet(xyz[None], ring[None], mask[None], w)
+                _assert_curvature_fleet(xyz[None], torch.zeros_like(ring)[None],
+                                        mask[None], w, thr=-1.0)
+    elif case == "offsets":
+        n = 3 * T + 7
+        xyz, ring, mask = _sweep_lanes(dev, n)
+        for off in (1, 2, 3):
+            bx = torch.empty(3 * n + 8, device=dev)
+            br = torch.empty(n + 8, dtype=torch.int32, device=dev)
+            bm = torch.zeros(n + 32, dtype=torch.bool, device=dev)
+            x = bx[off:off + 3 * n].view(n, 3)
+            r, m = br[off:off + n], bm[5 * off:5 * off + n]
+            x.copy_(xyz)
+            r.copy_(ring)
+            m.copy_(mask)
+            assert x.data_ptr() % 16 and r.data_ptr() % 16
+            for w in (1, 5, 16):
+                got = _assert_curvature_fleet(x[None], r[None], m[None], w)
+                assert torch.equal(got[0], kernels.curvature_edges(
+                    xyz, ring, mask, w, 0.2, 0.5))
+    elif case == "odd_stride":
+        n, B = 2 * T + 333, 5
+        xyz, ring, mask = _sweep_lanes(dev, B * n)
+        xyz, ring, mask = (t.view((B, n) + t.shape[1:])
+                           for t in (xyz, ring, mask))
+        assert xyz.stride(0) == 3 * n and n % 2
+        for w in (1, 5, 16):
+            _assert_curvature_fleet(xyz, ring, mask, w)
+            _assert_curvature_fleet(xyz, ring, mask, w, thr=-1.0)
+    elif case == "ring_major_b64":
+        xyz, ring, mask = _sweep_lanes(dev, 128 * 1024)
+        shift = torch.linspace(0.0, 0.5, 64, device=dev)[:, None, None]
+        x = (xyz[None] + shift).contiguous()
+        r = ring.expand(64, -1).contiguous()
+        m = mask.expand(64, -1).contiguous()
+        for w in (1, 5, 16):
+            got = _assert_curvature_fleet(x, r, m, w)
+            assert int(got.sum()) > 64 * 500
+        _assert_curvature_fleet(x, torch.zeros_like(r), m, 5, thr=-1.0)
+    else:
+        xyz, ring, mask = _sweep_lanes(dev, 128 * 1024)
+        x, r, m = (t.expand((16,) + t.shape) for t in (xyz, ring, mask))
+        assert x.stride(0) == 0
+        for w in (1, 16):
+            got = _assert_curvature_fleet(x, r, m, w)
+            assert all(torch.equal(got[0], got[b]) for b in range(16))
 
 
 def _edge_case(dev, ne=512, npl=2048, seed=3, k=10):

@@ -28,8 +28,9 @@ from superodom_tpu.io import scenarios as jsc  # noqa: E402
 from superodom_tpu.io.datasets import ate_rmse  # noqa: E402
 from superodom_tpu.runner import OdometryRunner as JRunner  # noqa: E402
 
-from superodom_tpu_torch import kernels, mapstate  # noqa: E402
+from superodom_tpu_torch import frontend, kernels, mapstate  # noqa: E402
 from superodom_tpu_torch import registration  # noqa: E402
+from superodom_tpu_torch.io.datasets import ring_sweep  # noqa: E402
 from superodom_tpu_torch.tools import kernel_ab  # noqa: E402
 from superodom_tpu_torch.tools import profile as tprof  # noqa: E402
 from superodom_tpu_torch.tools import stress_matrix as tsm  # noqa: E402
@@ -134,12 +135,12 @@ def test_ab_on_a_tiny_config(capsys):
 
 
 def test_kernel_ab_cases_and_checks(monkeypatch):
-    """Every case of a recorded K9a / K9b / K10 / K11b launch set at fleets
-    of 1 and 3 launches on fleet-shaped inputs and passes its check
-    against itself; the checks catch a changed valid K9a or K9b lane, a
-    changed K10 keep or round-2 neighbour and a changed K11b output off
-    the gate margins, and pass a change in an invalid or a flagged
-    lane."""
+    """Every case of a recorded K9a / K9b / K10 / K11a / K11b launch set at
+    fleets of 1 and 3 launches on fleet-shaped inputs (K11a also on one
+    cloud shared by the fleet) and passes its check against itself; the
+    checks catch a changed valid K9a or K9b lane, a changed K10 or K11a
+    keep or round-2 neighbour and a changed K11b output off the gate
+    margins, and pass a change in an invalid or a flagged lane."""
     import types
 
     from superodom_tpu_torch.ops import voxel
@@ -167,7 +168,15 @@ def test_kernel_ab_cases_and_checks(monkeypatch):
     q = torch.from_numpy(g.integers(-2, 3, (nq, 3)).astype(np.float32))
     cloud = torch.from_numpy(g.uniform(-5, 5, (300, 3)).astype(np.float32))
     live = torch.from_numpy(g.random(300) < 0.9)
+    sweep, sweep_ring = ring_sweep(4, 75)
+    sweep = torch.from_numpy(sweep)
+    curv = (5, 0.2, 0.5)
     seen = {("select_reduced", 16): (*reduced(16), 5),
+            ("curvature_edges", "path E scan"): (
+                sweep, torch.zeros(300, dtype=torch.int32), live, *curv),
+            ("curvature_edges", "ring-major sweep"): (
+                sweep, torch.from_numpy(sweep_ring),
+                torch.ones(300, dtype=torch.bool), *curv),
             ("select_reduced", 20): (*reduced(20), 10), "edge_fit": edge,
             ("reduce_candidates", 16): (pts, slots, q, 16, 5),
             ("voxel_claim", "path V"): (cloud, live, torch.tensor(0.5), 10)}
@@ -194,6 +203,10 @@ def test_kernel_ab_cases_and_checks(monkeypatch):
         return each(voxel.voxel_downsample_scatter_reference,
                     args[0].shape[0], *args)[0]
 
+    def edges(*args):
+        return each(frontend.curvature_edge_extraction_reference,
+                    args[0].shape[0], *args)[0]
+
     # a build with K9a's k nearest and K10's cluster form
     monkeypatch.setattr(kernels, "_lib",
                         types.SimpleNamespace(so_voxel_claim_clusters=None))
@@ -201,13 +214,17 @@ def test_kernel_ab_cases_and_checks(monkeypatch):
     monkeypatch.setattr(kernels, "edge_fit_batched", fit)
     monkeypatch.setattr(kernels, "reduce_candidates_batched", reduce)
     monkeypatch.setattr(kernels, "voxel_claim_batched", claim)
+    monkeypatch.setattr(kernels, "curvature_edges_batched", edges)
     runs = kernel_ab.cases(seen, fleets=(1, 3))
     assert sorted(runs) == sorted(
         [f"select_reduced {kk} of {w}, B={b}" for w, kk in ((16, 5), (20, 10))
          for b in (1, 3)] + [f"edge_fit {m} x {k}, B={b}" for b in (1, 3)]
         + [f"reduce_candidates 16{r}, B={b}" for b in (1, 3)
            for r in ("", " + round 2's 5")]
-        + [f"voxel_claim path V 300 x 2^10, B={b}" for b in (1, 3)])
+        + [f"voxel_claim path V 300 x 2^10, B={b}" for b in (1, 3)]
+        + [f"curvature_edges {tag}{form} 300, B={b}" for b in (1, 3)
+           for tag in ("path E scan", "ring-major sweep")
+           for form in ("", " shared")])
     for label, (launch, same) in runs.items():
         got = launch()
         b = int(label.rsplit("=", 1)[1])
@@ -238,6 +255,12 @@ def test_kernel_ab_cases_and_checks(monkeypatch):
     flipped = got.clone()
     flipped[0, 7] = ~flipped[0, 7]
     assert keep[1](got, got) and not keep[1](flipped, got)
+    ce = runs["curvature_edges ring-major sweep shared 300, B=3"]
+    got = ce[0]()
+    assert got.shape == (3, 300) and bool(got.any())
+    flipped = got.clone()
+    flipped[2, 11] = ~flipped[2, 11]
+    assert ce[1](got, got) and not ce[1](flipped, got)
     e = fit(*(t[None] for t in edge[:5]), *edge[5:])
     coeff = e[2].clone()
     coeff[0, 3] += 1.0
