@@ -459,7 +459,7 @@ def test_icp_register_with_edges_matches_jax(poles, case):
     np.testing.assert_array_equal(st_t.line_rejection_hist.numpy(),
                                   st_j.line_rejection_hist)
     # a plane-fit lane within 1e-5 of a gate may flip (as in
-    # tests/test_torch_registration.py)
+    # tests/test_torch_icp.py)
     np.testing.assert_allclose(st_t.iter_surf_num.numpy(),
                                st_j.iter_surf_num, atol=3)
     np.testing.assert_allclose(st_t.plane_rejection_hist.numpy(),
