@@ -33,7 +33,16 @@ each logging its wall seconds as ``phase N: S s`` as it ends (kept in
    gate margin, which are counted), and K10 on the 24,576-lane edge stream
    (a 2^17 table); on a pole lattice in a walled room K11b (more than half
    of 512 lines valid) and K4 with 512 edge rows beside 2,048 planes
-   (normal system within 1e-5 of |H|, GN solve within GN_TOL).  K10
+   (normal system within 1e-5 of |H|, GN solve within GN_TOL).  K12a
+   smoother_gn_step and smoother_marginalize on every system of the
+   ship path's first SMOOTHER_SCANS scans per scan (the window filling,
+   then marginalizing): each output's finite pattern its plain version's
+   and its finite entries within SMOOTHER_K times the plain version's
+   float32 sensitivity (the largest change of its output when its inputs
+   move one float32 step) plus 2^-20 of their size, and every system the
+   plain version's bits (K12a keeps the plain version's library orders at
+   the ship window of 6 states: a library whose order moved fails here
+   before the benchmark's ``correct`` does).  K10
    voxel_claim on a real decimated VLP-16 scan (10,923 lanes, a 2^17
    table) and an OS1-128 one (43,691 lanes, 2^19): the keep-mask
    identical, repeat runs identical, and the clusters its table takes
@@ -127,7 +136,8 @@ each logging its wall seconds as ``phase N: S s`` as it ends (kept in
    single launch bit for bit, one launch serves the fleet for every
    entry, the first tensor shared by four instances (a stride of 0) too,
    repeats identical; the device time of the batched launch at each B
-   and its bound.  7b: ``replay_batched(ship_config("os1"))`` over the
+   and its bound; K12a also at B = K12A_FLEET (the benchmark's fleet: the
+   64 instances' inputs in turn, each copy scaled its own way).  7b: ``replay_batched(ship_config("os1"))`` over the
    datasets' first 20 scans in chunks of 10, four instances on the four
    datasets, against each
    dataset's B = 1 replay through the same function: every instance's
@@ -161,7 +171,8 @@ each logging its wall seconds as ``phase N: S s`` as it ends (kept in
    p90, each rank's placement and peak memory.
 
 Output: a ``{"kernels": [...]}`` line (each entry with ``batched``: its
-route under vmap and its time and bound at B = 4, 16 and 64; and an
+route under vmap and its time and bound at B = 4, 16 and 64, K12a's at
+K12A_FLEET too; and an
 ``octant_lookup_window`` entry, K1 with a shard window), the nvidia-smi
 line, then the last line ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
@@ -245,6 +256,13 @@ BATCH_PATH_SCANS = 24
 MESH_SHARDS = (2, 4)
 MESH_RANKS = 2
 MESH_BATCH = 8
+# K12a: the ship path's scans whose smoother systems phase 1 holds, the
+# fleet 7a also times, the tolerance in units of the plain version's own
+# float32 sensitivity (tests/test_torch_kernels_cuda.py holds K12a with
+# it too)
+SMOOTHER_SCANS = 14
+K12A_FLEET = 512
+SMOOTHER_K = 16.0
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -262,6 +280,8 @@ REPLACES = {
     "voxel_claim": "superodom_tpu/ops/voxel.py:110",
     "curvature_edges": "superodom_tpu/frontend.py:307",
     "edge_fit": "superodom_tpu/registration.py:367",
+    "smoother_gn_step": "superodom_tpu/inertial.py:616",
+    "smoother_marginalize": "superodom_tpu/inertial.py:451",
 }
 
 
@@ -652,6 +672,8 @@ def phase_kernels(name, cfg, ds, torch, dev):
         bound=bound(nq * 37 + 32 + 53 + 29, n_it * (nq * 124 + 600)),
         host_us=host)
 
+    if name == "ship":
+        results.update(hold_smoother(cfg, ds, timer, torch, dev))
     W = reg.refresh_width
     if W == 0:
         return results
@@ -659,6 +681,143 @@ def phase_kernels(name, cfg, ds, torch, dev):
     results.update(hold_reduce_select(m, s_r, queries,
                                       ref.apply(pts).contiguous(), W, k,
                                       timer, torch))
+    return results
+
+
+def smoother_calls(cfg, ds, n, dev):
+    """The inputs of every K12a call in a per-scan replay of the first
+    ``n`` scans of ``ds`` on ``dev``: name -> list of argument tuples."""
+    from superodom_tpu_torch import inertial
+    from superodom_tpu_torch.runner import OdometryRunner
+
+    rec = {"smoother_gn_step": [], "smoother_marginalize": []}
+    plain = (inertial._gn_step, inertial._marginal_system)
+
+    # each argument keeps its strides: the plain version's library calls
+    # pick their order by them (the factors' Jacobians are transposed slabs)
+    def keep(name, fn):
+        def f(*a):
+            rec[name].append(tuple(x.detach().clone() for x in a))
+            return fn(*a)
+        return f
+
+    inertial._gn_step = keep("smoother_gn_step", plain[0])
+    inertial._marginal_system = keep("smoother_marginalize", plain[1])
+    try:
+        OdometryRunner(cfg, device=dev).run_dataset(first_scans(ds, n))
+    finally:
+        inertial._gn_step, inertial._marginal_system = plain
+    return rec
+
+
+def smoother_work(name, w, bias_map=True):
+    """K12a's (bytes, operations) for one instance at a window of ``w``
+    states: inputs read once (the bias map, one copy a launch, only with
+    ``bias_map``), outputs written once; the GN step's normal equations,
+    change of basis (4 N^3), LU (2/3 N^3) and products, the
+    marginalisation's blocks, two LUs and Schur complement."""
+    if name == "smoother_marginalize":
+        return ((450 + 15 + 90 + 6 + 225 + 15) * 4 + (225 + 15) * 4,
+                675 * 30 + 225 * 12 + 900 + 630 + 2250 + 7200 + 3600
+                + 240 * 30 + 2250 + 450 + 225 + 6 * 225)
+    n = 15 * w
+    inputs = 90 * w + 6 * w + 465 * (w - 1) + 241
+    return ((inputs + n + (n * n if bias_map else 0)) * 4,
+            4 * n ** 3 + 2 * n ** 3 // 3 + 9 * n * n
+            + 27900 * (w - 1) + 2880 * w)
+
+
+def smoother_gaps(name, args, torch):
+    """K12a's entry ``name`` at ``args`` against its plain version on the
+    card, per output: (the finite patterns agree, the largest error of the
+    finite entries, the plain version's float32 sensitivity (the largest
+    change of the output over four draws of every factor, residual and
+    prior entry moved one float32 step, ``nextafter``), the size of the
+    finite entries, bit-identical).  tests/test_torch_kernels_cuda.py
+    holds the kernel with it too."""
+    from superodom_tpu_torch import inertial, kernel_ops
+
+    plain = {"smoother_gn_step": inertial._gn_step_reference,
+             "smoother_marginalize":
+                 inertial._marginal_system_reference}[name]
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    got = tup(getattr(kernel_ops, name)(*(a.contiguous() for a in args)))
+    want = tup(plain(*args))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    sens = [0.0] * len(want)
+    for _ in range(4):
+        moved = list(args)
+        for i in range(6):
+            up = torch.rand(args[i].shape, generator=g) < 0.5
+            moved[i] = torch.nextafter(args[i], torch.where(
+                up, float("inf"), float("-inf")).to(args[i].device))
+        for j, (a, b) in enumerate(zip(tup(plain(*moved)), want)):
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if fin.any():
+                sens[j] = max(sens[j], float((a - b)[fin].abs().max()))
+    out = []
+    for k, w, s in zip(got, want, sens):
+        fin = torch.isfinite(w)
+        err = float((k - w)[fin].abs().max()) if fin.any() else 0.0
+        size = float(w[fin].abs().max()) if fin.any() else 0.0
+        out.append((torch.equal(torch.isfinite(k), fin), err, s, size,
+                    bool(((k == w) | ((k != k) & (w != w))).all())))
+    return out
+
+
+def smoother_within(err, sens, size):
+    """K12a's tolerance off its exact orders: SMOOTHER_K times the plain
+    version's sensitivity plus 2^-20 of the output's size."""
+    return err <= SMOOTHER_K * sens + 2.0 ** -20 * size
+
+
+def hold_smoother(cfg, ds, timer, torch, dev):
+    """K12a on every system of the ship path's first SMOOTHER_SCANS scans
+    (the window filling from empty, then marginalizing) against its plain
+    version (``smoother_gaps``): the finite patterns equal, every system
+    within tolerance and, at the ship window, every one the plain
+    version's bits (a library whose order moved fails here first); kernel
+    and plain timed at the last GN step's and marginalisation's inputs (a
+    full window)."""
+    from superodom_tpu_torch import inertial, kernels
+
+    calls = smoother_calls(cfg, ds, SMOOTHER_SCANS, dev)
+    plain = {"smoother_gn_step": inertial._gn_step_reference,
+             "smoother_marginalize": inertial._marginal_system_reference}
+    results = {}
+    for name, per in calls.items():
+        held = [smoother_gaps(name, a, torch) for a in per]
+        for h in held:
+            for fin, e, s, size, _ in h:
+                if not fin or not smoother_within(e, s, size):
+                    raise SystemExit(
+                        f"K12a {name} disagrees with its plain version: "
+                        f"finite pattern equal {fin}, error {e:.3e}, "
+                        f"sensitivity {s:.3e}, size {size:.3e}")
+        worst = max((e / s if s > 0 else (0.0 if e == 0 else float("inf")))
+                    for h in held for _, e, s, _, _ in h)
+        err = max(e for h in held for _, e, _, _, _ in h)
+        same = sum(all(o[4] for o in h) for h in held)
+        last = per[-1]
+        last_c = tuple(x.contiguous() for x in last)
+        log(f"K12a {name}: {len(per)} systems of {SMOOTHER_SCANS} scans "
+            f"within tolerance, {same} of them bit-identical, max abs err "
+            f"{err:.3e}, worst error / sensitivity {worst:.3f} (limit "
+            f"{SMOOTHER_K})")
+        if same != len(per):
+            raise SystemExit(
+                f"K12a {name}: {len(per) - same} of {len(per)} systems at "
+                f"the ship window of {cfg.imu.window_size} states are not "
+                f"the plain version's bits: the library's order moved")
+        results[name] = dict(
+            err=err, err_over_sensitivity=worst, identical=same,
+            systems=len(per),
+            ms=timer(lambda: getattr(kernels, name)(*last_c)),
+            plain_ms=timer(lambda: plain[name](*last)),
+            bound=bound(*smoother_work(name, cfg.imu.window_size)))
     return results
 
 
@@ -1119,6 +1278,10 @@ def expected_launches(cfg, stats):
         "voxel_claim": n * ((cfg.sensor.scan_thin_mode == "voxel") + edges),
         "curvature_edges": n if edges else 0,
         "edge_fit": rounds if edges else 0,
+        # the smoother: a GN step a smoother iteration, a marginalisation a
+        # scan
+        "smoother_gn_step": n * cfg.imu.smoother_gn_iters,
+        "smoother_marginalize": n,
         # K2's gathered mode serves only the library's select_knn
         "knn_select_gathered": 0,
     }
@@ -2152,6 +2315,12 @@ def batched_instances(cfg, datasets, n_inst, torch, dev):
             pts, mask = surface_features(shaper, ds.scans[i], res)
             m = mapstate.insert(m, cfg.map, gt(ds, i).apply(pts), mask, res)
         maps.append(m)
+    # K12a's inputs: each dataset's last smoother systems of a per-scan
+    # replay (a full window)
+    smooth = [{name: tuple(x.contiguous() for x in per[-1])
+               for name, per in smoother_calls(
+                   cfg, ds, SMOOTHER_SCANS, dev).items()}
+              for ds in datasets]
     out = []
     for inst in range(n_inst):
         j, copy = inst % len(datasets), inst // len(datasets)
@@ -2215,6 +2384,8 @@ def batched_instances(cfg, datasets, n_inst, torch, dev):
             "edge_fit": (e_neigh, e_sq, e_nv, mask[:ne].contiguous(),
                          line_res, reg.min_edge_neighbors,
                          float(reg.edge_max_dist_inlier)),
+            **{name: (a[0] * (1.0 + 1e-3 * copy),) + a[1:]
+               for name, a in smooth[j].items()},
         }
         # the bytes each launch must move and its operations, as phase 1
         # counts them for one instance
@@ -2233,6 +2404,9 @@ def batched_instances(cfg, datasets, n_inst, torch, dev):
             "voxel_claim": (nw * 14 + 4, nw * 46),
             "curvature_edges": (n_full * 18, n_full * 80),
             "edge_fit": (ne * reg.edge_knn * 17 + ne * 34 + 4, ne * 1500),
+            # the bias map is one copy for the fleet
+            **{name: smoother_work(name, cfg.imu.window_size, inst == 0)
+               for name in smooth[j]},
         }
         out.append((args, work))
     torch.cuda.synchronize()
@@ -2268,10 +2442,18 @@ def phase_batched_kernels(cfg, datasets, torch, dev, card):
     for name in kernels.KERNELS:
         op = getattr(kernel_ops, name)
         per = [a[name] for a, _ in inst]
+        sizes = BATCH_SIZES
+        if name in ("smoother_gn_step", "smoother_marginalize"):
+            # the benchmark's fleet: the instances' inputs in turn, each
+            # further copy's first tensor scaled its own way
+            sizes = BATCH_SIZES + (K12A_FLEET,)
+            n0 = len(inst)
+            per += [(per[i % n0][0] * (1.0 + 1e-4 * (i // n0)),)
+                    + per[i % n0][1:] for i in range(n0, K12A_FLEET)]
         single = [op(*a) for a in per]
         single = [s if isinstance(s, tuple) else (s,) for s in single]
         checks = {}
-        for B in BATCH_SIZES:
+        for B in sizes:
             idx = list(range(B))
             args, dims = stack_instances(per, idx, torch)
             kernels.reset_counts()
@@ -2286,8 +2468,8 @@ def phase_batched_kernels(cfg, datasets, torch, dev, card):
                 ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
             checks[B] = ok and launches == 1
             ms = device_ms(lambda: torch.func.vmap(op, in_dims=dims)(*args))
-            nbytes = sum(inst[i][1][name][0] for i in idx)
-            ops = sum(inst[i][1][name][1] for i in idx)
+            nbytes = sum(inst[i % len(inst)][1][name][0] for i in idx)
+            ops = sum(inst[i % len(inst)][1][name][1] for i in idx)
             b_ms, b_by = bound(nbytes, ops)
             out.setdefault(name, {})[B] = dict(
                 ms=ms, us_per_instance=ms * 1e3 / B, bound_ms=b_ms,
@@ -2737,7 +2919,8 @@ def main(argv=None):
     # times the kernels line reports from it)
     paths = {
         "ship": (cfg, ds, ("octant_lookup", "knn_select", "plane_fit",
-                           "gn_solve", "normal_system")),
+                           "gn_solve", "normal_system", "smoother_gn_step",
+                           "smoother_marginalize")),
         "parity": (parity_config("os1"), ds, ("reduce_candidates",
                                               "select_reduced")),
         "vlp16": (cfg_vlp, ds_vlp, ("voxel_claim",)),
@@ -2890,10 +3073,10 @@ def main(argv=None):
         **({"vio_prior_on_corridor": measured(k4_prior)}
            if k == "gn_solve" else {}),
         "batched": {"route": kernel_ops.ROUTE[k], "us": {
-            B: batched["kernels"][k][B]["ms"] * 1e3
-            for B in BATCH_SIZES if B > 1}, "bound_us": {
-            B: batched["kernels"][k][B]["bound_ms"] * 1e3
-            for B in BATCH_SIZES if B > 1}},
+            B: r["ms"] * 1e3 for B, r in batched["kernels"][k].items()
+            if B > 1}, "bound_us": {
+            B: r["bound_ms"] * 1e3 for B, r in batched["kernels"][k].items()
+            if B > 1}},
     } for k in kernels.KERNELS]
     # K1 with a shard window: its launches in phase 8b's fleet whose maps
     # lie in two shards, its time at the ship shapes (8a, shard 0 of 2)

@@ -5,7 +5,12 @@ The strapdown chain is a prefix product of quaternions; JAX runs it as a
 ``lax.associative_scan``, here it is a log-depth (Hillis-Steele) scan of
 ``ceil(log2 M)`` batched products.  Bias Jacobians of the preintegration
 and the per-factor Jacobians of the smoother come from ``torch.func.jacfwd``
-(vmapped over window lanes), as ``jax.jacfwd`` gives them in JAX.
+(vmapped over window lanes), as ``jax.jacfwd`` gives them in JAX.  The
+smoother's dense linear algebra (each GN iteration's normal equations and
+scaled solve, the marginalisation's Schur complement) is K12a on the card
+(``kernel_ops.smoother_gn_step`` / ``smoother_marginalize``, one launch a
+fleet); CPU tensors take the plain versions (``_gn_step_reference``,
+``_marginal_system_reference``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import jacfwd, vmap
 
+from superodom_tpu_torch import kernel_ops
 from superodom_tpu_torch.config import ImuConfig
 from superodom_tpu_torch.frontend import ImuWindow
 from superodom_tpu_torch.geometry import (
@@ -371,6 +377,88 @@ def _lane(tree, i):
     return type(tree)(*(a[i] for a in tree))
 
 
+def _marginal_system_reference(Jp, rp, J6, r6, prior_info, r0):
+    """K12a smoother_marginalize's plain version: the Schur complement of
+    the oldest state out of its pair factor (``Jp`` [15, 30], ``rp``
+    [15]), its pose prior (``J6`` [6, 15], ``r6`` [6]) and the marginal
+    prior (``prior_info``, residual ``r0``) -> (info [15, 15], symmetrised,
+    and the successor's step ``delta`` [15], before the trust caps)."""
+    # the products and solves of ops.invariant: an instance's bits under
+    # vmap do not depend on the batch
+    H = inv.matmul(Jp.T, Jp)
+    g = inv.matmul(Jp.T, rp)
+    H = H.clone()
+    H[:15, :15] += inv.matmul(J6.T, J6) + prior_info
+    g = g.clone()
+    g[:15] += inv.matmul(J6.T, r6) + inv.matmul(prior_info, r0)
+
+    A, B, C = H[:15, :15], H[:15, 15:], H[15:, 15:]
+    AinvB = _scaled_solve(A, B)
+    Ainvg = _scaled_solve(A, g[:15])
+    info = C - inv.matmul(B.T, AinvB)
+    info = 0.5 * (info + info.T)
+    gm = g[15:] - inv.matmul(B.T, Ainvg)
+    return info, -_scaled_solve(info, gm)
+
+
+def _marginal_system(Jp, rp, J6, r6, prior_info, r0):
+    """K12a smoother_marginalize: one launch for CUDA tensors (a fleet's
+    instances in one launch under vmap), the plain version for CPU ones;
+    see :func:`_marginal_system_reference` for the contract."""
+    args = (Jp, rp, J6, r6, prior_info, r0)
+    if Jp.is_cuda:
+        return kernel_ops.smoother_marginalize(*(a.contiguous()
+                                                 for a in args))
+    return _marginal_system_reference(*args)
+
+
+def _gn_step_reference(J_pr, r_pr, J_pair, r_pair, prior_info, r0,
+                       prior_gate, T):
+    """K12a smoother_gn_step's plain version: one GN iteration's increment
+    [W, 15] of the window (before the non-finite guard and the trust caps)
+    from the factors' residuals and Jacobians (``r_pr`` [W, 6], ``J_pr``
+    [W, 6, 15], ``r_pair`` [W-1, 15], ``J_pair`` [W-1, 15, 30]), the
+    marginal prior on the oldest state (``prior_info``, residual ``r0``,
+    weight ``prior_gate``) and the bias map ``T`` [15W, 15W]."""
+    W = J_pr.shape[0]
+    dtype, dev = J_pr.dtype, J_pr.device
+    Hp = inv.einsum("wri,wrj->wij", J_pr, J_pr)  # [W,15,15]
+    gp = inv.einsum("wri,wr->wi", J_pr, r_pr)
+    Hq = inv.einsum("wri,wrj->wij", J_pair, J_pair)  # [W-1,30,30]
+    gq = inv.einsum("wri,wr->wi", J_pair, r_pair)
+    H = torch.block_diag(*Hp)
+    g = gp.reshape(-1)
+    # each pair's block added in place of an indexed write (vmap takes
+    # no in-place write of a batched block into a fresh tensor): the
+    # padding adds exact zeros, so every sum keeps its order and bits
+    Hpair = torch.zeros((W * 15, W * 15), dtype=dtype, device=dev)
+    gpair = torch.zeros((W * 15,), dtype=dtype, device=dev)
+    for i in range(W - 1):
+        pad = (i * 15, (W - 2 - i) * 15)
+        Hpair = Hpair + F.pad(Hq[i], pad + pad)
+        gpair = gpair + F.pad(gq[i], pad)
+    H = H + Hpair
+    g = g + gpair
+    # marginal prior on the oldest state (J ~ identity in its tangent)
+    rest = (0, (W - 1) * 15)
+    H = H + F.pad(prior_gate * prior_info, rest + rest)
+    g = g + F.pad(prior_gate * inv.matmul(prior_info, r0), rest)
+    # hierarchical bias reparametrization (see the JAX package)
+    delta = inv.matmul(T, _scaled_solve(
+        inv.matmul(inv.matmul(T.T, H), T), -inv.matmul(T.T, g)))
+    return delta.reshape(W, 15)
+
+
+def _gn_step(J_pr, r_pr, J_pair, r_pair, prior_info, r0, prior_gate, T):
+    """K12a smoother_gn_step: one launch for CUDA tensors (a fleet's
+    instances in one launch under vmap), the plain version for CPU ones;
+    see :func:`_gn_step_reference` for the contract."""
+    args = (J_pr, r_pr, J_pair, r_pair, prior_info, r0, prior_gate, T)
+    if J_pr.is_cuda:
+        return kernel_ops.smoother_gn_step(*(a.contiguous() for a in args))
+    return _gn_step_reference(*args)
+
+
 def _marginalize_oldest(state: SmootherState, cfg: ImuConfig, lidar_w,
                         gravity_w, dtype):
     """Schur-complement the oldest window state into a Gaussian prior on
@@ -396,25 +484,10 @@ def _marginalize_oldest(state: SmootherState, cfg: ImuConfig, lidar_w,
     rp, Jp = pair(z30), jacfwd(pair)(z30)
     r6, J6 = pr(z15), jacfwd(pr)(z15)
     r0 = _state_tangent15(*xi, state.prior_q, state.prior_x)
-
-    # the products and solves of ops.invariant: an instance's bits under
-    # vmap do not depend on the batch
-    H = inv.matmul(Jp.T, Jp)
-    g = inv.matmul(Jp.T, rp)
-    H = H.clone()
-    H[:15, :15] += inv.matmul(J6.T, J6) + state.prior_info
-    g = g.clone()
-    g[:15] += inv.matmul(J6.T, r6) + inv.matmul(state.prior_info, r0)
-
-    A, B, C = H[:15, :15], H[:15, 15:], H[15:, 15:]
-    AinvB = _scaled_solve(A, B)
-    Ainvg = _scaled_solve(A, g[:15])
-    info = C - inv.matmul(B.T, AinvB)
-    info = 0.5 * (info + info.T)
-    gm = g[15:] - inv.matmul(B.T, Ainvg)
+    info, delta = _marginal_system(Jp, rp, J6, r6, state.prior_info, r0)
 
     caps = torch.tensor(_TRUST_CAPS, dtype=dtype, device=dev)
-    delta = torch.clamp(-_scaled_solve(info, gm), -caps, caps)
+    delta = torch.clamp(delta, -caps, caps)
     delta = torch.where(torch.isfinite(delta), delta, 0.0)
     q1 = quat_normalize(quat_mul(state.q[1], so3_exp(delta[0:3])))
     x1_old = torch.cat([state.p[1], state.v[1], state.ba[1], state.bg[1]])
@@ -517,33 +590,10 @@ def smoother_update(state: SmootherState, cfg: ImuConfig,
         xj = (q_c[1:], p_c[1:], v_c[1:], ba_c[1:], bg_c[1:])
         r_pair, J_pair = vmap(pair_factor)(xi, xj, pre_pairs, pair_valid,
                                            w_bias_a[1:], w_bias_g[1:])
-        Hp = inv.einsum("wri,wrj->wij", J_pr, J_pr)  # [W,15,15]
-        gp = inv.einsum("wri,wr->wi", J_pr, r_pr)
-        Hq = inv.einsum("wri,wrj->wij", J_pair, J_pair)  # [W-1,30,30]
-        gq = inv.einsum("wri,wr->wi", J_pair, r_pair)
-        H = torch.block_diag(*Hp)
-        g = gp.reshape(-1)
-        # each pair's block added in place of an indexed write (vmap takes
-        # no in-place write of a batched block into a fresh tensor): the
-        # padding adds exact zeros, so every sum keeps its order and bits
-        Hpair = torch.zeros((W * 15, W * 15), dtype=dtype, device=dev)
-        gpair = torch.zeros((W * 15,), dtype=dtype, device=dev)
-        for i in range(W - 1):
-            pad = (i * 15, (W - 2 - i) * 15)
-            Hpair = Hpair + F.pad(Hq[i], pad + pad)
-            gpair = gpair + F.pad(gq[i], pad)
-        H = H + Hpair
-        g = g + gpair
-        # marginal prior on the oldest state (J ~ identity in its tangent)
         r0 = _state_tangent15(q_c[0], p_c[0], v_c[0], ba_c[0], bg_c[0],
                               st.prior_q, st.prior_x)
-        rest = (0, (W - 1) * 15)
-        H = H + F.pad(prior_gate * st.prior_info, rest + rest)
-        g = g + F.pad(prior_gate * inv.matmul(st.prior_info, r0), rest)
-        # hierarchical bias reparametrization (see the JAX package)
-        delta = inv.matmul(T, _scaled_solve(
-            inv.matmul(inv.matmul(T.T, H), T), -inv.matmul(T.T, g)))
-        delta = delta.reshape(W, 15)
+        delta = _gn_step(J_pr, r_pr, J_pair, r_pair, st.prior_info, r0,
+                         prior_gate, T)
         delta = torch.where(torch.isfinite(delta), delta, 0.0)
         delta = torch.clamp(delta, -caps, caps)
         carry = (

@@ -15,7 +15,8 @@ with what the rule's route gives:
   reduce_candidates, K3 plane_fit, K4 gn_solve and normal_system, K10
   voxel_claim (one claim table an instance), K11a curvature_edges (the
   stencil wrapping within each instance) (``kernels.*_batched``, the
-  instance on ``blockIdx.y``), and K11b edge_fit
+  instance on ``blockIdx.y``), K12a smoother_gn_step and
+  smoother_marginalize (a block an instance), and K11b edge_fit
   (``kernels.edge_fit_batched``, one thread a correspondence of the B x Q,
   each reading its instance's line resolution);
 * flattened (one launch): K9b select_reduced, whose every input is per
@@ -23,7 +24,8 @@ with what the rule's route gives:
 
 A rule never hands work to a plain version, and a kernel reached under
 vmap without a rule raises (``kernels._check``).  The dispatching wrappers
-(``mapstate``, ``registration``, ``frontend``, ``ops.voxel``) call these
+(``mapstate``, ``registration``, ``frontend``, ``ops.voxel``,
+``inertial``) call these
 operators for CUDA tensors and the plain versions for CPU tensors; under
 vmap on the CPU the plain versions batch by themselves.
 
@@ -57,6 +59,8 @@ ROUTE = {
     "voxel_claim": "instance dimension",
     "curvature_edges": "instance dimension",
     "edge_fit": "instance dimension",
+    "smoother_gn_step": "instance dimension",
+    "smoother_marginalize": "instance dimension",
 }
 
 
@@ -253,3 +257,34 @@ def _(info, in_dims, neigh, sq, nvalid, mask, line_res, min_neighbors,
     return kernels.edge_fit_batched(
         *_fronts(info, in_dims, neigh, sq, nvalid, mask, line_res),
         min_neighbors, max_dist_inlier), (0,) * 5
+
+
+# ------------------------------------------------------------------ K12a
+
+
+@_op("smoother_gn_step")
+def smoother_gn_step(J_pr: Tensor, r_pr: Tensor, J_pair: Tensor,
+                     r_pair: Tensor, prior_info: Tensor, r0: Tensor,
+                     prior_gate: Tensor, T: Tensor) -> Tensor:
+    """f32[W, 15]: one smoother GN iteration's increment."""
+    return kernels.smoother_gn_step(J_pr, r_pr, J_pair, r_pair, prior_info,
+                                    r0, prior_gate, T)
+
+
+@smoother_gn_step.register_vmap
+def _(info, in_dims, *args):
+    return kernels.smoother_gn_step_batched(*_fronts(info, in_dims,
+                                                     *args)), 0
+
+
+@_op("smoother_marginalize")
+def smoother_marginalize(Jp: Tensor, rp: Tensor, J6: Tensor, r6: Tensor,
+                         prior_info: Tensor, r0: Tensor) -> _T2:
+    """(info f32[15, 15], delta f32[15]) of the marginalisation."""
+    return kernels.smoother_marginalize(Jp, rp, J6, r6, prior_info, r0)
+
+
+@smoother_marginalize.register_vmap
+def _(info, in_dims, *args):
+    return kernels.smoother_marginalize_batched(*_fronts(info, in_dims,
+                                                         *args)), (0, 0)

@@ -10,8 +10,8 @@ imports on a machine without either.
 Each launch function below checks device, dtype, shape and contiguity,
 allocates its outputs with ``torch.empty``, launches on the current CUDA
 stream, raises if the launch was refused, and adds one to its entry of
-:data:`launch_counts` — there and nowhere else.  K1-K4, K9a, K10, K11a
-and K11b also take n instances in one launch (``*_batched``: every input
+:data:`launch_counts` — there and nowhere else.  K1-K4, K9a, K10, K11a,
+K11b and K12a also take n instances in one launch (``*_batched``: every input
 with a leading instance dimension, each instance contiguous, any stride
 between them, 0 for one copy shared by every instance); the
 single-instance functions are that launch with n = 1.  They take
@@ -23,7 +23,8 @@ makes the batched launch.  The dispatching wrappers
 ``ops.voxel.voxel_downsample_scatter``,
 ``frontend.curvature_edge_extraction``, ``registration.plane_fit``,
 ``registration.edge_fit``, ``registration.normal_system``,
-``registration.gauss_newton_solve``) call those operators for CUDA
+``registration.gauss_newton_solve``, ``inertial._gn_step``,
+``inertial._marginal_system``) call those operators for CUDA
 tensors and send CPU tensors to the plain versions.  K2's gathered mode
 (:func:`knn_select_gathered`, counted as ``knn_select_gathered``) serves
 only the library's ``mapstate.select_knn``, which calls it directly: it
@@ -48,19 +49,23 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("octant_lookup", "knn_select", "plane_fit", "normal_system",
            "select_reduced", "voxel_claim", "curvature_edges", "edge_fit",
-           "launch_floor")
+           "smoother_solve", "launch_floor")
 HEADERS = ("common.cuh", "eigh3.cuh")
 # the counted entry points; gn_solve and normal_system are the two modes of
 # csrc/normal_system.cu, reduce_candidates is csrc/knn_select.cu with the
-# planar output
+# planar output, smoother_gn_step and smoother_marginalize the two kernels
+# of csrc/smoother_solve.cu
 KERNELS = ("octant_lookup", "knn_select", "plane_fit", "gn_solve",
            "normal_system", "reduce_candidates", "select_reduced",
-           "voxel_claim", "curvature_edges", "edge_fit")
+           "voxel_claim", "curvature_edges", "edge_fit", "smoother_gn_step",
+           "smoother_marginalize")
 # K2's gathered mode: the library's select_knn over candidates the caller
 # gathered (mapstate.select_knn); counted apart, launched by no replay path
 LIBRARY_KERNELS = ("knn_select_gathered",)
 SOURCE_OF = {"gn_solve": "normal_system", "reduce_candidates": "knn_select",
-             "knn_select_gathered": "knn_select"}
+             "knn_select_gathered": "knn_select",
+             "smoother_gn_step": "smoother_solve",
+             "smoother_marginalize": "smoother_solve"}
 # --threads 0: the sources compile side by side, one thread a core
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -81,6 +86,10 @@ VOXEL_CLUSTER_MAX_BITS = 19
 CURVATURE_LANES = 3
 CURVATURE_TILE = CURVATURE_LANES * 128
 CURVATURE_MAX_N = 2**31 - 1 - 2 * CURVATURE_TILE
+# the largest window whose GN system K12a holds in one block's shared
+# memory (csrc/smoother_solve.cu's layout, whose C entry refuses a larger
+# one as well)
+SMOOTHER_MAX_WINDOW = 15
 
 launch_counts = {name: 0 for name in KERNELS + LIBRARY_KERNELS}
 
@@ -173,13 +182,17 @@ def load() -> ctypes.CDLL:
                                        vp, vp]
     lib.so_edge_fit.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf, vp, vp,
                                 vp, vp, vp, ci, vp, vp]
+    lib.so_smoother_gn_step.argtypes = [vp] * 8 + [ci, vp, ci, vp, vp]
+    lib.so_smoother_marginalize.argtypes = [vp] * 8 + [ci, vp, vp]
     lib.so_launch_floor.argtypes = [vp]
     for fn in (lib.so_octant_lookup, lib.so_knn_select,
                lib.so_knn_select_gathered, lib.so_plane_fit,
                lib.so_gn_solve, lib.so_reduce_candidates,
                lib.so_select_reduced, lib.so_voxel_claim,
                lib.so_voxel_claim_clusters,
-               lib.so_curvature_edges, lib.so_edge_fit, lib.so_launch_floor):
+               lib.so_curvature_edges, lib.so_edge_fit,
+               lib.so_smoother_gn_step, lib.so_smoother_marginalize,
+               lib.so_launch_floor):
         fn.restype = ci
     _lib = lib
     return lib
@@ -771,6 +784,80 @@ def gn_solve_batched(p_body, normal, d, coeff, valid, obs_bins, q, t, a_sq,
                     edges=edges, a_sq_e=a_sq_e)
     _launched("gn_solve", rc)
     return out, small
+
+
+def smoother_gn_step(J_pr, r_pr, J_pair, r_pair, prior_info, r0, prior_gate,
+                     T) -> torch.Tensor:
+    """K12a on the card: one smoother GN iteration's increment f32[W, 15]
+    (see csrc/smoother_solve.cu and
+    :func:`inertial._gn_step_reference`)."""
+    return smoother_gn_step_batched(*(x[None] for x in (
+        J_pr, r_pr, J_pair, r_pair, prior_info, r0, prior_gate, T)))[0]
+
+
+def smoother_gn_step_batched(J_pr, r_pr, J_pair, r_pair, prior_info, r0,
+                             prior_gate, T) -> torch.Tensor:
+    """K12a's GN step over n instances in one launch, one block each:
+    factors ``J_pr`` [n, W, 6, 15], ``r_pr`` [n, W, 6], ``J_pair``
+    [n, W - 1, 15, 30], ``r_pair`` [n, W - 1, 15], the marginal prior
+    ``prior_info`` [n, 15, 15], ``r0`` [n, 15], ``prior_gate`` [n], the
+    bias map ``T`` [n, 15W, 15W] (a stride of 0: one map for the fleet) ->
+    f32[n, W, 15].  W comes from the shapes; a window whose system does
+    not fit one block's shared memory is refused."""
+    dev = J_pr.device
+    n = J_pr.shape[0]
+    w = J_pr.shape[1] if J_pr.dim() == 4 else -1
+    if w > SMOOTHER_MAX_WINDOW:
+        raise ValueError(f"smoother_gn_step: a window of {w} states does not "
+                         f"fit one block's shared memory (at most "
+                         f"{SMOOTHER_MAX_WINDOW})")
+    f32 = torch.float32
+    strides = _fleet(n, ("J_pr", J_pr, f32, (w, 6, 15)),
+                     ("r_pr", r_pr, f32, (w, 6)),
+                     ("J_pair", J_pair, f32, (w - 1, 15, 30)),
+                     ("r_pair", r_pair, f32, (w - 1, 15)),
+                     ("prior_info", prior_info, f32, (15, 15)),
+                     ("r0", r0, f32, (15,)),
+                     ("prior_gate", prior_gate, f32, ()),
+                     ("T", T, f32, (15 * w, 15 * w)))
+    delta = torch.empty((n, w, 15), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = load().so_smoother_gn_step(
+            _p(J_pr), _p(r_pr), _p(J_pair), _p(r_pair), _p(prior_info),
+            _p(r0), _p(prior_gate), _p(T), w, _p(delta), n, strides,
+            _stream(dev))
+    _launched("smoother_gn_step", rc)
+    return delta
+
+
+def smoother_marginalize(Jp, rp, J6, r6, prior_info, r0):
+    """K12a on the card: the marginalisation's (info f32[15, 15], delta
+    f32[15]) (see csrc/smoother_solve.cu and
+    :func:`inertial._marginal_system_reference`)."""
+    return tuple(o[0] for o in smoother_marginalize_batched(
+        *(x[None] for x in (Jp, rp, J6, r6, prior_info, r0))))
+
+
+def smoother_marginalize_batched(Jp, rp, J6, r6, prior_info, r0):
+    """K12a's marginalisation over n instances in one launch, one block
+    each: ``Jp`` [n, 15, 30], ``rp`` [n, 15], ``J6`` [n, 6, 15], ``r6``
+    [n, 6], ``prior_info`` [n, 15, 15], ``r0`` [n, 15] -> (info
+    f32[n, 15, 15], delta f32[n, 15])."""
+    dev = Jp.device
+    n = Jp.shape[0]
+    f32 = torch.float32
+    strides = _fleet(n, ("Jp", Jp, f32, (15, 30)), ("rp", rp, f32, (15,)),
+                     ("J6", J6, f32, (6, 15)), ("r6", r6, f32, (6,)),
+                     ("prior_info", prior_info, f32, (15, 15)),
+                     ("r0", r0, f32, (15,)))
+    info = torch.empty((n, 15, 15), dtype=f32, device=dev)
+    delta = torch.empty((n, 15), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = load().so_smoother_marginalize(
+            _p(Jp), _p(rp), _p(J6), _p(r6), _p(prior_info), _p(r0),
+            _p(info), _p(delta), n, strides, _stream(dev))
+    _launched("smoother_marginalize", rc)
+    return info, delta
 
 
 def launch_floor(device) -> None:

@@ -2,17 +2,21 @@
 whatever the batch.
 
 On the card, cuBLAS and cuSOLVER take another algorithm for a batched
-matrix product or solve than for a single one (the smoother's 90 x 90
-products and solves, a 15 x 30 transposed product with a vector, a
-per-factor einsum at 64 instances), and PyTorch's reductions split a long
-sum by the number of outputs: under vmap an instance's result would
-depend on how many instances share the call, and the smoother's
-ill-conditioned solves grow that last bit into millimetres of pose
-within a few scans.  Each op here is a custom operator whose vmap rule
-makes the single call once per instance, on that instance's slice (its
-strides as the single call has them), so every instance gets exactly the
-bits of its own single step, on any device.  Outside vmap each is the
-plain op itself.
+matrix product or solve than for a single one, and PyTorch's reductions
+split a long sum by the number of outputs: under vmap an instance's
+result would depend on how many instances share the call, and an
+ill-conditioned solve grows that last bit into millimetres of pose within
+a few scans.  Each op here is a custom operator whose vmap rule makes the
+single call once per instance, on that instance's slice (its strides as
+the single call has them), so every instance gets exactly the bits of its
+own single step, on any device.  Outside vmap each is the plain op
+itself.
+
+A call under vmap costs one single call per instance, so the fleet's main
+path on the card keeps them off its hot loops: its users there are the
+two sums of ``pipeline._adjust_voxel_size``.  The plain versions of the
+hand kernels (registration's among them), which the CPU takes, use them
+too; on the card those run as kernels, one launch a fleet.
 """
 
 from typing import Optional

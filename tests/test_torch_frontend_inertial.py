@@ -18,7 +18,7 @@ from superodom_tpu import inertial as ji  # noqa: E402
 from superodom_tpu.config import ImuConfig as JImu  # noqa: E402
 from superodom_tpu.io.datasets import BoxWorld, make_dataset  # noqa: E402
 
-from superodom_tpu_torch import convert  # noqa: E402
+from superodom_tpu_torch import convert, kernel_ops  # noqa: E402
 from superodom_tpu_torch import frontend as tf  # noqa: E402
 from superodom_tpu_torch import inertial as ti  # noqa: E402
 from superodom_tpu_torch.config import ImuConfig  # noqa: E402
@@ -141,6 +141,62 @@ def test_preintegrate_with_jacobians(data):
                                    atol=1e-4 * max(1.0, np.abs(b).max()),
                                    err_msg=f)
     assert np.abs(pj.J_p_ba).max() > 1e-4  # the Jacobians are not trivial
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def test_smoother_plain_dispatch_matches_the_code_before_k12a(data,
+                                                              monkeypatch):
+    """K12a's dispatch on the CPU: the smoother takes its plain versions,
+    ``_gn_step_reference`` and ``_marginal_system_reference`` (the code
+    the smoother ran before K12a, moved unchanged), and a kernel operator
+    reached here fails the test.  On test_smoother_update_sequence's
+    inputs from an empty window (1 to 6 valid states, then two updates
+    that marginalize the oldest), every GN iteration and marginalisation
+    goes through them, and the dispatch gives each call's outputs bit for
+    bit."""
+    def refuse(*args):
+        raise AssertionError("a K12a operator was reached on the CPU")
+
+    for name in ("smoother_gn_step", "smoother_marginalize"):
+        monkeypatch.setattr(kernel_ops, name, refuse)
+    calls = {"_gn_step_reference": [], "_marginal_system_reference": []}
+
+    def keep(name, fn):
+        def f(*args):
+            out = fn(*args)
+            calls[name].append((tuple(a.clone() for a in args), out))
+            return out
+        return f
+
+    for name in calls:
+        monkeypatch.setattr(ti, name, keep(name, getattr(ti, name)))
+    ds, window = data
+    cfg = ImuConfig(smoother_gn_iters=2)
+    st = ti.smoother_init(cfg)
+    rng = np.random.default_rng(2)
+    for n, k in enumerate(range(12, 20)):
+        q = ds.gt_poses_q[k].astype(np.float32)
+        p = (ds.gt_poses_t[k] + rng.normal(0, 0.005, 3)).astype(np.float32)
+        st, _ = ti.smoother_update(st, cfg, Pose(T(q), T(p)),
+                                   T(np.float32(ds.scans[k].t_start)),
+                                   convert.from_numpy(window(k - 1)))
+        assert int(st.valid.sum()) == min(n + 1, cfg.window_size)
+    assert not bool(st.failed) and bool(st.valid.all())
+    assert len(calls["_gn_step_reference"]) == 8 * cfg.smoother_gn_iters
+    # the marginalisation is worked out on every update, and used once the
+    # window is full
+    assert len(calls["_marginal_system_reference"]) == 8
+    plain = {"_gn_step_reference": ti._gn_step,
+             "_marginal_system_reference": ti._marginal_system}
+    for name, per in calls.items():
+        for args, out in list(per):  # the dispatch below records more
+            for a, b in zip(_leaves(plain[name](*args)), _leaves(out)):
+                assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
 def test_smoother_update_sequence(data):

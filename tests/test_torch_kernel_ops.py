@@ -17,7 +17,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from superodom_tpu_torch import frontend, kernel_ops, kernels  # noqa: E402
+from superodom_tpu_torch import frontend, inertial  # noqa: E402
+from superodom_tpu_torch import kernel_ops, kernels  # noqa: E402
 from superodom_tpu_torch import mapstate, registration  # noqa: E402
 from superodom_tpu_torch.config import MapConfig, RuntimeParams  # noqa: E402
 from superodom_tpu_torch.geometry import Pose, quat_mul, so3_exp  # noqa: E402
@@ -26,11 +27,33 @@ from superodom_tpu_torch.ops import voxel  # noqa: E402
 REG = registration.RegistrationConfig()
 
 
+def smoother_instance(dev, seed, w=6):
+    """K12a's two entries' inputs for a window of ``w`` states, in their
+    custom operators' argument order: random factor Jacobians and
+    residuals, an SPD marginal prior, the prior's gate on, the bias map."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    m = rnd(15, 15)
+    prior = (m @ m.T + 15.0 * torch.eye(15, device=dev)).contiguous()
+    return {
+        "smoother_gn_step": (rnd(w, 6, 15), rnd(w, 6), rnd(w - 1, 15, 30),
+                             rnd(w - 1, 15), prior, rnd(15),
+                             torch.tensor(1.0, device=dev),
+                             inertial._bias_cumsum_map(w, torch.float32,
+                                                       dev)),
+        "smoother_marginalize": (rnd(15, 30), rnd(15), rnd(6, 15), rnd(6),
+                                 prior, rnd(15)),
+    }
+
+
 def kernel_instances(dev, n, nq=300):
     """``n`` instances' inputs of every counted entry, in its custom
     operator's argument order: each instance its own warm map (clustered
     points inserted by the port), queries, plain K1-K3 and K11b outputs,
-    a pose, a cloud and a ring-major sweep."""
+    a pose, a cloud, a ring-major sweep and a smoother window."""
     cfg = MapConfig(cell_size=1.0, table_size=1 << 12, cell_capacity=16)
     out = []
     for j in range(n):
@@ -92,6 +115,7 @@ def kernel_instances(dev, n, nq=300):
             "edge_fit": (n10, s10, v10, mask, line_res,
                          REG.min_edge_neighbors,
                          float(REG.edge_max_dist_inlier)),
+            **smoother_instance(dev, 200 + j),
         })
     return out
 
@@ -137,6 +161,8 @@ PLAIN = {
     "voxel_claim": voxel.voxel_downsample_scatter_reference,
     "curvature_edges": frontend.curvature_edge_extraction_reference,
     "edge_fit": registration.edge_fit_reference,
+    "smoother_gn_step": inertial._gn_step_reference,
+    "smoother_marginalize": inertial._marginal_system_reference,
 }
 
 
@@ -181,7 +207,8 @@ def fake_launches(monkeypatch):
         monkeypatch.setattr(kernels, name, f)
 
     for name in ("octant_lookup", "knn_select", "reduce_candidates",
-                 "plane_fit", "voxel_claim", "curvature_edges", "edge_fit"):
+                 "plane_fit", "voxel_claim", "curvature_edges", "edge_fit",
+                 "smoother_gn_step", "smoother_marginalize"):
         single(name, PLAIN[name])
         batched(f"{name}_batched", PLAIN[name])
     single("select_reduced", PLAIN["select_reduced"])
@@ -244,3 +271,49 @@ def test_vmap_rule_serves_every_instance(name, fake_launches):
     want = want if isinstance(want, tuple) else (want,)
     assert all(_same(o, w) for o, w in zip(one, want))
     assert sum(fake_launches.values()) == 1
+
+
+@pytest.mark.parametrize("name,fault", [
+    (name, fault) for name in ("smoother_gn_step", "smoother_marginalize")
+    for fault in ("dtype", "shape", "layout")] + [("smoother_gn_step",
+                                                   "window")])
+def test_smoother_wrappers_refuse_malformed_inputs(name, fault, monkeypatch):
+    """K12a's batched wrappers over two instances, every tensor in turn:
+    the wrong dtype, a per-instance shape one lane short, instances that
+    are not contiguous, each refused with a ValueError for that fault
+    before the library loads, and the well-formed CPU call for its device;
+    a window of 16 states, whose system does not fit one block's shared
+    memory, refused for its size, and one of 15 states not."""
+    def no_load():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(kernels, "load", no_load)
+    entry = getattr(kernels, f"{name}_batched")
+
+    def fleet(w):
+        one = smoother_instance(torch.device("cpu"), 5, w)[name]
+        return [x.expand((2,) + x.shape).contiguous() for x in one]
+
+    if fault == "window":
+        with pytest.raises(ValueError, match="shared memory"):
+            entry(*fleet(16))
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            entry(*fleet(15))
+        return
+    tensors = fleet(6)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        entry(*tensors)
+    for i, t in enumerate(tensors):
+        if fault == "dtype":
+            bad, want = t.to(torch.float64), "dtype"
+        elif fault == "shape":
+            bad = (t[:, :-1] if t.dim() > 1 else t[:, None]).contiguous()
+            want = "shape"
+        elif t.dim() > 1:  # a 0-d instance is contiguous whatever its stride
+            bad, want = torch.stack([t, t], dim=-1)[..., 0], "contiguous"
+        else:
+            continue
+        args = list(tensors)
+        args[i] = bad
+        with pytest.raises(ValueError, match=want):
+            entry(*args)

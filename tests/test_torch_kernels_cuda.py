@@ -1990,3 +1990,170 @@ def test_mesh_over_every_card(dev):
     np.testing.assert_array_equal(ranks.poses_q, whole.poses_q)
     assert [r["launches"]["octant_lookup"] for r in ranks.ranks] == \
         [2 * counts["octant_lookup"]] * 2
+
+
+# ------------------------------------------------- K12a, the smoother's solves
+
+# K12a keeps the order of the plain version's library calls as an H100
+# runs them at the shipped window of 6 states (and at the
+# marginalisation's fixed 15 x 15 shapes), with the operands in the
+# layouts the pipeline hands them: there it gives the plain version's
+# bits.  At another window the library may sum otherwise, so there K12a
+# is held within chip_smoke.SMOOTHER_K times the plain version's own
+# float32 sensitivity at the same inputs, plus 2^-20 of the output's size
+# (chip_smoke.smoother_gaps and smoother_within, which this file shares)
+SMOOTHER_EXACT_W = 6
+
+
+def _smoke():
+    """chip_smoke.py (the repo's root module), for K12a's shared helpers;
+    imported on the card only."""
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _pipeline_layout(args):
+    """The same inputs with the factors' Jacobians in the layout the
+    pipeline hands over (jacfwd's transposed slabs): the plain version's
+    library calls pick their order by the operands' strides."""
+    def slab(x):
+        return x.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+    # the Jacobians are the first and third inputs of both entries
+    return tuple(slab(x) if i in (0, 2) else x for i, x in enumerate(args))
+
+
+def _hold_smoother(name, args, window):
+    """K12a's entry ``name`` at a window of ``window`` states against its
+    plain version on the card: the same finite / non-finite pattern, the
+    plain version's bits at SMOOTHER_EXACT_W states and in the
+    marginalisation, and everywhere the finite entries within
+    chip_smoke.smoother_within.  Returns each output's (error,
+    sensitivity, bit-identical)."""
+    smoke = _smoke()
+    exact = name == "smoother_marginalize" or window == SMOOTHER_EXACT_W
+    out = []
+    for fin, err, s, size, same in smoke.smoother_gaps(name, args, torch):
+        assert fin, name
+        assert same or not exact, name
+        assert smoke.smoother_within(err, s, size), (name, err, s, size)
+        out.append((err, s, same))
+    return out
+
+
+def _report(what, held):
+    """One line of readings (shown under pytest -s): systems, the
+    bit-identical ones, the largest error and error / sensitivity."""
+    outs = [o for h in held for o in h]
+    ratio = max((e / s if s > 0 else (0.0 if e == 0 else float("inf")))
+                for e, s, _ in outs)
+    print(f"K12a readings {what}: {len(held)} systems, "
+          f"{sum(all(o[2] for o in h) for h in held)} bit-identical, max "
+          f"abs err {max(e for e, _, _ in outs):.3e}, worst error / "
+          f"sensitivity {ratio:.3f} (limit {_smoke().SMOOTHER_K})")
+
+
+@pytest.fixture(scope="module")
+def smoother_replays():
+    """K12a's inputs as a replay hands them over, strides and all: 14
+    OS1-128 ship scans (seed 7) per scan on the card at windows of 6 and 12
+    states, every call of the two entries recorded (from an empty window
+    on)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run "
+                    "only on the card")
+    from superodom_tpu_torch.io.datasets import bench_dataset
+
+    dev = torch.device("cuda")
+    calls = {}
+    for w in (6, 12):
+        cfg = ship_config("os1")
+        cfg = dataclasses.replace(cfg, imu=dataclasses.replace(
+            cfg.imu, window_size=w))
+        calls[w] = _smoke().smoother_calls(
+            cfg, bench_dataset(14, cfg.sensor.max_points, 7), 14, dev)
+    return calls
+
+
+@pytest.mark.parametrize("w", [6, 12])
+@pytest.mark.parametrize("name", ["smoother_gn_step",
+                                  "smoother_marginalize"])
+def test_smoother_kernels_match_plain_on_random_systems(dev, name, w):
+    """K12a's two entries on eight random systems at a window of ``w``
+    states (random factors, an SPD prior; the marginalisation has no
+    window), each the plain version's bits at six states and in the
+    marginalisation, else within the sensitivity tolerance of it."""
+    from test_torch_kernel_ops import smoother_instance
+
+    _report(f"{name} random W={w}", [_hold_smoother(name, _pipeline_layout(
+        smoother_instance(dev, 300 + seed, w)[name]), w) for seed in range(8)])
+
+
+@pytest.mark.parametrize("w", [6, 12])
+@pytest.mark.parametrize("name", ["smoother_gn_step",
+                                  "smoother_marginalize"])
+def test_smoother_kernels_match_plain_on_a_replay(dev, smoother_replays,
+                                                  name, w):
+    """K12a's two entries on every system of a 14-scan replay, from an
+    empty window on: the window fills state by state (1 to 6 valid states
+    at w = 6; the invalid states' factors are zero and the damping alone
+    holds their rows), then marginalizes; each system with its plain
+    version's finite pattern, its bits at w = 6 and in the
+    marginalisation, and within the sensitivity tolerance of it."""
+    calls = smoother_replays[w][name]
+    n_iters = ship_config("os1").imu.smoother_gn_iters
+    assert len(calls) == 14 * (n_iters if name == "smoother_gn_step" else 1)
+    _report(f"{name} replay W={w}", [_hold_smoother(name, args, w)
+                                        for args in calls])
+    if name == "smoother_gn_step":
+        filled = {int((a[0].abs().sum(dim=(1, 2)) > 0).sum()) for a in calls}
+        assert set(range(1, min(w, 14) + 1)) <= filled, filled
+
+
+@pytest.mark.parametrize("name", ["smoother_gn_step",
+                                  "smoother_marginalize"])
+def test_smoother_fleets_give_each_instance_its_single_bits(dev, name):
+    """K12a over fleets of 64 and 512 instances in one launch (the GN
+    step's bias map shared with a stride of 0): every instance's outputs
+    equal its own single launch (B = 1) to the bit."""
+    from test_torch_kernel_ops import smoother_instance
+
+    per = [smoother_instance(dev, 500 + i)[name] for i in range(64)]
+    per += [(per[i % 64][0] * (1.0 + 1e-3 * (i // 64)),) + per[i % 64][1:]
+            for i in range(64, 512)]
+    one = getattr(kernels, name)
+    single = [_tuple(one(*a)) for a in per]
+    for n in (64, 512):
+        args = [torch.stack([p[i] for p in per[:n]])
+                for i in range(len(per[0]))]
+        if name == "smoother_gn_step":
+            args[7] = per[0][7].expand((n,) + per[0][7].shape)
+        got = _tuple(getattr(kernels, f"{name}_batched")(*args))
+        for b in range(n):
+            assert all(_same(g[b], s) for g, s in zip(got, single[b])), \
+                (n, b)
+
+
+def test_smoother_gn_step_refuses_a_window_over_shared_memory(dev):
+    """A window of 16 states (its system over one block's 227 KB) is
+    refused by the wrapper before any launch, and by the C entry itself:
+    it returns an error and leaves its output untouched.  A window of 15
+    states, the largest that fits, launches and holds to its plain
+    version."""
+    from test_torch_kernel_ops import smoother_instance
+
+    args16 = smoother_instance(dev, 7, 16)["smoother_gn_step"]
+    n = kernels.launch_counts["smoother_gn_step"]
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel_ops.smoother_gn_step(*args16)
+    assert kernels.launch_counts["smoother_gn_step"] == n
+    out = torch.full((16, 15), float("nan"), device=dev)
+    rc = kernels.load().so_smoother_gn_step(
+        *(kernels._p(x) for x in args16), 16, kernels._p(out), 1,
+        kernels._strides(*[0] * 8), kernels._stream(dev))
+    torch.cuda.synchronize()
+    assert rc != 0 and bool(torch.isnan(out).all())
+    _report("smoother_gn_step random W=15", [_hold_smoother(
+        "smoother_gn_step", smoother_instance(dev, 7, 15)["smoother_gn_step"],
+        15)])
